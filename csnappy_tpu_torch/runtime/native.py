@@ -1,0 +1,76 @@
+"""ctypes binding to the port's host runtime (``csrc/host/csnappy_host.cpp``).
+
+Two host legs of the block codec: the whole-stream boundary scan that routes
+a stream to the segment decoder, and the compactor that concatenates the
+device's padded rows into one stream.  The library is built with ``c++`` at
+first use (:mod:`csnappy_tpu_torch.ops._build`).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+
+from ..ops import _build
+
+SCAN_SEGMENTABLE = 0
+SCAN_CROSSING = 1
+SCAN_FAR_OFFSET = 2
+
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_u32p = ctypes.POINTER(ctypes.c_uint32)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("csnappy_host")
+    lib.csnappy_torch_scan_segments.restype = ctypes.c_int
+    lib.csnappy_torch_scan_segments.argtypes = [
+        _u8p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+        _u32p, ctypes.c_uint32, _u32p, _u32p,
+    ]
+    lib.csnappy_torch_compact.restype = ctypes.c_uint64
+    lib.csnappy_torch_compact.argtypes = [_u8p, ctypes.c_uint32, ctypes.c_uint32, _u32p, _u8p]
+    return lib
+
+
+def scan_segments(data: np.ndarray | bytes, dst_cap: int, seg: int = 32768):
+    """One-pass tag-boundary scan of a headerless stream.
+
+    Returns (rc, seg_offs int64[nseg], produced): rc 0 = the stream splits
+    into independent ``seg``-output blocks starting at compressed offsets
+    ``seg_offs``; rc 1 = legal but a tag straddles a boundary or a copy
+    reaches a prior segment; rc 2 = legal with a copy offset above 32768;
+    any negative rc is the exact E_* error, decided in stream order."""
+    src = np.ascontiguousarray(
+        np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray)) else data,
+        np.uint8,
+    )
+    if not 0 <= dst_cap < 1 << 32 or len(src) >= 1 << 32:
+        raise ValueError("scan_segments takes streams and limits below 4 GiB")
+    max_segs = dst_cap // seg + 2
+    offs = np.zeros(max_segs, np.uint32)
+    nseg = ctypes.c_uint32(0)
+    produced = ctypes.c_uint32(0)
+    rc = _lib().csnappy_torch_scan_segments(
+        src.ctypes.data_as(_u8p), len(src), dst_cap, seg,
+        offs.ctypes.data_as(_u32p), max_segs, ctypes.byref(nseg), ctypes.byref(produced),
+    )
+    return rc, offs[: nseg.value].astype(np.int64), int(produced.value)
+
+
+def compact(padded: np.ndarray, lens: np.ndarray) -> bytes:
+    """Concatenate ``padded[i, :lens[i]]`` over the rows."""
+    padded = np.ascontiguousarray(padded, np.uint8)
+    lens32 = np.ascontiguousarray(lens, np.uint32)
+    if padded.ndim != 2 or lens32.shape != (padded.shape[0],):
+        raise ValueError("compact takes a [B, W] matrix and B lengths")
+    if (lens32 > padded.shape[1]).any():
+        raise ValueError("a length exceeds the row width")
+    out = np.empty(int(lens32.sum(dtype=np.uint64)), np.uint8)
+    n = _lib().csnappy_torch_compact(
+        padded.reshape(-1).ctypes.data_as(_u8p), padded.shape[0], padded.shape[1],
+        lens32.ctypes.data_as(_u32p), out.ctypes.data_as(_u8p),
+    )
+    return out[:n].tobytes()
