@@ -32,7 +32,21 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              and printed beside it, with a design-floor estimate of its
              time from an assumed shared-memory load latency (printed only,
              never in the ``kernels`` line, which holds measured numbers);
-6. the ``kernels`` JSON line, the card's name and power limit, and the
+6. whole streams — on every stream of ``tests/data/torch_ref/streams.npz``:
+             ``scan_segments.cu`` equal to its plain walk and to the JAX
+             scan (``seg``, ``meta``), ``decode_ws`` bytes-or-None equal to
+             the JAX pipeline's, ``decode_stream.cu`` equal to its plain
+             version at the exact limit, 5000 below it and at a multiple of
+             32768, and to the JAX kernel, ``decode_jnp``'s torch ops on the
+             card equal to the CPU and to the JAX decoder; then the main path
+             of the slice with its launch counts set to 0: ``api.decompress``
+             of urls.10K.snappy and of a 16 MiB stream (urls.10K x 24, compressed
+             on the card) through ``decode_ws`` with no host scan, of the
+             unaligned vector through ``decode_stream`` and of a COPY_4
+             offset-40000 stream through ``decode_jnp``; then times on the
+             702 KB and 16 MiB streams (each kernel, the host scan, the whole
+             ``decode_ws`` pipeline);
+7. the ``kernels`` JSON line, the card's name and power limit, and the
    result line.
 
 Any failure raises and exits non-zero; with no card, or without the
@@ -40,6 +54,7 @@ package beside this script, it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import pathlib
 import statistics
@@ -122,6 +137,166 @@ def _pack(torch, frags):
     for i, f in enumerate(frags):
         arr[i, : len(f)] = torch.frombuffer(bytearray(f), dtype=torch.uint8)
     return arr, torch.tensor([len(f) for f in frags], dtype=torch.int32)
+
+
+def _bound(nbytes: int) -> tuple[float, str]:
+    """Least time for a function that moves ``nbytes`` and does one operation a byte."""
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nbytes / OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, card: str):
+    """Phase 6: the whole-stream slice (scan_segments.cu, decode_stream.cu,
+    decode_jnp's torch ops) against its plain versions and the JAX fixture,
+    the API's whole-stream routes with launch counts, and times."""
+    from csnappy_tpu_torch import api
+    from csnappy_tpu_torch.models import wire
+    from csnappy_tpu_torch.ops import decode_fused, decode_jnp, decode_stream, decode_ws
+    from csnappy_tpu_torch.runtime import native
+
+    def u8(b: bytes):
+        return torch.frombuffer(bytearray(b), dtype=torch.uint8)
+
+    def err(a, b) -> int:
+        """Largest absolute difference of two byte tensors of one length (0 if empty)."""
+        assert a.numel() == b.numel()
+        return int((a.cpu().int() - b.cpu().int()).abs().max()) if a.numel() else 0
+
+    def sha(b: bytes) -> list:
+        return list(hashlib.sha256(b).digest())
+
+    z = np.load(DATA / "torch_ref" / "streams.npz")
+    errs = {"scan_segments": 0, "decode_stream": 0, "decode_jnp": 0}
+    nstream = 0
+    for i, name in enumerate(str(s) for s in z["names"]):
+        body, dst = z["body"][z["offs"][i] : z["offs"][i + 1]].tobytes(), int(z["dst_len"][i])
+        nseg = -(-dst // BS)
+        bdev = u8(body).to(dev)
+        seg, meta = decode_ws.scan_segments(bdev, nseg + 1, dev)
+        pseg, pmeta = decode_ws.scan_plain(u8(body), nseg + 1)
+        errs["scan_segments"] = max(errs["scan_segments"], int((seg.cpu() - pseg).abs().max()),
+                                    int((meta[:3].cpu() - pmeta[:3]).abs().max()))
+        if decode_ws.plan(len(body), dst) is not None:      # the JAX scan's seg[:nseg], meta[:3]
+            want = z["ws_seg"][z["ws_seg_offs"][i] : z["ws_seg_offs"][i + 1]]
+            assert seg[:nseg].cpu().numpy().tolist() == want.tolist(), name
+            assert meta[:3].cpu().numpy().tolist() == z["ws_meta"][i].tolist(), name
+        res = decode_ws.decompress_noheader_ws(bdev, dst, dev)
+        assert (res is not None) == bool(z["ws_bytes"][i]), name
+        assert res is None or sha(res) == z["ws_sha"][i].tolist(), name
+        for cap in sorted({dst, max(0, dst - 5000), dst // BS * BS}):
+            got = decode_stream.decode_stream(bdev, cap, dev)
+            want = decode_stream.decode_stream(body, cap, "cpu")
+            p = int(want[1])
+            assert (int(got[1]), int(got[2])) == (p, int(want[2])), (name, cap)
+            errs["decode_stream"] = max(errs["decode_stream"], err(got[0][:p], want[0][:p]))
+            nstream += 1
+            if cap == dst:
+                assert (p, int(got[2])) == (z["st_prod"][i], z["st_status"][i]), name
+                assert sha(got[0][:p].cpu().numpy().tobytes()) == z["st_sha"][i].tolist(), name
+        jg = decode_jnp.decompress_noheader_np(bdev, dst, dev)
+        jc = decode_jnp.decompress_noheader_np(body, dst, "cpu")
+        assert jg[1:] == jc[1:] == (z["jnp_prod"][i], z["jnp_status"][i]), name
+        assert sha(jg[0].tobytes()) == z["jnp_sha"][i].tolist(), name
+        errs["decode_jnp"] = max(errs["decode_jnp"], err(torch.from_numpy(jg[0]), torch.from_numpy(jc[0])))
+    torch.cuda.synchronize()
+    assert not any(errs.values()), errs
+    print(f"[stream] {len(z['names'])} fixture streams: scan_segments (seg, meta) equal to plain "
+          f"and to the JAX scan; decode_ws bytes-or-None equal to the JAX pipeline; "
+          f"decode_stream equal to plain ({nstream} limits: exact, -5000, multiple of 32768) "
+          f"and to the JAX kernel; decode_jnp on the card equal to the CPU and the JAX decoder; "
+          f"max abs err {errs}", flush=True)
+
+    # main path: every whole-stream route through the API, counts at 0 first
+    big = urls * 24                                   # 16.85 MB, 515 segments
+    big_comp = api.compress(big)
+    lit = bytes(range(256)) * 160
+    far = bytearray()
+    wire.emit_literal(far, lit)
+    far += bytes([wire.TAG_COPY_4 | ((8 - 1) << 2)]) + (40000).to_bytes(4, "little")
+    counted = {"scan_segments": decode_ws.scan_segments,
+               "decode_segments": decode_fused.decode_segments,
+               "decode_stream": decode_stream.decode_stream,
+               "decode_jnp": decode_jnp.decompress_noheader_np}
+    host_scan = native.scan_segments
+    host_calls = []
+    native.scan_segments = lambda *a, **k: host_calls.append(1) or host_scan(*a, **k)
+    routes = {}
+    try:
+        for w in counted.values():
+            w.launches = 0
+        for route, fn, want in (
+                ("urls.10K.snappy", lambda: api.decompress(golden), urls),
+                ("unaligned_uint64_test.snappy", lambda: api.decompress(
+                    (DATA / "unaligned_uint64_test.snappy").read_bytes()), unaligned),
+                ("copy4_offset_40000", lambda: api.decompress_noheader(bytes(far), len(lit) + 8),
+                 lit + lit[-40000 : -40000 + 8]),
+                ("urls.10K x24", lambda: api.decompress(big_comp), big)):
+            before = {k: w.launches for k, w in counted.items()}
+            nhost = len(host_calls)
+            assert fn() == want, route
+            routes[route] = {k: w.launches - before[k] for k, w in counted.items()
+                             if w.launches > before[k]}
+            routes[route]["host_scan"] = len(host_calls) - nhost
+    finally:
+        native.scan_segments = host_scan
+    launches = {k: w.launches for k, w in counted.items()}
+    assert all(n > 0 for n in launches.values()), launches
+    for route in ("urls.10K.snappy", "urls.10K x24"):
+        assert routes[route] == {"scan_segments": 1, "decode_segments": 1, "host_scan": 0}, routes
+    assert routes["unaligned_uint64_test.snappy"].get("decode_stream") == 1, routes
+    assert routes["copy4_offset_40000"].get("decode_jnp") == 1, routes
+    print(f"[stream-main] api whole-stream routes on the card: {routes}; launches {launches}",
+          flush=True)
+
+    # times: the 702 KB reference stream and the 16 MiB stream
+    rows = {}
+    for label, stream, dst in (("702KB", golden, len(urls)), ("16MiB", big_comp, len(big))):
+        body = stream[wire.varint_decode(stream)[1]:]
+        nseg = -(-dst // BS)
+        bdev, bcpu = u8(body).to(dev), u8(body)
+        reps = 20 if label == "702KB" else 5
+        tags = int(decode_ws.scan_plain(bcpu, nseg + 1)[1][3])     # the whole chain: every tag
+        comp = torch.nn.functional.pad(bdev.int(), (0, decode_jnp._bucket(len(body)) - len(body)))
+        ms = {"scan_segments": _time_ms(torch, lambda: decode_ws.scan_segments(bdev, nseg + 1, dev),
+                                        n=reps),
+              "decode_stream": _time_ms(torch, lambda: decode_stream.decode_stream(bdev, dst, dev),
+                                        n=reps),
+              "decode_jnp": _time_ms(torch, lambda: decode_jnp._decode_core(
+                  comp, len(body), dst, decode_jnp._bucket(dst)), n=reps)}
+        host_ms = statistics.median(_host_ms(lambda: native.scan_segments(body, dst, BS))
+                                    for _ in range(5))
+        ws_ms = statistics.median(_host_ms(lambda: decode_ws.decompress_noheader_ws(bdev, dst, dev))
+                                  for _ in range(5))
+        print(f"[times] {label} stream ({len(body)} B in, {dst} B out, {nseg} segments, {tags} "
+              f"tags): scan_segments {ms['scan_segments']:.4f} ms on the card, host "
+              f"native.scan_segments {host_ms:.4f} ms; decode_ws pipeline {ws_ms:.4f} ms host clock "
+              f"({dst / ws_ms / 1e6:.3f} GB/s of output)", flush=True)
+        for name, route, src, replaces, nbytes in (
+                ("scan_segments", "cuda", "csnappy_tpu_torch/csrc/scan_segments.cu",
+                 "csnappy_tpu/ops/decode_ws.py:268", len(body) + 4 * (nseg + 1) + 32),
+                ("decode_stream", "cuda", "csnappy_tpu_torch/csrc/decode_stream.cu",
+                 "csnappy_tpu/ops/decode_stream.py:531", len(body) + dst + 16),
+                ("decode_jnp", "torch-ops", "csnappy_tpu_torch/ops/decode_jnp.py",
+                 "csnappy_tpu/ops/decode_jnp.py:184", len(body) + dst)):
+            bound_ms, bound_by = _bound(nbytes)
+            print(f"[times] {label} {name}: {ms[name]:.4f} ms, bound {bound_ms:.5f} ms by "
+                  f"{bound_by} ({nbytes} B), serial chain {tags} tags, {launches[name]} "
+                  f"launches on the main path", flush=True)
+            if label == "702KB":
+                plain = {"scan_segments": lambda: decode_ws.scan_plain(bcpu, nseg + 1),
+                         "decode_stream": lambda: decode_stream.decode_stream(bcpu, dst, "cpu"),
+                         "decode_jnp": lambda: decode_jnp.decompress_noheader_np(bcpu, dst, "cpu")}
+                rows[name] = {"name": name, "route": route, "source": src, "replaces": replaces,
+                              "launches": launches[name], "max_abs_err": errs[name],
+                              "ms": ms[name], "plain_ms": _host_ms(plain[name]),
+                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                              "bytes": nbytes, "chain_steps": tags}
+            else:
+                rows[name].update(ms_16MiB=ms[name], bound_ms_16MiB=bound_ms, chain_steps_16MiB=tags)
+        key = "" if label == "702KB" else "_16MiB"
+        rows["scan_segments"].update({f"host_scan_ms{key}": host_ms, f"decode_ws_ms{key}": ws_ms})
+    print(f"[times] card {card}", flush=True)
+    return list(rows.values())
 
 
 def main() -> int:
@@ -291,16 +466,14 @@ def main() -> int:
         ("encode_blocks", "csnappy_tpu/ops/encode_fused.py:602", enc_ms, enc_plain,
          B * BS + 4 * B, B * ow + 8 * B, max(commits), err_enc),
     ):
-        bytes_ms = (nin + nout) / HBM_BYTES_PER_S * 1e3
-        ops_ms = (nin + nout) / OPS_PER_S * 1e3
+        bound_ms, bound_by = _bound(nin + nout)
         chain_ms = steps * step_ns * 1e-6
         src = "csnappy_tpu_torch/csrc/" + ("encode" if name == "encode_blocks" else "decode") \
             + "_blocks.cu"
         useful = B * BS if name != "decode_segments" else len(urls)   # uncompressed bytes
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "GBps": useful / (ms * 1e-3) / 1e9,
                "bytes": nin + nout, "chain_steps": steps}
         if name == "encode_blocks":
@@ -314,7 +487,10 @@ def main() -> int:
                  if name == "encode_blocks" else ""), flush=True)
     print(f"[times] card {name_}, power limit {power_}, max SM clock {clock_}", flush=True)
 
-    # ---------------------------------------------------------- 6. result
+    # -------------------------------------------------- 6. whole streams
+    rows += _whole_stream(torch, np, dev, urls, golden, unaligned, card)
+
+    # ---------------------------------------------------------- 7. result
     print(json.dumps({"kernels": rows}), flush=True)
     print(_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

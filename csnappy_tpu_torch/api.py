@@ -6,17 +6,26 @@ Same entry points and contracts as ``csnappy_tpu/api.py``; errors raise
 Backends: ``"torch"`` (default) runs the block codec's kernels on
 ``device`` (None = cuda; with no card that raises); ``"py"`` is the oracle.
 
-Routes of the ``torch`` backend:
+Routes of the ``torch`` backend, in the order of ``csnappy_tpu/api.py``:
 
 * fragments and whole streams of at most 32 KiB output decode in one
   ``decode_blocks`` launch; the kernel decides every input exactly, including
   ``dst_len == 0`` (any produced byte overruns);
-* longer streams go through the host boundary scan
-  (``runtime/native.scan_segments``): an error code is the exact answer; a
-  segmentable stream — every stream a 32 KiB fragment encoder emits —
-  decodes in one ``decode_segments`` launch over the stream in place;
-  crossing streams and offsets above 32768 raise ``NotImplementedError``
-  until the stream decoder and the general decoder are ported.
+* longer streams first try ``decode_ws``, on the card end to end: the
+  boundary-scan kernel, then one ``decode_segments`` launch.  It returns
+  the bytes of every stream a 32 KiB fragment encoder emits, and None for
+  anything it cannot verify;
+* on None, the host boundary scan (``runtime/native.scan_segments``)
+  decides: an error code is the exact answer; a segmentable stream decodes
+  in one ``decode_segments`` launch over the stream in place; a stream with
+  copy offsets above 32768 goes to the general decoder ``decode_jnp``
+  (torch ops on the card); a crossing stream (a tag or copy across a 32 KiB
+  output boundary) goes to the ``decode_stream`` kernel, and to
+  ``decode_jnp`` when that answers E_DATA_MALFORMED (a legal literal beyond
+  its 2^24-byte envelope).
+
+A segment decoder that disagrees with the host scan raises ``RuntimeError``:
+that is a kernel fault to surface, not a stream to re-decide.
 
 Header-mode :func:`decompress` also checks that the stream produced exactly
 the header-declared length (E_DATA_MALFORMED otherwise).  The oracle's own
@@ -93,22 +102,27 @@ def compress(data: bytes, backend: str | None = None,
 
 
 def _decompress_stream_routed(src: bytes, dst_len: int, device) -> tuple[int, bytes]:
-    """Whole-stream decode for dst_len > one block: scan, then one launch."""
-    from .ops import decode_fused
+    """Whole-stream decode for dst_len > one block (csnappy_tpu/api.py:107-210)."""
+    from .ops import decode_fused, decode_jnp, decode_stream, decode_ws
     from .runtime import native
 
     body = np.frombuffer(src, np.uint8)
+    res = decode_ws.decompress_noheader_ws(body, dst_len, device)
+    if res is not None:
+        return E_OK, res
     rc, offs, produced = native.scan_segments(body, dst_len, wire.BLOCK_SIZE)
     if rc < 0:
         return rc, b""                      # the exact error, no device pass
-    if rc == native.SCAN_CROSSING:
-        raise NotImplementedError(
-            "stream with tags or copies across 32 KiB output segments: needs the "
-            "crossing-stream decoder (decode_stream), a later slice of the port")
     if rc == native.SCAN_FAR_OFFSET:
-        raise NotImplementedError(
-            "stream with copy offsets above 32768: needs the general decoder "
-            "(decode_jnp), a later slice of the port")
+        out, _, status = decode_jnp.decompress_noheader_np(body, dst_len, device)
+        return status, out.tobytes()
+    if rc == native.SCAN_CROSSING:
+        out, _, status = decode_stream.decompress_noheader_np(body, dst_len, device)
+        if status == E_DATA_MALFORMED:
+            # a legal stream outside the stream kernel's envelope (a literal
+            # beyond 2^24 bytes): the general decoder decides it
+            out, _, status = decode_jnp.decompress_noheader_np(body, dst_len, device)
+        return status, out.tobytes()
     nseg = len(offs)
     if nseg == 0:
         return E_OK, b""

@@ -30,9 +30,11 @@ BUILD = PKG / "build"
 SOURCES = {
     "decode_blocks": CSRC / "decode_blocks.cu",
     "encode_blocks": CSRC / "encode_blocks.cu",
+    "scan_segments": CSRC / "scan_segments.cu",
+    "decode_stream": CSRC / "decode_stream.cu",
     "csnappy_host": CSRC / "host" / "csnappy_host.cpp",
 }
-CUDA_NAMES = ("decode_blocks", "encode_blocks")
+CUDA_NAMES = ("decode_blocks", "encode_blocks", "scan_segments", "decode_stream")
 
 
 def nvcc() -> str:

@@ -2,10 +2,14 @@
 
 The ``test_api.py`` cases of the block codec's slice (lengths, roundtrips,
 fragment roundtrip, decode errors, the hostile header, the selftests), run
-on ``device="cpu"``, plus the routes that differ from the JAX package: the
-kernel decides ``dst_len == 0`` and every single-block input itself, and
-whole streams that are not segmentable raise ``NotImplementedError``.
+on ``device="cpu"``, plus the routes of the port: the kernel decides
+``dst_len == 0`` and every single-block input itself, and whole streams
+that are not segmentable (crossing, far offsets) decode as the JAX package
+decodes them.
 """
+import hashlib
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -13,9 +17,40 @@ import torch
 from csnappy_tpu_torch import api, errors
 from csnappy_tpu_torch.config import CodecConfig
 from csnappy_tpu_torch.models import pymodel, wire
+from csnappy_tpu_torch.runtime import native
 
 FAKE = b"\x32\xc4foooooo"
 CPU = "cpu"
+STREAMS = pathlib.Path(__file__).parent / "data" / "torch_ref" / "streams.npz"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the suite runs in parallel worker processes; one intra-op thread each
+    # keeps the torch ops here from contending with every other worker
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _fixture_stream(name: str) -> tuple[bytes, int]:
+    with np.load(STREAMS) as z:
+        i = [str(n) for n in z["names"]].index(name)
+        return z["body"][z["offs"][i] : z["offs"][i + 1]].tobytes(), int(z["dst_len"][i])
+
+
+def _jax_api_answer(name: str) -> bytes:
+    """The port's bytes for a fixture stream, once checked against the sha256
+    of what the JAX package's ``api.decompress_noheader`` returned for it."""
+    body, cap = _fixture_stream(name)
+    with np.load(STREAMS) as z:
+        i = [str(n) for n in z["names"]].index(name)
+        assert z["api_status"][i] == 0
+        want = z["api_sha"][i].tobytes()
+    got = pymodel.decompress_noheader(body, cap)
+    assert hashlib.sha256(got).digest() == want
+    return got
 
 
 def _code(fn):
@@ -91,9 +126,12 @@ def test_golden_stream_and_fixture(urls10k, urls10k_snappy, unaligned_bin, unali
     assert api.decompress(urls10k_snappy, device=CPU) == urls10k
     assert api.decompress(api.compress(unaligned_bin, device=CPU), device=CPU) == unaligned_bin
     # the reference's unaligned stream has tags across 32 KiB output
-    # boundaries: the crossing-stream decoder is a later slice
-    with pytest.raises(NotImplementedError, match="decode_stream"):
-        api.decompress(unaligned_snappy, device=CPU)
+    # boundaries: the crossing-stream decoder serves it, as in the JAX package
+    body, ulen = unaligned_snappy[3:], wire.varint_decode(unaligned_snappy)[0]
+    assert native.scan_segments(body, ulen)[0] == native.SCAN_CROSSING
+    got = api.decompress(unaligned_snappy, device=CPU)
+    assert got == unaligned_bin == pymodel.decompress(unaligned_snappy)
+    assert got == _jax_api_answer("unaligned")
 
 
 def test_zero_limit_decided_by_the_decoder():
@@ -144,18 +182,23 @@ def test_long_stream_error_is_the_scans_exact_code(urls10k):
 
 
 def test_crossing_and_far_streams_not_ported_yet():
+    # named for when these streams raised; both classes now decode, equal to
+    # the oracle and to what the JAX package's API answered
     lit = np.random.default_rng(3).integers(0, 256, 40000, dtype=np.uint8).tobytes()
     crossing = bytearray()
     wire.emit_literal(crossing, lit)          # one literal across the 32 KiB boundary
-    with pytest.raises(NotImplementedError, match="decode_stream"):
-        api.decompress_noheader(bytes(crossing), 40000, device=CPU)
     far = bytearray(crossing)
     far += bytes([wire.TAG_COPY_4 | ((8 - 1) << 2)]) + (33000).to_bytes(4, "little")
-    with pytest.raises(NotImplementedError, match="decode_jnp"):
-        api.decompress_noheader(bytes(far), 40008, device=CPU)
-    # the oracle backend still serves both
-    assert api.decompress_noheader(bytes(far), 40008, backend="py") == \
-        pymodel.decompress_noheader(bytes(far), 40008)
+    for stream, cap, rc in ((crossing, 40000, native.SCAN_CROSSING),
+                            (far, 40008, native.SCAN_FAR_OFFSET)):
+        stream = bytes(stream)
+        assert native.scan_segments(stream, cap)[0] == rc
+        want = pymodel.decompress_noheader(stream, cap)
+        assert api.decompress_noheader(stream, cap, device=CPU) == want
+        assert api.decompress_noheader(stream, cap, backend="py") == want
+    for name in ("straddling_literal", "copy4_offset_40000"):
+        body, cap = _fixture_stream(name)
+        assert api.decompress_noheader(body, cap, device=CPU) == _jax_api_answer(name)
 
 
 def test_config_device_and_debug_checks(urls10k):

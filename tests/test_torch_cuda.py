@@ -183,3 +183,139 @@ def test_card_never_takes_the_plain_version(card, monkeypatch):
     monkeypatch.setattr(encode_fused, "emit_plain", refuse)
     frag = api.compress_fragment(b"hello hello hello hello")
     assert api.decompress_noheader(frag, 100) == b"hello hello hello hello"
+
+
+# ------------------------------------------------------ the whole-stream slice
+
+
+@pytest.fixture(scope="module")
+def streams():
+    """The fixture streams of ``tests/data/torch_ref/streams.npz``: (name, body, dst_len)."""
+    with np.load(DATA / "torch_ref" / "streams.npz") as z:
+        return [(str(z["names"][i]), z["body"][z["offs"][i] : z["offs"][i + 1]].tobytes(),
+                 int(z["dst_len"][i])) for i in range(len(z["names"]))]
+
+
+def _u8(b: bytes) -> torch.Tensor:
+    return torch.frombuffer(bytearray(b), dtype=torch.uint8)
+
+
+def _fuzz_bodies(urls10k: bytes, seed: int):
+    """Random bytes, truncations and bit flips of whole streams, at lengths
+    around the scan kernel's 16 KiB windows."""
+    rng = np.random.default_rng(seed)
+    base = pymodel.compress(urls10k[:200000])
+    base = base[wire.varint_decode(base)[1]:]
+    out = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in (1, 5, 16383, 16384, 16389)]
+    out += [base[: int(rng.integers(1, len(base)))] for _ in range(4)]
+    for _ in range(8):
+        b = bytearray(base)
+        for _k in range(int(rng.integers(1, 8))):
+            b[int(rng.integers(0, len(b)))] ^= 1 << int(rng.integers(0, 8))
+        out.append(bytes(b))
+    run = b"\x04ab" + bytes([wire.TAG_COPY_1 | (0 << 2), 2]) * 40000   # 40001 tiny tags
+    return out + [run]
+
+
+def test_scan_kernel_equals_plain(card, streams, urls10k):
+    from csnappy_tpu_torch.ops import decode_ws
+
+    cases = [(b, d) for _, b, d in streams] + [(b, 200000) for b in _fuzz_bodies(urls10k, 5)]
+    for body, dst in cases:
+        nslot = -(-dst // 32768) + 1
+        seg, meta = decode_ws.scan_segments(_u8(body).to(card), nslot, device=card)
+        torch.cuda.synchronize()
+        pseg, pmeta = decode_ws.scan_plain(_u8(body), nslot)
+        assert torch.equal(seg.cpu(), pseg) and torch.equal(meta[:3].cpu(), pmeta[:3]), len(body)
+
+
+@pytest.mark.parametrize("limit", ["exact", "short", "multiple"])
+def test_stream_kernel_equals_plain(card, streams, urls10k, limit):
+    from csnappy_tpu_torch.ops import decode_stream
+
+    cases = [(b, d) for _, b, d in streams] + [(b, 200000) for b in _fuzz_bodies(urls10k, 6)]
+    for body, dst in cases:
+        cap = {"exact": dst, "short": max(0, dst - 5000), "multiple": dst // 32768 * 32768}[limit]
+        out, produced, status = decode_stream.decode_stream(_u8(body).to(card), cap, device=card)
+        torch.cuda.synchronize()
+        pout, pprod, pstatus = decode_stream.decode_stream(body, cap, device="cpu")
+        p = int(pprod)
+        assert (int(produced), int(status)) == (p, int(pstatus)), (len(body), cap)
+        assert torch.equal(out[:p].cpu(), pout[:p])
+
+
+def test_stream_kernel_literal_envelope(card):
+    # a 100000-byte literal decodes; one of 2^24 + 4096 bytes is outside the
+    # envelope, and the API re-decides it on decode_jnp on the card
+    from csnappy_tpu_torch.ops import decode_jnp, decode_stream
+
+    raw = np.random.default_rng(4).integers(0, 256, 100000, dtype=np.uint8).tobytes()
+    s = bytearray()
+    wire.emit_literal(s, raw)
+    out, produced, status = decode_stream.decode_stream(bytes(s), len(raw), device=card)
+    assert (int(produced), int(status)) == (len(raw), 0) and out.cpu().numpy().tobytes() == raw
+    n = (1 << 24) + 4096
+    raw = (b"\xa5\x5a\x01\xfe" * ((n + 3) // 4))[:n]
+    s = bytearray()
+    wire.emit_literal(s, raw)
+    assert int(decode_stream.decode_stream(bytes(s), n, device=card)[2]) == -5
+    before = decode_jnp.decompress_noheader_np.launches
+    assert api.decompress_noheader(bytes(s), n) == raw
+    assert decode_jnp.decompress_noheader_np.launches == before + 1
+
+
+def test_decode_jnp_on_card_equals_cpu(card, streams):
+    from csnappy_tpu_torch.ops import decode_jnp
+
+    for name, body, dst in streams:
+        got = decode_jnp.decompress_noheader_np(_u8(body).to(card), dst, device=card)
+        want = decode_jnp.decompress_noheader_np(body, dst, device="cpu")
+        assert got[1:] == want[1:] and np.array_equal(got[0], want[0]), name
+
+
+def test_api_whole_stream_routes_launch_their_kernels(card, urls10k, urls10k_snappy, monkeypatch):
+    from csnappy_tpu_torch.ops import decode_jnp, decode_stream, decode_ws
+    from csnappy_tpu_torch.runtime import native
+
+    host = []
+    scan = native.scan_segments
+    monkeypatch.setattr(native, "scan_segments", lambda *a, **k: host.append(1) or scan(*a, **k))
+    wrappers = {"scan": decode_ws.scan_segments, "segments": decode_fused.decode_segments,
+                "stream": decode_stream.decode_stream, "jnp": decode_jnp.decompress_noheader_np}
+
+    def launched(fn):
+        before = {k: w.launches for k, w in wrappers.items()}
+        nhost = len(host)
+        fn()
+        got = {k: w.launches - before[k] for k, w in wrappers.items() if w.launches > before[k]}
+        return dict(got, host=len(host) - nhost)
+
+    unaligned = (DATA / "unaligned_uint64_test.snappy").read_bytes()
+    lit = bytes(range(256)) * 160
+    far = bytearray()
+    wire.emit_literal(far, lit)
+    far += bytes([wire.TAG_COPY_4 | ((8 - 1) << 2)]) + (40000).to_bytes(4, "little")
+    assert launched(lambda: api.decompress(urls10k_snappy)) == {"scan": 1, "segments": 1, "host": 0}
+    assert launched(lambda: api.decompress(unaligned)) == \
+        {"scan": 1, "segments": 1, "stream": 1, "host": 1}
+    assert launched(lambda: api.decompress_noheader(bytes(far), len(lit) + 8)) == \
+        {"scan": 1, "segments": 1, "jnp": 1, "host": 1}
+    assert api.decompress(urls10k_snappy) == urls10k
+
+
+def test_whole_stream_never_takes_a_plain_version(card, urls10k_snappy, urls10k, monkeypatch):
+    from csnappy_tpu_torch.ops import decode_stream, decode_ws
+
+    def refuse(*_a, **_k):
+        raise AssertionError("plain version called on the card path")
+
+    for mod, name in ((decode_fused, "decode_plain"), (decode_ws, "scan_plain"),
+                      (decode_stream, "decode_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    assert api.decompress(urls10k_snappy) == urls10k
+    unaligned = (DATA / "unaligned_uint64_test.snappy").read_bytes()
+    assert len(api.decompress(unaligned)) == wire.varint_decode(unaligned)[0]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        decode_stream.decode_stream(_u8(b"\x00a").to(card), 1, device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        decode_ws.scan_segments(_u8(b"\x00a").to(card), 2, device="cpu")

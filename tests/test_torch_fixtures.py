@@ -2,18 +2,23 @@
 
 ``tools/make_torch_fixtures.py`` ran the JAX package's ``decode_blocks``,
 ``encode_blocks`` and ``compress_np`` (Pallas interpret mode on the CPU) on
-seeded inputs and stored inputs and outputs.  Here the inputs are rebuilt
+seeded inputs and stored inputs and outputs, and its whole-stream decoders
+and ``api.decompress_noheader`` on seeded streams (``streams.npz``, outputs
+as sha256).  Here the inputs are rebuilt
 from the seed and must equal the stored ones (drift check); then the port's
 plain path must give the stored outputs exactly: the same bytes, the same
 ``produced`` and the same ``status``.
 """
+import hashlib
 import importlib.util
 import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from csnappy_tpu_torch import api
+from csnappy_tpu_torch.errors import SnappyError
 from csnappy_tpu_torch.interop import meta_from_jax
 from csnappy_tpu_torch.models import pymodel
 from csnappy_tpu_torch.ops import decode_fused, encode_fused
@@ -21,6 +26,16 @@ from csnappy_tpu_torch.ops import decode_fused, encode_fused
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF = ROOT / "tests" / "data" / "torch_ref"
 URLS_JAX_BYTES = 354_567
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the suite runs in parallel worker processes; one intra-op thread each
+    # keeps the torch ops here from contending with every other worker
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _maker():
@@ -33,6 +48,7 @@ def _maker():
 
 MAKER = _maker()
 DECODE_GROUPS = dict(MAKER.DECODE_GROUPS, **MAKER.FAR_GROUP)
+STREAMS, STREAM_REF = MAKER.read_streams()
 
 
 @pytest.fixture(scope="module")
@@ -102,6 +118,29 @@ def test_compress_np_equals_jax_stream(urls10k):
 def test_fixture_stream_decodes_through_the_port(urls10k):
     fixture = (REF / "urls.10K.jax.snappy").read_bytes()
     assert api.decompress(fixture, device="cpu") == urls10k
+
+
+def test_stream_inputs_have_not_drifted():
+    rebuilt = MAKER.load_streams()
+    assert [(n, d) for n, _, d in rebuilt] == [(n, d) for n, _, d in STREAMS]
+    for (name, body, _), (_, stored, _) in zip(rebuilt, STREAMS):
+        assert body == stored, name
+
+
+@pytest.mark.parametrize("i", range(len(STREAMS)), ids=[s[0] for s in STREAMS])
+def test_whole_stream_api_equals_jax(i):
+    # every fixture stream through the port's API routes (decode_ws, the host
+    # scan, decode_segments, decode_stream, decode_jnp) on the CPU, against
+    # what the JAX package's api.decompress_noheader answered
+    _, body, dst = STREAMS[i]
+    want = int(STREAM_REF["api_status"][i])
+    if want:
+        with pytest.raises(SnappyError) as e:
+            api.decompress_noheader(body, dst, device="cpu")
+        assert e.value.code == want
+    else:
+        got = api.decompress_noheader(body, dst, device="cpu")
+        assert hashlib.sha256(got).digest() == STREAM_REF["api_sha"][i].tobytes()
 
 
 def test_meta_from_jax_reads_the_fixture_layout(ref):

@@ -148,7 +148,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
         "import csnappy_tpu_torch, csnappy_tpu_torch.api, csnappy_tpu_torch.interop\n"
-        "from csnappy_tpu_torch.ops import decode_fused, encode_fused\n"
+        "from csnappy_tpu_torch.ops import decode_fused, decode_jnp, decode_stream, decode_ws,"
+        " encode_fused\n"
         "from csnappy_tpu_torch.runtime import native\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'csnappy_tpu'))\n"
@@ -159,16 +160,27 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
 
 
-def test_chip_smoke_imports_nothing_of_jax():
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _top_level_imports(path: pathlib.Path) -> set[str]:
     mods = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             mods |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom):
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
             mods.add(node.module.split(".")[0])
+    return mods
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    mods = _top_level_imports(ROOT / "chip_smoke.py")
     assert "csnappy_tpu_torch" in mods
     assert not mods & {"jax", "jaxlib", "csnappy_tpu"}, mods
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "csnappy_tpu_torch").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_module_imports_nothing_of_jax(path):
+    # every module, imported at run time or not, and whatever imports it
+    assert not _top_level_imports(path) & {"jax", "jaxlib", "csnappy_tpu"}, path
 
 
 # ------------------------------------------------------------- conformance

@@ -1,7 +1,7 @@
 """The port against the JAX package, live, on fresh seeded inputs (``slow``).
 
-The JAX kernels run in Pallas interpret mode on the CPU, about a minute for
-the two calls, so this file is marked ``slow`` and left out of runs with
+The JAX kernels run in Pallas interpret mode on the CPU, minutes for the
+calls, so this file is marked ``slow`` and left out of runs with
 ``-m 'not slow'``; ``test_torch_fixtures.py`` holds the port against stored outputs
 instead.  Run it with
 
@@ -63,3 +63,28 @@ def test_decode_blocks_live(batch):
     assert pp.numpy().tolist() == np.asarray(jp).tolist()
     for i, n in enumerate(pp.tolist()):
         assert np.array_equal(po[i, :n].numpy(), jo[i, :n])
+
+
+def test_whole_stream_decoders_live():
+    # a fresh crossing stream (a literal across the 32 KiB boundary, then
+    # copies into the previous segment) and a bit-flipped copy of it
+    from csnappy_tpu.ops import decode_jnp as jax_jnp
+    from csnappy_tpu.ops import decode_stream as jax_stream
+    from csnappy_tpu_torch.models import wire
+    from csnappy_tpu_torch.ops import decode_jnp, decode_stream
+
+    rng = np.random.default_rng(int.from_bytes(b"stream", "little"))
+    s = bytearray()
+    wire.emit_literal(s, rng.integers(0, 256, 33000, dtype=np.uint8).tobytes())
+    for _ in range(100):
+        s += bytes([wire.TAG_COPY_2 | ((int(rng.integers(1, 65)) - 1) << 2)]) \
+            + int(rng.integers(1, 32769)).to_bytes(2, "little")
+    bad = bytearray(s)
+    bad[33005 + int(rng.integers(0, 300))] ^= 1 << int(rng.integers(0, 8))
+    for body in (bytes(s), bytes(bad)):
+        buf = np.frombuffer(body, np.uint8)
+        for jax_mod, mod in ((jax_stream, decode_stream), (jax_jnp, decode_jnp)):
+            jo, jp, js = jax_mod.decompress_noheader_np(buf, 40000)
+            po, pp, ps = mod.decompress_noheader_np(buf, 40000, device="cpu")
+            assert (pp, ps) == (jp, js), mod.__name__
+            assert np.array_equal(po, np.asarray(jo)[:jp]), mod.__name__

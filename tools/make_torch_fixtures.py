@@ -1,23 +1,35 @@
 """Write the JAX package's reference outputs for the PyTorch port's tests.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [--far]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [--far] [--group G]
 
 Writes ``tests/data/torch_ref/``:
 
 * ``urls.10K.jax.snappy`` — ``encode_fused.compress_np(urls.10K)``;
 * ``blocks.npz`` — seeded inputs (built by :func:`build_inputs`) and what
   ``decode_fused.decode_blocks`` / ``encode_fused.encode_blocks`` return for
-  them.  The tests rebuild the inputs from the seed, check them against the
-  stored copies (drift check), then hold the port against the stored outputs.
+  them;
+* ``streams.npz`` — whole headerless streams and their output limits (built
+  by :func:`build_streams`), and for each what the JAX package answers:
+  ``decode_ws.decompress_noheader_ws`` (run with ``FORCE_CPU``: bytes or
+  None, plus the boundary scan's ``seg[:nseg]`` and ``meta[:3]``),
+  ``decode_stream`` and ``decode_jnp`` (``produced``, ``status``) and
+  ``api.decompress_noheader`` (status), with a sha256 of every output instead
+  of the output itself.
+
+The tests rebuild the inputs from the seed, check them against the stored
+copies (drift check), then hold the port against the stored outputs.
 
 On a CPU backend the Pallas kernels run in interpret mode, so this takes
 minutes; it is run by hand when the reference or the input set changes, never
 by the tests.  ``--far`` adds the 70000-byte-window COPY_4 vector
 (``far`` group, offset 66000 > 65535), which costs several minutes more.
+``--group blocks`` or ``--group streams`` writes one of the two files only;
+the stream group runs one process per stream, ``--procs`` at a time.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import pathlib
 import sys
 import time
@@ -152,26 +164,115 @@ def build_inputs(urls: bytes, baddata3: bytes, far: bool = False) -> dict:
     return out
 
 
+def _fuzz_stream(rng, trial: int) -> bytes:
+    """The mixed random / RLE / text data of ``tests/test_decode_stream.py``'s fuzz case."""
+    pieces, n = [], 0
+    while n < 90000:
+        kind = int(rng.integers(0, 3))
+        m = int(rng.integers(500, 8000))
+        if kind == 0:
+            pieces.append(rng.integers(0, 256, m, dtype=np.uint8).tobytes())
+        elif kind == 1:
+            pieces.append(bytes([int(rng.integers(97, 100))]) * m)
+        else:
+            pieces.append((b"lorem ipsum dolor sit amet " * (m // 27 + 1))[:m])
+        n += m
+    return b"".join(pieces)[: 90000 + trial * 7]
+
+
+def build_streams(urls: bytes, golden: bytes, baddata3: bytes,
+                  unaligned: bytes) -> list[tuple[str, bytes, int]]:
+    """Seeded whole-stream inputs: (name, headerless body, dst_len) each.
+
+    ``golden`` is urls.10K.snappy and ``unaligned`` the reference's
+    unaligned_uint64_test.snappy, both with their headers."""
+    from csnappy_tpu.models import pymodel, wire
+
+    def split(stream: bytes) -> tuple[bytes, int]:
+        ulen, hdr = wire.varint_decode(stream)
+        return stream[hdr:], ulen
+
+    def literal(payload: bytes) -> bytearray:
+        s = bytearray()
+        wire.emit_literal(s, payload)
+        return s
+
+    def copy(kind: int, length: int, offset: int) -> bytes:
+        width = 2 if kind == wire.TAG_COPY_2 else 4
+        return bytes([kind | ((length - 1) << 2)]) + offset.to_bytes(width, "little")
+
+    rng = np.random.default_rng(SEED + 1)
+    out = [("own120k", *split(pymodel.compress(urls[:120000]))),
+           ("golden", *split(golden))]
+    raw = rng.integers(0, 256, 100000, dtype=np.uint8).tobytes()
+    out.append(("straddling_literal", bytes(literal(raw)), len(raw)))
+    raw = rng.integers(0, 256, 50000, dtype=np.uint8).tobytes()
+    s = literal(raw) + copy(wire.TAG_COPY_2, 64, 1000)
+    out.append(("straddling_literal_then_copy", bytes(s), len(raw) + 64))
+    out.append(("fragments_of_a_period_8_run", *split(pymodel.compress((b"abcdefgh" * 5000)[:40000]))))
+    # copies that read the previous 32 KiB segment, offset 32768 included
+    raw = rng.integers(0, 256, 30000, dtype=np.uint8).tobytes()
+    s = literal(raw) + copy(wire.TAG_COPY_2, 64, 30000) * 200
+    out.append(("copies_into_the_previous_segment", bytes(s), 30000 + 64 * 200))
+    raw = rng.integers(0, 256, 32768, dtype=np.uint8).tobytes()
+    s = literal(raw) + copy(wire.TAG_COPY_2, 64, 32768) * 100
+    out.append(("offset_32768", bytes(s), 32768 + 6400))
+    fuzz = np.random.default_rng(77)                    # test_decode_stream.py's seed
+    for trial in range(4):
+        out.append((f"fuzz{trial}", *split(pymodel.compress(_fuzz_stream(fuzz, trial)))))
+    b100, u100 = split(pymodel.compress(urls[:100000]))
+    out.append(("truncated", b100[:-1], u100))
+    out.append(("overrun_by_5000", b100, u100 - 5000))
+    out.append(("baddata3", split(baddata3)[0], 1 << 20))
+    uba, ulen = split(unaligned)
+    for k in range(8):
+        src, cap = (b100, u100) if k < 5 else (uba, ulen)
+        bad = bytearray(src)
+        for _ in range(int(rng.integers(1, 12))):
+            bad[int(rng.integers(0, len(bad)))] ^= 1 << int(rng.integers(0, 8))
+        out.append((f"bit_flips{k}", bytes(bad), cap))
+    raw = rng.integers(0, 256, 40960, dtype=np.uint8).tobytes()
+    for kind, name in ((wire.TAG_COPY_2, "copy2_offset_40000"), (wire.TAG_COPY_4, "copy4_offset_40000")):
+        out.append((name, bytes(literal(raw) + copy(kind, 8, 40000)), len(raw) + 8))
+    out.append(("unaligned", *split(unaligned)))
+    # the output is exactly full at a multiple of 32768 and tags remain
+    b70, _ = split(pymodel.compress(urls[:70000]))
+    out.append(("full_at_65536_with_tags_left", b70, 65536))
+    out.append(("ends_at_65536", *split(pymodel.compress(urls[:65536]))))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--far", action="store_true", help="add the far COPY_4 group")
+    ap.add_argument("--group", choices=("all", "blocks", "streams"), default="all")
+    ap.add_argument("--procs", type=int, default=4, help="processes for the stream group")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    OUT.mkdir(parents=True, exist_ok=True)
+    if args.group in ("all", "blocks"):
+        write_blocks(args.far)
+    if args.group in ("all", "streams"):
+        write_streams(args.procs)
+    print(f"wrote {OUT}", flush=True)
+    return 0
+
+
+def write_blocks(far: bool) -> None:
     from csnappy_tpu.ops import decode_fused, encode_fused
 
     urls = (DATA / "urls.10K").read_bytes()
     baddata3 = (DATA / "baddata3.snappy").read_bytes()
-    OUT.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
     stream = encode_fused.compress_np(urls)
     (OUT / "urls.10K.jax.snappy").write_bytes(stream)
     print(f"compress_np(urls.10K): {len(stream)} B ({time.time() - t0:.0f} s)", flush=True)
 
-    arrays = build_inputs(urls, baddata3, far=args.far)
-    groups = dict(DECODE_GROUPS, **(FAR_GROUP if args.far else {}))
+    arrays = build_inputs(urls, baddata3, far=far)
+    groups = dict(DECODE_GROUPS, **(FAR_GROUP if far else {}))
     for name, block_out in groups.items():
         t0 = time.time()
         o, p, s = decode_fused.decode_blocks(arrays[f"{name}_comp"], arrays[f"{name}_lens"],
@@ -185,8 +286,95 @@ def main() -> int:
         arrays[f"{name}_comp"], arrays[f"{name}_clen"] = c, np.asarray(n, np.int32)
         print(f"encode {name}: B={len(n)} ({time.time() - t0:.0f} s)", flush=True)
     np.savez_compressed(OUT / "blocks.npz", **arrays)
-    print(f"wrote {OUT}", flush=True)
-    return 0
+
+
+def sha(b: bytes) -> np.ndarray:
+    return np.frombuffer(hashlib.sha256(bytes(b)).digest(), np.uint8)
+
+
+def load_streams() -> list[tuple[str, bytes, int]]:
+    """:func:`build_streams` over the repository's data files."""
+    return build_streams(*((DATA / f).read_bytes() for f in (
+        "urls.10K", "urls.10K.snappy", "baddata3.snappy", "unaligned_uint64_test.snappy")))
+
+
+def read_streams() -> tuple[list[tuple[str, bytes, int]], dict]:
+    """The stored stream group: its inputs as (name, body, dst_len) and every array."""
+    with np.load(OUT / "streams.npz") as z:
+        a = {k: z[k] for k in z.files}
+    inputs = [(str(a["names"][i]), a["body"][a["offs"][i] : a["offs"][i + 1]].tobytes(),
+               int(a["dst_len"][i])) for i in range(len(a["names"]))]
+    return inputs, a
+
+
+def _answer_stream(i: int) -> dict:
+    """What the JAX package answers for stream ``i`` of :func:`load_streams`.
+
+    Runs in a fresh process per stream: the Pallas interpreter's programs,
+    compiled per stream shape, exhaust the XLA CPU compiler's code memory
+    within one long process."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from csnappy_tpu import api
+    from csnappy_tpu.errors import SnappyError
+    from csnappy_tpu.ops import decode_jnp, decode_stream, decode_ws
+
+    name, body, dst_len = load_streams()[i]
+    t0 = time.time()
+    buf = np.frombuffer(body, np.uint8)
+    r = {"ws_seg": np.zeros(0, np.int32), "ws_meta": np.zeros(3, np.int32), "api_status": 0,
+         "ws_sha": np.zeros(32, np.uint8), "api_sha": np.zeros(32, np.uint8)}
+    shapes = decode_ws.plan(len(buf), dst_len)
+    if shapes is not None:
+        MR, Bb, _ = shapes
+        arr = np.zeros(MR * decode_ws.L, np.uint8)
+        arr[: len(buf)] = buf
+        ent = decode_ws._entries(jnp.asarray(arr).astype(jnp.int32).reshape(MR, decode_ws.L),
+                                 jnp.int32(len(buf)))
+        seg, meta = decode_ws._scan_compiled(MR, Bb)(jnp.full((1,), len(buf), jnp.int32), ent)
+        r["ws_seg"] = np.asarray(seg)[: -(-dst_len // decode_ws.SEG)]
+        r["ws_meta"] = np.asarray(meta)[:3]
+    decode_ws.FORCE_CPU = True                # the api skips it on a CPU backend
+    res = decode_ws.decompress_noheader_ws(buf, dst_len)
+    decode_ws.FORCE_CPU = False
+    r["ws_bytes"] = res is not None
+    if res is not None:
+        r["ws_sha"] = sha(res)
+    for key, mod in (("st", decode_stream), ("jnp", decode_jnp)):
+        out, prod, status = mod.decompress_noheader_np(buf, dst_len)
+        r[f"{key}_prod"], r[f"{key}_status"] = prod, status
+        r[f"{key}_sha"] = sha(np.asarray(out)[:prod].tobytes())
+    try:
+        r["api_sha"] = sha(api.decompress_noheader(body, dst_len))
+    except SnappyError as e:
+        r["api_status"] = e.code
+    print(f"stream {name}: {len(body)} B -> {dst_len}; ws {'bytes' if res is not None else 'None'}, "
+          f"stream {r['st_status']}, jnp {r['jnp_status']}, api {r['api_status']} "
+          f"({time.time() - t0:.0f} s)", flush=True)
+    return r
+
+
+def write_streams(procs: int) -> None:
+    import multiprocessing
+
+    streams = load_streams()
+    with multiprocessing.get_context("spawn").Pool(procs, maxtasksperchild=1) as pool:
+        rs = pool.map(_answer_stream, range(len(streams)), chunksize=1)
+    a = {"names": np.array([s[0] for s in streams]),
+         "body": np.frombuffer(b"".join(s[1] for s in streams), np.uint8),
+         "offs": np.cumsum([0] + [len(s[1]) for s in streams]).astype(np.int64),
+         "dst_len": np.array([s[2] for s in streams], np.int64),
+         "ws_seg": np.concatenate([r["ws_seg"] for r in rs]).astype(np.int32),
+         "ws_seg_offs": np.cumsum([0] + [len(r["ws_seg"]) for r in rs]).astype(np.int64)}
+    for key in rs[0]:
+        if key != "ws_seg":
+            a[key] = np.array([r[key] for r in rs])
+    for key in ("ws_meta", "st_prod", "st_status", "jnp_prod", "jnp_status", "api_status"):
+        a[key] = a[key].astype(np.int32)
+    np.savez_compressed(OUT / "streams.npz", **a)
 
 
 if __name__ == "__main__":
