@@ -46,7 +46,30 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              offset-40000 stream through ``decode_jnp``; then times on the
              702 KB and 16 MiB streams (each kernel, the host scan, the whole
              ``decode_ws`` pipeline);
-7. the ``kernels`` JSON line, the card's name and power limit, and the
+7. container — ``tools/zramsim.run`` over a 256 MiB tree (the port's
+             corpus files, urls.10K among them, copied under subdirectories up
+             to 268,435,456 B) at 4 KiB pages on the card, with md5 readback of
+             every file and the launch counts of ``encode_blocks`` and
+             ``decode_blocks`` set to 0 before it; the first 64 pages of each
+             corpus file equal to the plain versions' container; every
+             stored page decoded by the port's host decoder
+             (``native.decompress_noheader``) to its input page; the zram record
+             on a JSON line of its own (``{"zram": ...}``): sizes, ratio, codec
+             seconds and GB/s of compress and decompress, host seconds;
+8. container fixture — the port's container on the card equal to the JAX
+             fixture (``tests/data/torch_ref/container.npz``) byte for byte, with
+             equal stats, and the malformed containers' error codes;
+9. cli     — ``python -m csnappy_tpu_torch.cli`` in subprocesses on the card:
+             ``file -c``/``-d`` of urls.10K, ``-d`` of urls.10K.snappy,
+             ``-S c``/``-S d``, ``block -c``/``-d`` at 4 KiB; exit 0 and the
+             right bytes;
+10. movebench — rows 12-13 (``csrc/movebench.cu``: the flat gather and the
+             max-scan) against their plain versions at n = 32768 and 2^24
+             with 0 differing elements, timed beside the library call
+             (``tbl.view(-1)[idx]``, ``torch.cummax``) and the bound (12n and
+             8n bytes over 3.35 TB/s); then ``movebench.main()`` with their
+             launch counts set to 0, printing its five strategy lines;
+11. the ``kernels`` JSON line, the card's name and power limit, and the
    result line.
 
 Any failure raises and exits non-zero; with no card, or without the
@@ -68,22 +91,6 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (NVIDIA data sheet)
 OPS_PER_S = 67e12             # H100 SXM 32-bit rate outside the tensor cores
 SMEM_LOAD_CYCLES = 30         # dependent shared-memory load latency per chain step (assumed)
 B, BS = 64, 32768             # the main path's batch: 64 blocks of 32 KiB
-
-
-def _time_ms(torch, fn, n: int = 20, warm: int = 3) -> float:
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def _host_ms(fn) -> float:
@@ -153,6 +160,7 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
     from csnappy_tpu_torch.models import wire
     from csnappy_tpu_torch.ops import decode_fused, decode_jnp, decode_stream, decode_ws
     from csnappy_tpu_torch.runtime import native
+    from csnappy_tpu_torch.tools.timing import time_ms
 
     def u8(b: bytes):
         return torch.frombuffer(bytearray(b), dtype=torch.uint8)
@@ -257,11 +265,11 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
         reps = 20 if label == "702KB" else 5
         tags = int(decode_ws.scan_plain(bcpu, nseg + 1)[1][3])     # the whole chain: every tag
         comp = torch.nn.functional.pad(bdev.int(), (0, decode_jnp._bucket(len(body)) - len(body)))
-        ms = {"scan_segments": _time_ms(torch, lambda: decode_ws.scan_segments(bdev, nseg + 1, dev),
+        ms = {"scan_segments": time_ms(lambda: decode_ws.scan_segments(bdev, nseg + 1, dev),
                                         n=reps),
-              "decode_stream": _time_ms(torch, lambda: decode_stream.decode_stream(bdev, dst, dev),
+              "decode_stream": time_ms(lambda: decode_stream.decode_stream(bdev, dst, dev),
                                         n=reps),
-              "decode_jnp": _time_ms(torch, lambda: decode_jnp._decode_core(
+              "decode_jnp": time_ms(lambda: decode_jnp._decode_core(
                   comp, len(body), dst, decode_jnp._bucket(dst)), n=reps)}
         host_ms = statistics.median(_host_ms(lambda: native.scan_segments(body, dst, BS))
                                     for _ in range(5))
@@ -299,6 +307,250 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
     return list(rows.values())
 
 
+ZRAM_BYTES = 256 << 20         # the [container] tree: 65,536 pages of 4 KiB
+PAGE = 4096
+
+
+def _container(torch, np, dev, card: str) -> dict:
+    """Phase 7: ``zramsim.run`` over a 256 MiB tree of 4 KiB pages on the
+    card with md5 readback; the first 64 pages of each corpus file equal to
+    the plain versions; every stored page checked with the host decoder;
+    the zram record.  Returns the container path's launch counts."""
+    import os
+    import tempfile
+
+    from csnappy_tpu_torch.ops import decode_fused, encode_fused
+    from csnappy_tpu_torch.runtime import container, native
+    from csnappy_tpu_torch.tools import corpus, zramsim
+
+    files = sorted(corpus.corpus().items())
+    assert "urls.10K" in dict(files), "corpus without tests/data/urls.10K"
+    seen, stats = [], {"c": [], "d": []}
+    compress, decompress = container.compress_blocks, container.decompress_blocks
+
+    def compress_seen(data, *a, **k):
+        cont, st = compress(data, *a, **k)
+        seen.append((data, cont))
+        stats["c"].append(st)
+        return cont, st
+
+    def decompress_seen(*a, **k):
+        out, st = decompress(*a, **k)
+        stats["d"].append(st)
+        return out, st
+
+    with tempfile.TemporaryDirectory(prefix="zram_tree_") as root:
+        written, copy = 0, 0
+        while written < ZRAM_BYTES:
+            sub = os.path.join(root, f"copy{copy:03d}")
+            os.makedirs(sub)
+            for name, data in files:
+                part = data[: ZRAM_BYTES - written]
+                if not part:
+                    break
+                with open(os.path.join(sub, name), "wb") as f:
+                    f.write(part)
+                written += len(part)
+            copy += 1
+        wrappers = {"encode_blocks": encode_fused.encode_blocks,
+                    "decode_blocks": decode_fused.decode_blocks}
+        container.compress_blocks, container.decompress_blocks = compress_seen, decompress_seen
+        try:
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            rec = zramsim.run(root, page_size=PAGE)           # device=None: the card
+            wall = time.perf_counter() - t0
+            launches = {k: w.launches for k, w in wrappers.items()}
+        finally:
+            container.compress_blocks, container.decompress_blocks = compress, decompress
+    assert rec["orig_data_size"] == ZRAM_BYTES and all(n > 0 for n in launches.values()), \
+        (rec, launches)
+
+    # the first 64 pages of each corpus file: card container == plain versions'
+    first = {}
+    for data, cont in seen:                     # one file of each corpus member
+        first.setdefault(data[: 64 * PAGE], (data, cont))
+    n_plain = 0
+    for data, cont in first.values():
+        head = data[: 64 * PAGE]
+        plain, _ = container.compress_blocks(head, PAGE, device="cpu")
+        k = (len(head) + PAGE - 1) // PAGE
+        table = np.frombuffer(cont, "<u4", count=k, offset=4)
+        stored = (table & ~np.uint32(container.RAW_BIT)).astype(np.int64)
+        start = 4 + 4 * int(np.frombuffer(cont, "<u4", count=1)[0])
+        want = (np.array([k], "<u4").tobytes() + table.tobytes()
+                + cont[start : start + int(stored.sum())])
+        assert plain == want, f"container of a {len(data)}-byte file differs from plain"
+        n_plain += k
+
+    # every stored page, through the port's host decoder
+    pages = comp_pages = 0
+    for data, cont in seen:
+        nr = int(np.frombuffer(cont, "<u4", count=1)[0])
+        table = np.frombuffer(cont, "<u4", count=nr, offset=4)
+        raw = (table == PAGE) | (table & container.RAW_BIT > 0)
+        lens = (table & ~np.uint32(container.RAW_BIT)).astype(np.int64)
+        offs = 4 + 4 * nr + np.concatenate([[0], np.cumsum(lens)])
+        for i in range(nr):
+            page = data[i * PAGE : (i + 1) * PAGE]
+            body = cont[offs[i] : offs[i + 1]]
+            got = body if raw[i] else native.decompress_noheader(body, len(page))
+            assert got == page, f"page {i} of a {len(data)}-byte file"
+        pages += nr
+        comp_pages += int((~raw).sum())
+    t0 = time.perf_counter()                    # zramsim hashes each file twice
+    for data, _ in seen:
+        hashlib.md5(data).hexdigest()
+    md5_s = 2 * (time.perf_counter() - t0)
+    c_s = sum(st.codec_seconds for st in stats["c"])
+    d_s = sum(st.codec_seconds for st in stats["d"])
+    hist = [sum(st.histogram[j] for st in stats["c"]) for j in range(3)]
+    record = dict(rec, nr_pages=pages, page_size=PAGE, compressed_pages=comp_pages,
+                  histogram=hist, codec_seconds_compress=c_s, codec_seconds_decompress=d_s,
+                  compress_GBps=ZRAM_BYTES / c_s / 1e9, decompress_GBps=ZRAM_BYTES / d_s / 1e9,
+                  host_seconds=rec["wall_seconds"] - rec["codec_seconds"], md5_seconds=md5_s,
+                  wall_seconds_with_hooks=wall, launches=launches, card=card)
+    print(f"[container] zramsim over {rec['nr_files']} files, {ZRAM_BYTES} B, {pages} pages of "
+          f"{PAGE} B on the card: md5 readback of every file; {n_plain} pages equal to the "
+          f"plain versions; all {pages} stored pages ({comp_pages} compressed) decode through "
+          f"native.decompress_noheader to their input; launches {launches}", flush=True)
+    print(json.dumps({"zram": record}), flush=True)
+    return launches
+
+
+def _container_fixture(np, dev) -> None:
+    """Phase 8: the port's container equals the JAX fixture
+    (``tests/data/torch_ref/container.npz``) byte for byte, stats and error
+    codes included, on the card."""
+    from csnappy_tpu_torch.errors import SnappyError
+    from csnappy_tpu_torch.runtime import container
+
+    z = np.load(DATA / "torch_ref" / "container.npz")
+    for i, name in enumerate(str(s) for s in z["names"]):
+        data = z["data"][z["data_offs"][i] : z["data_offs"][i + 1]].tobytes()
+        want = z["cont"][z["cont_offs"][i] : z["cont_offs"][i + 1]].tobytes()
+        page = int(z["page_size"][i])
+        cont, sc = container.compress_blocks(data, page, device=dev)
+        assert cont == want, name
+        out, sd = container.decompress_blocks(cont, page, device=dev)
+        assert out == data, name
+        for st, key in ((sc, "stats_c"), (sd, "stats_d")):
+            got = [st.nr_pages, st.bytes_in, st.bytes_out, *st.histogram]
+            assert got == z[key][i].tolist(), (name, key, got)
+    codes = []
+    for i, name in enumerate(str(s) for s in z["bad_names"]):
+        cont = z["bad_cont"][z["bad_offs"][i] : z["bad_offs"][i + 1]].tobytes()
+        try:
+            container.decompress_blocks(cont, int(z["bad_page_size"][i]), device=dev)
+            code = 0
+        except SnappyError as e:
+            code = e.code
+        assert code == int(z["bad_code"][i]), (name, code)
+        codes.append(code)
+    print(f"[container-fixture] {len(z['names'])} containers byte-identical to the JAX "
+          f"fixture with equal stats; {len(codes)} malformed containers give its codes "
+          f"{codes}", flush=True)
+
+
+def _cli(urls: bytes, golden: bytes, fixture: bytes) -> None:
+    """Phase 9: ``python -m csnappy_tpu_torch.cli`` in subprocesses on the
+    card, in two waves of parallel processes."""
+    import os
+    import tempfile
+
+    from csnappy_tpu_torch.runtime import container
+
+    with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
+        t = pathlib.Path(tmp)
+        src = DATA / "urls.10K"
+
+        def run(wave):
+            procs = {name: (subprocess.Popen(
+                [sys.executable, "-m", "csnappy_tpu_torch.cli", *args], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE), time.perf_counter())
+                for name, args in wave.items()}
+            for name, (p, t0) in procs.items():
+                out, err = p.communicate(timeout=300)
+                dt = time.perf_counter() - t0
+                assert p.returncode == 0, (name, p.returncode, err.decode()[-2000:])
+                print(f"[cli] {name}: exit 0 in {dt:.1f} s; {err.decode().strip()}", flush=True)
+
+        run({"file -c": ["file", "-c", str(src), str(t / "u.snappy")],
+             "file -d golden": ["file", "-d", str(DATA / "urls.10K.snappy"), str(t / "g.out")],
+             "file -S c": ["file", "-S", "c"],
+             "file -S d": ["file", "-S", "d"],
+             "block -c": ["block", "-c", "-p", str(PAGE), str(src), str(t / "u.blk")]})
+        run({"file -d": ["file", "-d", str(t / "u.snappy"), str(t / "u.out")],
+             "block -d": ["block", "-d", "-p", str(PAGE), str(t / "u.blk"), str(t / "u.blkout")]})
+        assert (t / "u.snappy").read_bytes() == fixture
+        assert (t / "u.out").read_bytes() == urls and (t / "g.out").read_bytes() == urls
+        assert (t / "u.blk").read_bytes() == container.compress_blocks(urls, PAGE, device="cuda")[0]
+        assert (t / "u.blkout").read_bytes() == urls
+    print("[cli] file -c equal to the JAX fixture stream, file -d and -d of the golden stream "
+          "equal to urls.10K, selftests passed, block -c equal to the in-process container "
+          "and block -d equal to urls.10K", flush=True)
+
+
+def _movebench(torch, np, dev, card: str) -> list:
+    """Phase 10: rows 12-13 (``csrc/movebench.cu``) against their plain
+    versions at n = 32768 and 2^24 with 0 differing elements, timed beside
+    the library call and the bound; then ``movebench.main()`` with launch
+    counts set to 0."""
+    from csnappy_tpu_torch.tools import movebench as mb
+    from csnappy_tpu_torch.tools.timing import time_ms
+
+    rows = {}
+    for n in (32768, 1 << 24):
+        tbl, idx = mb.inputs(n, dev)
+        x = torch.from_numpy(np.random.default_rng(n).integers(0, 1 << 31, (n // 128, 128),
+                                                                dtype=np.int32)).to(dev)
+        tc, ic, xc = tbl.cpu(), idx.cpu(), x.cpu()
+        got_g, got_s = mb.gather_flat(tbl, idx, 16, dev), mb.scan_max(x, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_g = mb.gather_flat(tc, ic, 16, "cpu")
+        plain_g = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want_s = mb.scan_max(xc, "cpu")
+        plain_s = (time.perf_counter() - t0) * 1e3
+        diff = {"gather_flat": int((got_g.cpu() != want_g).sum()),
+                "scan_max": int((got_s.cpu() != want_s).sum())}
+        err = {"gather_flat": int((got_g.cpu().long() - want_g.long()).abs().max()),
+               "scan_max": int((got_s.cpu().long() - want_s.long()).abs().max())}
+        assert not any(diff.values()) and not any(err.values()), (n, diff, err)
+        ftbl, fidx, fx = tbl.reshape(-1), idx.reshape(-1), x.reshape(-1)
+        for name, ms, lib_ms, plain, nbytes in (
+                ("gather_flat", time_ms(lambda: mb.gather_flat(tbl, idx, 16, dev)),
+                 time_ms(lambda: ftbl[fidx]), plain_g, 12 * n),
+                ("scan_max", time_ms(lambda: mb.scan_max(x, dev)),
+                 time_ms(lambda: torch.cummax(fx, 0)), plain_s, 8 * n)):
+            bound_ms, bound_by = _bound(nbytes)
+            print(f"[movebench] {name} n={n}: {ms:.4f} ms, library {lib_ms:.4f} ms, plain "
+                  f"{plain:.2f} ms (host CPU), bound {bound_ms:.5f} ms by {bound_by} "
+                  f"({nbytes} B); 0 of {n} elements differ", flush=True)
+            if n == 32768:
+                rows[name] = {"name": name, "route": "cuda",
+                              "source": "csnappy_tpu_torch/csrc/movebench.cu",
+                              "replaces": "csnappy_tpu/tools/movebench.py:"
+                                          + ("62" if name == "gather_flat" else "92"),
+                              "launches": 0, "max_abs_err": err[name], "ms": ms,
+                              "plain_ms": plain,
+                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                              "bytes": nbytes}
+            else:
+                rows[name].update(ms_n16M=ms, library_ms_n16M=lib_ms, plain_ms_n16M=plain,
+                                  bound_ms_n16M=bound_ms)
+    mb.gather_flat.launches = mb.scan_max.launches = 0
+    assert mb.main([]) == 0                                   # device=None: the card
+    for name, w in (("gather_flat", mb.gather_flat), ("scan_max", mb.scan_max)):
+        assert w.launches > 0, name
+        rows[name]["launches"] = w.launches
+    print(f"[movebench] main(): launches gather_flat {mb.gather_flat.launches}, scan_max "
+          f"{mb.scan_max.launches}; card {card}", flush=True)
+    return list(rows.values())
+
+
 def main() -> int:
     import torch
 
@@ -315,6 +567,7 @@ def main() -> int:
     from csnappy_tpu_torch.models import pymodel, wire
     from csnappy_tpu_torch.ops import _build, decode_fused, encode_fused
     from csnappy_tpu_torch.runtime import native
+    from csnappy_tpu_torch.tools.timing import time_ms
 
     dev = torch.device("cuda")
     card = _smi("name,power.limit,clocks.max.sm")
@@ -435,22 +688,22 @@ def main() -> int:
     offs_b = torch.arange(B, device=dev, dtype=torch.int64) * comp.shape[1]
     lens_b = lens.to(dev)
     dl_b = torch.full((B,), BS, dtype=torch.int32, device=dev)
-    dec_ms = _time_ms(torch, lambda: decode_fused._launch(
+    dec_ms = time_ms(lambda: decode_fused._launch(
         decode_fused.decode_blocks, flat, offs_b, lens_b, dl_b, BS))
     dec_plain = _host_ms(lambda: decode_fused.decode_blocks(comp, lens, BS, device="cpu"))
     offs_s = torch.as_tensor(offs, dtype=torch.int64, device=dev)
     lens_s = torch.as_tensor(slens, dtype=torch.int32, device=dev)
     dl_s = torch.as_tensor(sdl, dtype=torch.int32, device=dev)
-    seg_ms = _time_ms(torch, lambda: decode_fused._launch(
+    seg_ms = time_ms(lambda: decode_fused._launch(
         decode_fused.decode_segments, body_dev, offs_s, lens_s, dl_s, BS))
     seg_plain = _host_ms(lambda: decode_fused.decode_segments(body, offs, slens, sdl,
                                                               device="cpu"))
     data_dev, blens_dev = data.to(dev), blens.to(dev)
     in1, nc = encode_fused.prep(data_dev, blens_dev)
     ow = encode_fused.ocap(BS)
-    kern_ms = _time_ms(torch, lambda: encode_fused._launch(data_dev, blens_dev, in1, nc, ow))
-    prep_ms = _time_ms(torch, lambda: encode_fused.prep(data_dev, blens_dev))
-    enc_ms = _time_ms(torch, lambda: encode_fused._launch(
+    kern_ms = time_ms(lambda: encode_fused._launch(data_dev, blens_dev, in1, nc, ow))
+    prep_ms = time_ms(lambda: encode_fused.prep(data_dev, blens_dev))
+    enc_ms = time_ms(lambda: encode_fused._launch(
         data_dev, blens_dev, *encode_fused.prep(data_dev, blens_dev), ow))
     enc_plain = _host_ms(lambda: encode_fused.encode_blocks(data, blens, device="cpu"))
 
@@ -490,7 +743,16 @@ def main() -> int:
     # -------------------------------------------------- 6. whole streams
     rows += _whole_stream(torch, np, dev, urls, golden, unaligned, card)
 
-    # ---------------------------------------------------------- 7. result
+    # -------------------------------- 7-10. container, fixture, CLI, movebench
+    container_launches = _container(torch, np, dev, card)
+    for row in rows:
+        if row["name"] in container_launches:
+            row["launches_container"] = container_launches[row["name"]]
+    _container_fixture(np, dev)
+    _cli(urls, golden, fixture)
+    rows += _movebench(torch, np, dev, card)
+
+    # --------------------------------------------------------- 11. result
     print(json.dumps({"kernels": rows}), flush=True)
     print(_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,9 @@ Same entry points and contracts as ``csnappy_tpu/api.py``; errors raise
 :class:`SnappyError` with the reference's numeric codes.
 
 Backends: ``"torch"`` (default) runs the block codec's kernels on
-``device`` (None = cuda; with no card that raises); ``"py"`` is the oracle.
+``device`` (None = cuda; with no card that raises); ``"py"`` is the oracle;
+``"native"`` is the host C++ codec (``runtime/native.py``), whose streams are
+byte-identical to the JAX package's ``native`` backend.
 
 Routes of the ``torch`` backend, in the order of ``csnappy_tpu/api.py``:
 
@@ -42,6 +44,9 @@ from .errors import E_DATA_MALFORMED, E_HEADER_BAD, E_OK, E_OUTPUT_INSUF, Snappy
 from .models import pymodel, wire
 
 
+DEFAULT_BACKEND = DEFAULT.backend
+
+
 def _cfg(config):
     return config if config is not None else DEFAULT
 
@@ -72,6 +77,10 @@ def compress_fragment(data: bytes, backend: str | None = None,
         raise ValueError("fragment larger than 32 KiB")
     if backend == "py":
         return pymodel.compress_fragment(data)
+    if backend == "native":
+        from .runtime import native
+
+        return native.compress_fragment(data)
     from .ops import encode_fused
 
     bs = max(1024, (len(data) + 1023) // 1024 * 1024)
@@ -93,6 +102,10 @@ def compress(data: bytes, backend: str | None = None,
     backend = backend or cfg.backend
     if backend == "py":
         return pymodel.compress(data)
+    if backend == "native":
+        from .runtime import native
+
+        return native.compress(data)
     from .ops import encode_fused
 
     out = encode_fused.compress_np(data, cfg.block_size, cfg.hash_bits, _device(cfg, device))
@@ -143,6 +156,10 @@ def decompress_noheader(src: bytes, dst_len: int, backend: str | None = None,
     backend = backend or cfg.backend
     if backend == "py":
         return pymodel.decompress_noheader(src, dst_len)
+    if backend == "native":
+        from .runtime import native
+
+        return native.decompress_noheader(src, dst_len)
     dev = _device(cfg, device)
     if dst_len <= wire.BLOCK_SIZE:
         from .ops import decode_fused

@@ -1,11 +1,14 @@
 """Codec configuration of the PyTorch port — the JAX package's knob surface.
 
   * ``block_size``   — whole-stream fragment size (csnappy_compress.c:636).
-  * ``page_size``    — block-container page size (zram parity); nothing reads
-    it until the container is ported (ROADMAP queue A item 8).
+  * ``page_size``    — block-container page size (zram parity): validated for
+    parity with the JAX package; the container (``runtime/container.py``)
+    takes ``page_size`` as an argument, as the JAX one does, and nothing
+    reads this field.
   * ``hash_bits``    — accepted and validated for parity, ignored: the fused
     encoder's sort-based matcher is exact and has no table.
-  * ``backend``      — ``torch`` (the kernels) | ``py`` (the oracle).
+  * ``backend``      — ``torch`` (the kernels) | ``py`` (the oracle) |
+    ``native`` (the host C++ codec, ``runtime/native.py``).
   * ``device``       — where the ``torch`` backend runs; ``None`` means
     ``cuda``, and with no card that raises.  Tests pass ``"cpu"``, which
     runs each kernel's plain PyTorch version.
@@ -20,13 +23,16 @@ from dataclasses import dataclass, field
 import torch
 
 
+BACKENDS = ("torch", "py", "native")
+
+
 @dataclass(frozen=True)
 class CodecConfig:
     block_size: int = 32768        # fragment size; <= 32768, multiple of 1024
-    page_size: int = 4096          # container page size: validated now, read from the
-                                   # container slice on (ROADMAP queue A item 8)
+    page_size: int = 4096          # container page size: validated for parity; the
+                                   # container takes page_size as an argument
     hash_bits: int = 16            # 10..16, ignored by the exact sort matcher
-    backend: str = "torch"         # torch | py
+    backend: str = "torch"         # torch | py | native
     device: str | None = None      # None = "cuda"
     debug_checks: bool = field(
         default_factory=lambda: bool(os.environ.get("CSNAPPY_TPU_DEBUG"))
@@ -39,7 +45,7 @@ class CodecConfig:
             raise ValueError("page_size must be a multiple of 1024 >= 1024")
         if not 10 <= self.hash_bits <= 16:
             raise ValueError("hash_bits must be in [10, 16]")
-        if self.backend not in ("torch", "py"):
+        if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}")
 
 

@@ -13,15 +13,14 @@ import torch
 
 from .config import CodecConfig
 
-_BACKENDS = {"jax": "torch", "py": "py"}
+_BACKENDS = {"jax": "torch", "py": "py", "native": "native"}
 
 
 def config_from_jax(d: dict) -> CodecConfig:
     """``CodecConfig`` from ``dataclasses.asdict`` of the JAX package's config.
 
-    Backend ``jax`` maps to ``torch``; ``py`` stays; ``native`` has no
-    counterpart in the port and raises.  ``mesh_axis`` is dropped until the
-    port has scale-out.
+    Backend ``jax`` maps to ``torch``; ``py`` and ``native`` stay; any other
+    raises.  ``mesh_axis`` is dropped until the port has scale-out.
     """
     backend = d.get("backend", "jax")
     if backend not in _BACKENDS:

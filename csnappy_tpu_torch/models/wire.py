@@ -30,6 +30,8 @@ property all block parallelism hangs off.
 """
 from __future__ import annotations
 
+import numpy as np
+
 # --- tag kinds (low 2 bits of the opcode byte) ---
 TAG_LITERAL = 0
 TAG_COPY_1 = 1
@@ -87,6 +89,40 @@ def varint_decode(buf: bytes, pos: int = 0) -> tuple[int, int]:
                 raise ValueError("varint overflows 32 bits")
             return result, i + 1
     raise ValueError("varint longer than 5 bytes")
+
+
+# --- opcode table ---------------------------------------------------------
+# Per-opcode (base_length, trailer_bytes, inline_literal, offset_high_bits):
+# regenerated arithmetically; semantically equivalent to the reference's
+# char_table (csnappy_decompress.c:152-185) but derived, not transcribed.
+
+def make_opcode_table() -> np.ndarray:
+    """(256, 4) int32 table: [length, n_trailer, is_literal, offset_hi].
+
+    * LITERAL u<60:  length=u+1, n_trailer=0
+    * LITERAL u>=60: length=0 (from trailer), n_trailer=u-59
+    * COPY_1: length=((u)&7)+4, n_trailer=1, offset_hi=(u>>3)<<8
+    * COPY_2/4: length=u+1, n_trailer=2/4
+    """
+    table = np.zeros((256, 4), dtype=np.int32)
+    for op in range(256):
+        kind = op & 3
+        u = op >> 2
+        if kind == TAG_LITERAL:
+            if u < LITERAL_INLINE_MAX:
+                table[op] = (u + 1, 0, 1, 0)
+            else:
+                table[op] = (0, u - 59, 1, 0)
+        elif kind == TAG_COPY_1:
+            table[op] = ((u & 7) + MIN_MATCH, 1, 0, (u >> 3) << 8)
+        elif kind == TAG_COPY_2:
+            table[op] = (u + 1, 2, 0, 0)
+        else:
+            table[op] = (u + 1, 4, 0, 0)
+    return table
+
+
+OPCODE_TABLE = make_opcode_table()
 
 
 # --- tag emission helpers (host-side; kernels re-derive the same math) ----

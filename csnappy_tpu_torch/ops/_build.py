@@ -32,9 +32,10 @@ SOURCES = {
     "encode_blocks": CSRC / "encode_blocks.cu",
     "scan_segments": CSRC / "scan_segments.cu",
     "decode_stream": CSRC / "decode_stream.cu",
+    "movebench": CSRC / "movebench.cu",
     "csnappy_host": CSRC / "host" / "csnappy_host.cpp",
 }
-CUDA_NAMES = ("decode_blocks", "encode_blocks", "scan_segments", "decode_stream")
+CUDA_NAMES = ("decode_blocks", "encode_blocks", "scan_segments", "decode_stream", "movebench")
 
 
 def nvcc() -> str:
@@ -98,14 +99,15 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def kernel(name: str):
-    """Bind ``<name>_launch`` and ``<name>_error_string`` of a CUDA library;
-    returns (launch, check), where check(rc) raises on a CUDA error code."""
+def kernel(name: str, entry: str = ""):
+    """Bind ``<name>_launch`` (``<name>_<entry>_launch`` for a library with
+    several) and ``<name>_error_string`` of a CUDA library; returns (launch,
+    check), where check(rc) raises on a CUDA error code."""
     lib = load(name)
     err = getattr(lib, f"{name}_error_string")
     err.restype = ctypes.c_char_p
     err.argtypes = [ctypes.c_int]
-    launch = getattr(lib, f"{name}_launch")
+    launch = getattr(lib, f"{name}_{entry}_launch" if entry else f"{name}_launch")
     launch.restype = ctypes.c_int
 
     def check(rc: int) -> None:

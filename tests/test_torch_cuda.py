@@ -319,3 +319,78 @@ def test_whole_stream_never_takes_a_plain_version(card, urls10k_snappy, urls10k,
         decode_stream.decode_stream(_u8(b"\x00a").to(card), 1, device="cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
         decode_ws.scan_segments(_u8(b"\x00a").to(card), 2, device="cpu")
+
+
+# --------------------------------------------- the container and movebench slice
+
+
+@pytest.mark.parametrize("n", [128, 32768, 1 << 24])
+def test_gather_kernel_equals_plain(card, n):
+    from csnappy_tpu_torch.tools import movebench as mb
+
+    rng = np.random.default_rng(n)
+    tbl = rng.integers(-(1 << 31), 1 << 31, (n // 128, 128), dtype=np.int64).astype(np.int32)
+    idx = rng.integers(-n, 2 * n, (n // 128, 128), dtype=np.int32)      # clipped at both ends
+    for bits in (8, 16, 24, 31):
+        got = mb.gather_flat(torch.from_numpy(tbl).to(card), torch.from_numpy(idx).to(card),
+                             bits, device=card)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), mb.gather_flat(tbl, idx, bits, device="cpu")), bits
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 32768, 4096 * 4096 + 5, 1 << 24])
+def test_scan_kernel_equals_plain(card, n):
+    from csnappy_tpu_torch.tools import movebench as mb
+
+    x = np.random.default_rng(n).integers(-(1 << 31), 1 << 31, n, dtype=np.int64).astype(np.int32)
+    got = mb.scan_max(torch.from_numpy(x).to(card), device=card)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), torch.cummax(torch.from_numpy(x), 0).values)
+    if n <= 32768:
+        assert torch.equal(got.cpu(), mb.scan_max(x, device="cpu"))
+
+
+def test_movebench_runs_its_kernels(card, capsys):
+    from csnappy_tpu_torch.tools import movebench as mb
+
+    before = mb.gather_flat.launches, mb.scan_max.launches
+    assert mb.main(["4096"]) == 0
+    assert capsys.readouterr().out.count("elem_per_s") == 5
+    assert mb.gather_flat.launches > before[0] and mb.scan_max.launches > before[1]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mb.scan_max(torch.zeros(4, dtype=torch.int32, device=card), device="cpu")
+
+
+@pytest.mark.parametrize("page", [4096, 32768])
+def test_container_on_card_equals_cpu(card, urls10k, page):
+    from csnappy_tpu_torch.runtime import container
+
+    rng = np.random.default_rng(page)
+    data = urls10k[:100000] + rng.integers(0, 256, page + 4095, dtype=np.uint8).tobytes()
+    before = encode_fused.encode_blocks.launches, decode_fused.decode_blocks.launches
+    got, st = container.compress_blocks(data, page)                     # device=None: the card
+    want, sw = container.compress_blocks(data, page, device="cpu")
+    assert got == want and st.histogram == sw.histogram
+    out, sd = container.decompress_blocks(got, page)
+    assert out == data
+    assert sd.histogram == container.decompress_blocks(got, page, device="cpu")[1].histogram
+    assert encode_fused.encode_blocks.launches > before[0]
+    assert decode_fused.decode_blocks.launches > before[1]
+
+
+def test_container_fixture_on_card(card):
+    from csnappy_tpu_torch.errors import SnappyError
+    from csnappy_tpu_torch.runtime import container
+
+    with np.load(DATA / "torch_ref" / "container.npz") as z:
+        for i in range(len(z["names"])):
+            data = z["data"][z["data_offs"][i] : z["data_offs"][i + 1]].tobytes()
+            page = int(z["page_size"][i])
+            cont, _ = container.compress_blocks(data, page, device=card)
+            assert cont == z["cont"][z["cont_offs"][i] : z["cont_offs"][i + 1]].tobytes()
+            assert container.decompress_blocks(cont, page, device=card)[0] == data
+        for i in range(len(z["bad_names"])):
+            cont = z["bad_cont"][z["bad_offs"][i] : z["bad_offs"][i + 1]].tobytes()
+            with pytest.raises(SnappyError) as e:
+                container.decompress_blocks(cont, int(z["bad_page_size"][i]), device=card)
+            assert e.value.code == int(z["bad_code"][i])

@@ -4,7 +4,8 @@
 ``encode_blocks`` and ``compress_np`` (Pallas interpret mode on the CPU) on
 seeded inputs and stored inputs and outputs, and its whole-stream decoders
 and ``api.decompress_noheader`` on seeded streams (``streams.npz``, outputs
-as sha256).  Here the inputs are rebuilt
+as sha256), its paged container (``container.npz``) and movebench's two
+Pallas kernels (``movebench.npz``).  Here the inputs are rebuilt
 from the seed and must equal the stored ones (drift check); then the port's
 plain path must give the stored outputs exactly: the same bytes, the same
 ``produced`` and the same ``status``.
@@ -150,3 +151,23 @@ def test_meta_from_jax_reads_the_fixture_layout(ref):
     prod, status = meta_from_jax(meta)
     assert prod.tolist() == ref["d4k_prod"].tolist()
     assert status.tolist() == ref["d4k_status"].tolist()
+
+
+def test_container_inputs_have_not_drifted(urls10k):
+    ref = MAKER.read_container()
+    good = MAKER.build_container_inputs(urls10k)
+    assert [(n, p) for n, _, p in good] == \
+        list(zip((str(n) for n in ref["names"]), ref["page_size"].tolist()))
+    for i, (name, data, _) in enumerate(good):
+        assert data == ref["data"][ref["data_offs"][i] : ref["data_offs"][i + 1]].tobytes(), name
+    bad = MAKER.build_bad_containers(urls10k)
+    assert [n for n, _, _ in bad] == [str(n) for n in ref["bad_names"]]
+    for i, (name, cont, page) in enumerate(bad):
+        assert cont == ref["bad_cont"][ref["bad_offs"][i] : ref["bad_offs"][i + 1]].tobytes(), name
+        assert page == int(ref["bad_page_size"][i])
+
+
+def test_movebench_inputs_have_not_drifted():
+    with np.load(REF / "movebench.npz") as z:
+        for key, arr in MAKER.build_movebench_inputs().items():
+            assert arr.dtype == z[key].dtype and np.array_equal(arr, z[key]), key

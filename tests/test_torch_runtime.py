@@ -115,8 +115,11 @@ def test_config_from_jax():
     cfg = interop.config_from_jax(dataclasses.asdict(JaxConfig(block_size=4096, hash_bits=12)))
     assert (cfg.block_size, cfg.hash_bits, cfg.backend) == (4096, 12, "torch")
     assert interop.config_from_jax(dataclasses.asdict(JaxConfig(backend="py"))).backend == "py"
+    # the port has a native backend now: it carries across as itself
+    native_cfg = interop.config_from_jax(dataclasses.asdict(JaxConfig(backend="native")))
+    assert native_cfg.backend == "native"
     with pytest.raises(ValueError):
-        interop.config_from_jax(dataclasses.asdict(JaxConfig(backend="native")))
+        interop.config_from_jax(dict(dataclasses.asdict(JaxConfig()), backend="tpu"))
 
 
 def test_blocks_from_jax_layout():
@@ -150,7 +153,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import csnappy_tpu_torch, csnappy_tpu_torch.api, csnappy_tpu_torch.interop\n"
         "from csnappy_tpu_torch.ops import decode_fused, decode_jnp, decode_stream, decode_ws,"
         " encode_fused\n"
-        "from csnappy_tpu_torch.runtime import native\n"
+        "from csnappy_tpu_torch.runtime import container, native\n"
+        "from csnappy_tpu_torch import cli\n"
+        "from csnappy_tpu_torch.tools import benchtable, corpus, movebench, timing, zramsim\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'csnappy_tpu'))\n"
         "assert not bad, bad\n"

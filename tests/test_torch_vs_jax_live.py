@@ -88,3 +88,40 @@ def test_whole_stream_decoders_live():
             po, pp, ps = mod.decompress_noheader_np(buf, 40000, device="cpu")
             assert (pp, ps) == (jp, js), mod.__name__
             assert np.array_equal(po, np.asarray(jo)[:jp]), mod.__name__
+
+
+def test_container_and_movebench_live(urls10k):
+    # the JAX container (its encode and decode kernels) and movebench's two
+    # Pallas kernels on fresh seeded inputs, against the port's plain path
+    import importlib.util
+    import pathlib
+
+    import jax.numpy as jnp
+
+    from csnappy_tpu.runtime import container as jax_container
+    from csnappy_tpu_torch.runtime import container
+    from csnappy_tpu_torch.tools import movebench
+
+    rng = np.random.default_rng(int.from_bytes(b"zram", "little"))
+    s = int(rng.integers(0, len(urls10k) - 20000))
+    data = urls10k[s : s + 12000] + rng.integers(0, 256, 4094, dtype=np.uint8).tobytes()
+    want, sw = jax_container.compress_blocks(data, 4096)
+    got, sg = container.compress_blocks(data, 4096, device="cpu")
+    assert got == want and sg.histogram == sw.histogram
+    assert container.decompress_blocks(got, 4096, device="cpu")[0] == \
+        jax_container.decompress_blocks(want, 4096)[0] == data
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_fixtures", root / "tools" / "make_torch_fixtures.py")
+    maker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(maker)
+    R = 24
+    gather, scan = maker.movebench_calls(R)
+    tbl = rng.integers(0, 1 << 20, (R, 128), dtype=np.int32)
+    idx = rng.integers(-100, R * 128 + 100, (R, 128), dtype=np.int32)
+    x = rng.integers(0, 1 << 31, (R, 128), dtype=np.int32)
+    assert np.array_equal(movebench.gather_flat(tbl, idx, 16, device="cpu").numpy(),
+                          np.asarray(gather(jnp.asarray(idx), jnp.asarray(tbl))))
+    assert np.array_equal(movebench.scan_max(x, device="cpu").numpy(),
+                          np.asarray(scan(jnp.asarray(x))))

@@ -14,7 +14,14 @@ Writes ``tests/data/torch_ref/``:
   None, plus the boundary scan's ``seg[:nseg]`` and ``meta[:3]``),
   ``decode_stream`` and ``decode_jnp`` (``produced``, ``status``) and
   ``api.decompress_noheader`` (status), with a sha256 of every output instead
-  of the output itself.
+  of the output itself;
+* ``container.npz`` — the paged container (``runtime/container.py``) on the
+  inputs of :func:`build_container_inputs`: each container's bytes and the
+  compress and decompress stats, and for each malformed container of
+  :func:`build_bad_containers` the error code;
+* ``movebench.npz`` — ``tools/movebench.py``'s two Pallas kernels (the flat
+  one-hot gather at ``bits = 16`` and the max-scan) on seeded ``(R, 128)``
+  int32 inputs at R = 16 and R = 64 (:func:`build_movebench_inputs`).
 
 The tests rebuild the inputs from the seed, check them against the stored
 copies (drift check), then hold the port against the stored outputs.
@@ -23,8 +30,9 @@ On a CPU backend the Pallas kernels run in interpret mode, so this takes
 minutes; it is run by hand when the reference or the input set changes, never
 by the tests.  ``--far`` adds the 70000-byte-window COPY_4 vector
 (``far`` group, offset 66000 > 65535), which costs several minutes more.
-``--group blocks`` or ``--group streams`` writes one of the two files only;
-the stream group runs one process per stream, ``--procs`` at a time.
+``--group blocks``, ``streams``, ``container`` or ``movebench`` writes one
+file only; the stream and container groups run one process per case,
+``--procs`` at a time.
 """
 from __future__ import annotations
 
@@ -245,7 +253,8 @@ def build_streams(urls: bytes, golden: bytes, baddata3: bytes,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--far", action="store_true", help="add the far COPY_4 group")
-    ap.add_argument("--group", choices=("all", "blocks", "streams"), default="all")
+    ap.add_argument("--group", choices=("all", "blocks", "streams", "container", "movebench"),
+                    default="all")
     ap.add_argument("--procs", type=int, default=4, help="processes for the stream group")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -257,6 +266,10 @@ def main() -> int:
         write_blocks(args.far)
     if args.group in ("all", "streams"):
         write_streams(args.procs)
+    if args.group in ("all", "container"):
+        write_container(args.procs)
+    if args.group in ("all", "movebench"):
+        write_movebench()
     print(f"wrote {OUT}", flush=True)
     return 0
 
@@ -375,6 +388,185 @@ def write_streams(procs: int) -> None:
     for key in ("ws_meta", "st_prod", "st_status", "jnp_prod", "jnp_status", "api_status"):
         a[key] = a[key].astype(np.int32)
     np.savez_compressed(OUT / "streams.npz", **a)
+
+
+
+# ---------------------------------------------------------------- container
+
+
+def build_container_inputs(urls: bytes) -> list[tuple[str, bytes, int]]:
+    """Seeded container inputs: (name, data, page_size) each."""
+    rng = np.random.default_rng(SEED + 2)
+    rand = rng.integers(0, 256, 4096 * 2, dtype=np.uint8).tobytes()
+    out = [(f"urls100k_p{p}", urls[:100000], p) for p in (4096, 8192, 32768)]
+    out.append(("random_page", rand[:4096], 4096))             # raw fallback, full page
+    out.append(("urls_random_urls", urls[:4096] + rand[:4096] + urls[4096:6000], 4096))
+    for tail in (4093, 4095):                                   # incompressible raw tails
+        out.append((f"tail{tail}", urls[:4096] + rand[:tail], 4096))
+    out.append(("empty", b"", 4096))
+    return out
+
+
+def build_bad_containers(urls: bytes) -> list[tuple[str, bytes, int]]:
+    """Malformed containers made from the port-independent layout:
+    (name, container bytes, page_size).  Each page is the oracle's fragment
+    or raw bytes, so building them needs no kernel."""
+    from csnappy_tpu.models import pymodel, wire
+
+    def cont(pages, page_size=4096):
+        table = b"".join(int(n).to_bytes(4, "little") for n, _ in pages)
+        return len(pages).to_bytes(4, "little") + table + b"".join(p for _, p in pages)
+
+    frags = [pymodel.compress_fragment(urls[i * 4096 : (i + 1) * 4096]) for i in range(3)]
+    good = cont([(len(f), f) for f in frags])
+    bad_page = bytearray()                                      # a copy before its
+    wire.emit_literal(bad_page, b"ab")                          # source: E_DATA_MALFORMED
+    bad_page += bytes([wire.TAG_COPY_1, 50])
+    over = pymodel.compress_fragment(b"z" * 5000)               # decodes past the page: overrun
+    return [
+        ("truncated_payload", good[:-10], 4096),
+        ("three_bytes", good[:3], 4096),
+        ("table_truncated", good[:4 + 4 * 2], 4096),
+        ("entry_exceeds_page", cont([(5000, b"x" * 5000)]), 4096),
+        ("raw_bit_exceeds_page", cont([((1 << 31) | 4097, b"x" * 4097)]), 4096),
+        ("bad_page_then_overrun", cont([(len(frags[0]), frags[0]), (len(bad_page), bytes(bad_page)),
+                                        (len(over), over)]), 4096),
+        ("overrun_page", cont([(len(frags[0]), frags[0]), (len(over), over)]), 4096),
+    ]
+
+
+def _container_case(i: int) -> dict:
+    """What the JAX container answers for case ``i`` (good cases first, then
+    the malformed ones); one process per case, as for the streams."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from csnappy_tpu.errors import SnappyError
+    from csnappy_tpu.runtime import container
+
+    urls = (DATA / "urls.10K").read_bytes()
+    good = build_container_inputs(urls)
+    t0 = time.time()
+    if i < len(good):
+        name, data, page = good[i]
+        cont, sc = container.compress_blocks(data, page_size=page)
+        back, sd = container.decompress_blocks(cont, page_size=page)
+        assert back == data, name
+        r = {"cont": cont, "stats_c": [sc.nr_pages, sc.bytes_in, sc.bytes_out, *sc.histogram],
+             "stats_d": [sd.nr_pages, sd.bytes_in, sd.bytes_out, *sd.histogram]}
+        print(f"container {name}: {len(data)} B -> {len(cont)} B ({time.time() - t0:.0f} s)",
+              flush=True)
+        return r
+    name, cont, page = build_bad_containers(urls)[i - len(good)]
+    try:
+        container.decompress_blocks(cont, page_size=page)
+        code = 0
+    except SnappyError as e:
+        code = e.code
+    print(f"bad container {name}: code {code} ({time.time() - t0:.0f} s)", flush=True)
+    return {"code": code}
+
+
+def read_container() -> dict:
+    with np.load(OUT / "container.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def write_container(procs: int) -> None:
+    import multiprocessing
+
+    urls = (DATA / "urls.10K").read_bytes()
+    good, bad = build_container_inputs(urls), build_bad_containers(urls)
+    with multiprocessing.get_context("spawn").Pool(procs, maxtasksperchild=1) as pool:
+        rs = pool.map(_container_case, range(len(good) + len(bad)), chunksize=1)
+    conts = [r["cont"] for r in rs[: len(good)]]
+    a = {"names": np.array([g[0] for g in good]),
+         "page_size": np.array([g[2] for g in good], np.int64),
+         "data": np.frombuffer(b"".join(g[1] for g in good), np.uint8),
+         "data_offs": np.cumsum([0] + [len(g[1]) for g in good]).astype(np.int64),
+         "cont": np.frombuffer(b"".join(conts), np.uint8),
+         "cont_offs": np.cumsum([0] + [len(c) for c in conts]).astype(np.int64),
+         "stats_c": np.array([r["stats_c"] for r in rs[: len(good)]], np.int64),
+         "stats_d": np.array([r["stats_d"] for r in rs[: len(good)]], np.int64),
+         "bad_names": np.array([b[0] for b in bad]),
+         "bad_page_size": np.array([b[2] for b in bad], np.int64),
+         "bad_cont": np.frombuffer(b"".join(b[1] for b in bad), np.uint8),
+         "bad_offs": np.cumsum([0] + [len(b[1]) for b in bad]).astype(np.int64),
+         "bad_code": np.array([r["code"] for r in rs[len(good):]], np.int32)}
+    np.savez_compressed(OUT / "container.npz", **a)
+
+
+# ---------------------------------------------------------------- movebench
+
+MOVEBENCH_R = (16, 64)
+
+
+def build_movebench_inputs() -> dict:
+    """Seeded (R, 128) int32 inputs of movebench's two kernels, at each R of
+    MOVEBENCH_R: ``tbl`` in [0, 2^15) and ``idx`` in [0, n) as movebench
+    makes them; ``wide`` in [0, 2^31) (the gather's limbs keep its low 16
+    bits) with ``idx_oob`` partly outside [0, n) (clipped); ``scan`` in
+    [0, 2^31)."""
+    rng = np.random.default_rng(SEED + 3)
+    out = {}
+    for R in MOVEBENCH_R:
+        n = R * 128
+        out[f"tbl{R}"] = rng.integers(0, 1 << 15, (R, 128), dtype=np.int32)
+        out[f"idx{R}"] = rng.integers(0, n, (R, 128), dtype=np.int32)
+        out[f"wide{R}"] = rng.integers(0, 1 << 31, (R, 128), dtype=np.int32)
+        out[f"idx_oob{R}"] = rng.integers(-n, 2 * n, (R, 128), dtype=np.int32)
+        out[f"scan{R}"] = rng.integers(0, 1 << 31, (R, 128), dtype=np.int32)
+    return out
+
+
+def movebench_calls(R: int):
+    """The two ``pl.pallas_call``s of ``csnappy_tpu/tools/movebench.py``
+    (:50-62 and :86-92), built the same way for an (R, 128) input."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from csnappy_tpu.ops import kernel_lib as kl
+    from csnappy_tpu.ops import primitives as prim
+
+    def _k(i_ref, t_ref, o_ref):
+        def grp(g, _):
+            r0 = pl.multiple_of(g * 8, 8)
+            (got,) = kl.gather_rows_multi([(t_ref[...], 16)], i_ref, r0)
+            o_ref[pl.ds(r0, 8), :] = got
+            return 0
+
+        jax.lax.fori_loop(0, R // 8, grp, 0)
+
+    gather = pl.pallas_call(
+        _k, out_shape=jax.ShapeDtypeStruct((R, 128), jnp.int32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM), interpret=prim.interpret_mode())
+
+    def _ks(x_ref, o_ref):
+        o_ref[...] = kl.scan2d_mm(x_ref[...], op="max", bits=31)
+
+    scan = pl.pallas_call(
+        _ks, out_shape=jax.ShapeDtypeStruct((R, 128), jnp.int32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM), interpret=prim.interpret_mode())
+    return gather, scan
+
+
+def write_movebench() -> None:
+    import jax.numpy as jnp
+
+    a = build_movebench_inputs()
+    for R in MOVEBENCH_R:
+        t0 = time.time()
+        gather, scan = movebench_calls(R)
+        a[f"gather{R}"] = np.asarray(gather(jnp.asarray(a[f"idx{R}"]), jnp.asarray(a[f"tbl{R}"])))
+        a[f"gather_wide{R}"] = np.asarray(gather(jnp.asarray(a[f"idx_oob{R}"]),
+                                                 jnp.asarray(a[f"wide{R}"])))
+        a[f"scanned{R}"] = np.asarray(scan(jnp.asarray(a[f"scan{R}"])))
+        print(f"movebench R={R} ({time.time() - t0:.0f} s)", flush=True)
+    np.savez_compressed(OUT / "movebench.npz", **a)
 
 
 if __name__ == "__main__":
