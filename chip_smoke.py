@@ -63,13 +63,30 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              ``file -c``/``-d`` of urls.10K, ``-d`` of urls.10K.snappy,
              ``-S c``/``-S d``, ``block -c``/``-d`` at 4 KiB; exit 0 and the
              right bytes;
-10. movebench — rows 12-13 (``csrc/movebench.cu``: the flat gather and the
-             max-scan) against their plain versions at n = 32768 and 2^24
-             with 0 differing elements, timed beside the library call
-             (``tbl.view(-1)[idx]``, ``torch.cummax``) and the bound (12n and
-             8n bytes over 3.35 TB/s); then ``movebench.main()`` with their
-             launch counts set to 0, printing its five strategy lines;
-11. the ``kernels`` JSON line, the card's name and power limit, and the
+10. movebench — rows 12-13 (the flat gather, ``lane_gather`` of
+             ``csrc/primitives.cu`` with one row, and the max-scan of
+             ``csrc/movebench.cu``) against their plain versions at
+             n = 32768 and 2^24 with 0 differing elements, timed beside the
+             kernel's own device time (``device_ms``, from torch.profiler),
+             the library call (``tbl.view(-1)[idx]``, ``torch.cummax``) and
+             the bound (12n and 8n bytes over 3.35 TB/s); then
+             ``movebench.main()`` with their launch counts set to 0, printing
+             its five strategy lines;
+11. primitives — rows 6-11 (``csrc/primitives.cu``: ``lane_gather``,
+             ``scatter_or``, ``compose_round``, ``row_gather``): with their
+             six launch counts set to 0, each wrapper of ``ops/primitives.py``
+             once with device=None on the main path's batch (B=64 blocks of
+             32 KiB as int32 [64, 256, 128];
+             ``movebench.primitive_inputs``), every count moved; each result
+             equal to the plain version on CPU copies and every case of
+             ``tests/data/torch_ref/primitives.npz`` equal to the JAX Pallas
+             kernels' answer (0 differing elements); times beside the
+             kernel's own device time (``device_ms``), the plain version,
+             the bound (bytes over 3.35 TB/s) and the library call where one
+             PyTorch call computes the function (``torch.gather``,
+             ``torch.index_select``, ``torch.take``, given clamped int64
+             indices);
+12. the ``kernels`` JSON line, the card's name and power limit, and the
    result line.
 
 Any failure raises and exits non-zero; with no card, or without the
@@ -492,13 +509,19 @@ def _cli(urls: bytes, golden: bytes, fixture: bytes) -> None:
           "and block -d equal to urls.10K", flush=True)
 
 
+def _or_not_measured(ms) -> str:
+    """A device time from torch.profiler, or why there is none."""
+    return "not measured (no device time in the trace)" if ms is None else f"{ms:.4f} ms"
+
+
 def _movebench(torch, np, dev, card: str) -> list:
-    """Phase 10: rows 12-13 (``csrc/movebench.cu``) against their plain
+    """Phase 10: rows 12-13 (``lane_gather`` of ``csrc/primitives.cu`` and
+    the scan of ``csrc/movebench.cu``) against their plain
     versions at n = 32768 and 2^24 with 0 differing elements, timed beside
     the library call and the bound; then ``movebench.main()`` with launch
     counts set to 0."""
     from csnappy_tpu_torch.tools import movebench as mb
-    from csnappy_tpu_torch.tools.timing import time_ms
+    from csnappy_tpu_torch.tools.timing import device_profile, time_ms
 
     rows = {}
     for n in (32768, 1 << 24):
@@ -520,27 +543,32 @@ def _movebench(torch, np, dev, card: str) -> list:
                "scan_max": int((got_s.cpu().long() - want_s.long()).abs().max())}
         assert not any(diff.values()) and not any(err.values()), (n, diff, err)
         ftbl, fidx, fx = tbl.reshape(-1), idx.reshape(-1), x.reshape(-1)
-        for name, ms, lib_ms, plain, nbytes in (
-                ("gather_flat", time_ms(lambda: mb.gather_flat(tbl, idx, 16, dev)),
+        for name, call, lib_ms, plain, nbytes in (
+                ("gather_flat", lambda: mb.gather_flat(tbl, idx, 16, dev),
                  time_ms(lambda: ftbl[fidx]), plain_g, 12 * n),
-                ("scan_max", time_ms(lambda: mb.scan_max(x, dev)),
+                ("scan_max", lambda: mb.scan_max(x, dev),
                  time_ms(lambda: torch.cummax(fx, 0)), plain_s, 8 * n)):
+            ms, device_ms = time_ms(call), device_profile(call)["device_ms"] or None
             bound_ms, bound_by = _bound(nbytes)
-            print(f"[movebench] {name} n={n}: {ms:.4f} ms, library {lib_ms:.4f} ms, plain "
+            print(f"[movebench] {name} n={n}: {ms:.4f} ms, kernel alone "
+                  f"{_or_not_measured(device_ms)}, library {lib_ms:.4f} ms, plain "
                   f"{plain:.2f} ms (host CPU), bound {bound_ms:.5f} ms by {bound_by} "
                   f"({nbytes} B); 0 of {n} elements differ", flush=True)
             if n == 32768:
                 rows[name] = {"name": name, "route": "cuda",
-                              "source": "csnappy_tpu_torch/csrc/movebench.cu",
+                              "source": "csnappy_tpu_torch/csrc/"
+                                        + ("primitives.cu" if name == "gather_flat"
+                                           else "movebench.cu"),
+                              "entry": "lane_gather" if name == "gather_flat" else "scan",
                               "replaces": "csnappy_tpu/tools/movebench.py:"
                                           + ("62" if name == "gather_flat" else "92"),
                               "launches": 0, "max_abs_err": err[name], "ms": ms,
-                              "plain_ms": plain,
+                              "device_ms": device_ms, "plain_ms": plain,
                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
                               "bytes": nbytes}
             else:
-                rows[name].update(ms_n16M=ms, library_ms_n16M=lib_ms, plain_ms_n16M=plain,
-                                  bound_ms_n16M=bound_ms)
+                rows[name].update(ms_n16M=ms, device_ms_n16M=device_ms, library_ms_n16M=lib_ms,
+                                  plain_ms_n16M=plain, bound_ms_n16M=bound_ms)
     mb.gather_flat.launches = mb.scan_max.launches = 0
     assert mb.main([]) == 0                                   # device=None: the card
     for name, w in (("gather_flat", mb.gather_flat), ("scan_max", mb.scan_max)):
@@ -549,6 +577,82 @@ def _movebench(torch, np, dev, card: str) -> list:
     print(f"[movebench] main(): launches gather_flat {mb.gather_flat.launches}, scan_max "
           f"{mb.scan_max.launches}; card {card}", flush=True)
     return list(rows.values())
+
+
+def _primitives(torch, np, dev, card: str) -> list:
+    """Phase 11: rows 6-11 (``csrc/primitives.cu``) through the six wrappers
+    of ``ops/primitives.py`` on the main path's batch with launch counts,
+    against their plain versions and the JAX fixture, then timed."""
+    from csnappy_tpu_torch.ops import primitives as prim
+    from csnappy_tpu_torch.tools.movebench import primitive_inputs
+    from csnappy_tpu_torch.tools.timing import device_profile, time_ms
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    host = {fn: [torch.from_numpy(a) for a in arrs] for fn, arrs in primitive_inputs(B).items()}
+    on_card = {fn: [a.to(dev) for a in arrs] for fn, arrs in host.items()}
+    torch.cuda.synchronize()
+    for p in prim.PRIMITIVES.values():
+        p.wrapper.launches = 0
+    got = {fn: tup(p.wrapper(*on_card[fn])) for fn, p in prim.PRIMITIVES.items()}  # device=None
+    torch.cuda.synchronize()
+    launches = {fn: p.wrapper.launches for fn, p in prim.PRIMITIVES.items()}
+    assert launches == {fn: 1 for fn in prim.PRIMITIVES}, launches
+    print(f"[primitives] main path: the six wrappers on the card at B={B} x 32 KiB, "
+          f"launches {launches}", flush=True)
+
+    rows = []
+    for fn, (wrapper, _, entry, replaces) in prim.PRIMITIVES.items():
+        t0 = time.perf_counter()
+        want = tup(wrapper(*host[fn], device="cpu"))
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        diff = sum(int((g.cpu() != w).sum()) for g, w in zip(got[fn], want))
+        err = max(int((g.cpu().long() - w.long()).abs().max()) for g, w in zip(got[fn], want))
+        assert diff == 0 and err == 0, (fn, diff, err)
+        nbytes = 4 * (sum(a.numel() for a in host[fn]) + sum(g.numel() for g in got[fn]))
+        bound_ms, bound_by = _bound(nbytes)
+        ms = time_ms(lambda: wrapper(*on_card[fn]))
+        device_ms = device_profile(lambda: wrapper(*on_card[fn]))["device_ms"] or None
+        library, lib_ms = None, None
+        if fn in ("local_gather", "row_gather", "table_gather", "rowwise_gather"):
+            src, ix = on_card[fn]
+            width = src.shape[-1] if fn in ("local_gather", "rowwise_gather") else src.shape[0]
+            ix64 = ix.clamp(0, width - 1).long()
+            library, call = {
+                "local_gather": ("torch.gather(values, -1, idx)",
+                                 lambda: torch.gather(src, -1, ix64)),
+                "row_gather": ("torch.index_select(table2d, 0, rows)",
+                               lambda: torch.index_select(src, 0, ix64)),
+                "table_gather": ("torch.take(table, idx)", lambda: torch.take(src, ix64)),
+                "rowwise_gather": ("torch.gather(tables, 1, idx)",
+                                   lambda: torch.gather(src, 1, ix64)),
+            }[fn]
+            lib_ms = time_ms(call)
+        shapes = [tuple(a.shape) for a in host[fn]]
+        print(f"[primitives] {fn} ({entry}) {shapes}: {ms:.4f} ms, kernel alone "
+              f"{_or_not_measured(device_ms)}, plain {plain_ms:.2f} ms (host "
+              f"CPU), bound {bound_ms:.5f} ms by {bound_by} ({nbytes} B), library "
+              + (f"{library} {lib_ms:.4f} ms (clamped int64 indices)" if library else "none")
+              + f"; 0 of {sum(g.numel() for g in got[fn])} elements differ", flush=True)
+        rows.append({"name": fn, "route": "cuda", "source": "csnappy_tpu_torch/csrc/primitives.cu",
+                     "replaces": replaces, "entry": entry, "launches": launches[fn],
+                     "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms, "library": library,
+                     "bytes": nbytes})
+
+    z = np.load(DATA / "torch_ref" / "primitives.npz")
+    for case, fn, limbs in zip(z["cases"], z["fns"], z["limbs"]):
+        case, fn, limbs = str(case), str(fn), int(limbs)
+        args = [torch.from_numpy(z[f"{case}__{a}"]).to(dev) for a in prim.PRIMITIVES[fn].args]
+        outs = tup(prim.PRIMITIVES[fn].wrapper(*args, **({"limbs": limbs} if limbs else {})))
+        torch.cuda.synchronize()
+        for k, o in enumerate(outs):
+            assert np.array_equal(o.cpu().numpy(), z[f"{case}__out{k}"]), (case, k)
+    print(f"[primitives] {len(z['cases'])} fixture cases equal to the JAX Pallas kernels on the "
+          f"card (values outside the limbs' contract included); card {card}", flush=True)
+    return rows
 
 
 def main() -> int:
@@ -752,7 +856,10 @@ def main() -> int:
     _cli(urls, golden, fixture)
     rows += _movebench(torch, np, dev, card)
 
-    # --------------------------------------------------------- 11. result
+    # ----------------------------------------------------- 11. primitives
+    rows += _primitives(torch, np, dev, card)
+
+    # --------------------------------------------------------- 12. result
     print(json.dumps({"kernels": rows}), flush=True)
     print(_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,32 +1,23 @@
-// Data-movement kernels of the movebench tool for Hopper (sm_90a).
+// The max-scan kernel of the movebench tool for Hopper (sm_90a).
 //
-// Replaces the two Pallas kernels of csnappy_tpu/tools/movebench.py:
-//   * movebench.py:62, the one-hot gather (kernel_lib.gather_rows_multi at
-//     bits = 16): y[i] = tbl[clip(idx[i], 0, n_tbl - 1)], rebuilt from
-//     8-bit limbs, so the result keeps the low 8 * ceil(bits / 8) bits;
-//   * movebench.py:92, the permutation-matmul scan (kernel_lib.scan2d_mm,
-//     op "max"): the inclusive max-scan of an int32 array in row-major flat
-//     order.
-// The TPU kernels build a gather out of one-hot matrix products and a scan
-// out of permutation products because the TPU has neither a cheap gather
-// nor a cross-lane shift.  Hopper has both: loads are byte-addressable and
-// warps shuffle.
+// Replaces the permutation-matmul scan of csnappy_tpu/tools/movebench.py:92
+// (kernel_lib.scan2d_mm, op "max"): the inclusive max-scan of an int32 array
+// in row-major flat order.  The TPU kernel builds a scan out of permutation
+// products because the TPU has no cross-lane shift; Hopper's warps shuffle.
+// (The tool's other kernel, the one-hot gather of movebench.py:62, is
+// lane_gather of primitives.cu with one row.)
 //
-// What bounds them on this card: bytes.  The gather reads idx and one table
-// element per output and writes the output (12 B an element); the scan reads
-// and writes each element once (8 B an element).  Neither does more than a
-// few operations a byte.
+// What bounds it on this card: bytes.  It reads and writes each element once
+// (8 B an element) with a few operations a byte.
 //
-// Design, simple and right first:
-//   * gather: one thread per output element: clip, load, mask;
-//   * scan: one block of 1024 threads per 4096-element tile.  The tile is
-//     staged in shared memory with coalesced loads; each thread scans its 4
-//     contiguous elements, a warp scans the thread totals with shuffles, warp
-//     0 scans the 32 warp totals, and the tile is written back coalesced with
-//     its block maximum in a scratch array.  Above one tile, the block maxima
-//     are scanned the same way (recursively) and a second pass raises each
-//     tile by the scanned maximum of the tiles before it.  The identity is
-//     INT32_MIN, so every int32 input scans exactly.
+// Design, simple and right first: one block of 1024 threads per
+// 4096-element tile.  The tile is staged in shared memory with coalesced
+// loads; each thread scans its 4 contiguous elements, a warp scans the thread
+// totals with shuffles, warp 0 scans the 32 warp totals, and the tile is
+// written back coalesced with its block maximum in a scratch array.  Above one
+// tile, the block maxima are scanned the same way (recursively) and a second
+// pass raises each tile by the scanned maximum of the tiles before it.  The
+// identity is INT32_MIN, so every int32 input scans exactly.
 
 #include <climits>
 #include <cstdint>
@@ -34,20 +25,9 @@
 
 namespace {
 
-constexpr int kGatherThreads = 256;
 constexpr int kScanThreads = 1024;
 constexpr int kPer = 4;                           // elements a scan thread owns
 constexpr int64_t kTile = kScanThreads * kPer;    // 4096 elements a tile
-
-__global__ void __launch_bounds__(kGatherThreads)
-gather_kernel(const int32_t* __restrict__ tbl, int64_t n_tbl, const int32_t* __restrict__ idx,
-              int32_t* __restrict__ out, int64_t n, uint32_t mask) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kGatherThreads + threadIdx.x;
-  if (i >= n) return;
-  int64_t j = idx[i];
-  j = j < 0 ? 0 : (j >= n_tbl ? n_tbl - 1 : j);
-  out[i] = static_cast<int32_t>(static_cast<uint32_t>(tbl[j]) & mask);
-}
 
 __device__ __forceinline__ int32_t warp_scan_max(int32_t v, int lane) {
 #pragma unroll
@@ -129,19 +109,6 @@ cudaError_t scan_level(const int32_t* in, int32_t* out, int64_t n, int32_t* scra
 }  // namespace
 
 extern "C" {
-
-// out[i] = tbl[clip(idx[i], 0, n_tbl - 1)] & mask for i < n, on `stream`.
-// Returns cudaGetLastError().
-int movebench_gather_launch(const void* tbl, long long n_tbl, const void* idx, void* out,
-                            long long n, unsigned mask, void* stream) {
-  if (n <= 0) return 0;
-  const long long blocks = (n + kGatherThreads - 1) / kGatherThreads;
-  gather_kernel<<<static_cast<unsigned>(blocks), kGatherThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(tbl), n_tbl, static_cast<const int32_t*>(idx),
-      static_cast<int32_t*>(out), n, mask);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // int32 elements of scratch that movebench_scan_launch needs for n elements.
 long long movebench_scan_scratch(long long n) {

@@ -33,9 +33,11 @@ SOURCES = {
     "scan_segments": CSRC / "scan_segments.cu",
     "decode_stream": CSRC / "decode_stream.cu",
     "movebench": CSRC / "movebench.cu",
+    "primitives": CSRC / "primitives.cu",
     "csnappy_host": CSRC / "host" / "csnappy_host.cpp",
 }
-CUDA_NAMES = ("decode_blocks", "encode_blocks", "scan_segments", "decode_stream", "movebench")
+CUDA_NAMES = ("decode_blocks", "encode_blocks", "scan_segments", "decode_stream", "movebench",
+              "primitives")
 
 
 def nvcc() -> str:

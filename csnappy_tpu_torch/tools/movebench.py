@@ -8,9 +8,10 @@ TPU strategy it stands in for:
 
   torch_gather  — arbitrary-index gather ``tbl.view(-1)[idx]``, one PyTorch
                   call (``xla_gather``, the jnp gather XLA:TPU serializes)
-  gather_kernel — :func:`gather_flat`, ``csrc/movebench.cu``: clip, load and
-                  mask, one thread an element (``onehot_mxu``, the one-hot
-                  limb matmul gather ``kernel_lib.gather_rows_multi``,
+  gather_kernel — :func:`gather_flat`, ``lane_gather`` of
+                  ``csrc/primitives.cu`` with one row: clip, load and mask,
+                  one thread an element (``onehot_mxu``, the one-hot limb
+                  matmul gather ``kernel_lib.gather_rows_multi``,
                   movebench.py:62)
   sort          — ``torch.sort`` keys/s (``sort``, the encoder's match index)
   dense         — elementwise ops/s, the ceiling (``dense_vpu``)
@@ -19,7 +20,9 @@ TPU strategy it stands in for:
                   ``kernel_lib.scan2d_mm``, movebench.py:92)
 
 Run:  python -m csnappy_tpu_torch.tools.movebench [N] [--device cpu]
-Prints one JSON line per strategy in elements/s.
+Prints one JSON line per strategy in elements/s.  :func:`primitive_inputs`
+makes the six ``ops/primitives.py`` functions' seeded arguments at the main
+path's batch, for ``chip_smoke.py`` and ``tools/torch_profile.py``.
 
 The two kernels' wrappers take an int32 tensor: on a CUDA tensor they launch
 the kernel and count the launch on ``<wrapper>.launches``; on a CPU tensor
@@ -39,21 +42,14 @@ import torch
 
 from ..config import refuse_card_tensors, resolve_device
 from ..ops import _build
+from ..ops.primitives import L, as_int32, launch_lane_gather, limb_mask
 
 
 def _mask(bits: int) -> int:
     """The bits the JAX gather keeps: whole 8-bit limbs, all 32 from 4 limbs on."""
     if bits < 1:
         raise ValueError("bits must be positive")
-    limbs = (bits + 7) // 8
-    return 0xFFFFFFFF if limbs >= 4 else (1 << (8 * limbs)) - 1
-
-
-def _i32(x, dev: torch.device, what: str) -> torch.Tensor:
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
-    if t.dtype != torch.int32:
-        raise TypeError(f"{what} must be int32, got {t.dtype}")
-    return t.to(dev).contiguous()
+    return limb_mask(min((bits + 7) // 8, 4))
 
 
 def gather_flat_plain(tbl: torch.Tensor, idx: torch.Tensor, bits: int = 16) -> torch.Tensor:
@@ -67,20 +63,19 @@ def gather_flat(tbl, idx, bits: int = 16, device=None) -> torch.Tensor:
     """y[i] = tbl.flat[clip(idx.flat[i], 0, tbl.numel() - 1)], keeping the low
     8 * ceil(bits / 8) bits (all 32 from bits = 25 on), shaped like ``idx``.
 
-    Row 12 of the kernel table (``csnappy_tpu/tools/movebench.py:62``)."""
+    Row 12 of the kernel table (``csnappy_tpu/tools/movebench.py:62``); on
+    the card ``lane_gather`` of ``csrc/primitives.cu`` with one row, the
+    kernel of ``primitives.table_gather``."""
     dev = resolve_device(device)
     refuse_card_tensors(dev, tbl, idx)
-    tbl, idx = _i32(tbl, dev, "tbl"), _i32(idx, dev, "idx")
+    tbl, idx = as_int32(tbl, dev, "tbl"), as_int32(idx, dev, "idx")
     if tbl.numel() == 0:
         raise ValueError("empty table")
     if dev.type == "cpu":
         return gather_flat_plain(tbl, idx, bits)
-    out = torch.empty_like(idx)
-    launch, check = _gather_kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        check(launch(tbl.data_ptr(), tbl.numel(), idx.data_ptr(), out.data_ptr(), idx.numel(),
-                     _mask(bits), stream))
+    if idx.numel() == 0:
+        return torch.empty_like(idx)
+    out = launch_lane_gather(tbl, tbl.numel(), idx, 1, _mask(bits), dev)
     gather_flat.launches += 1
     return out
 
@@ -106,7 +101,7 @@ def scan_max(x, device=None) -> torch.Tensor:
     Row 13 of the kernel table (``csnappy_tpu/tools/movebench.py:92``)."""
     dev = resolve_device(device)
     refuse_card_tensors(dev, x)
-    x = _i32(x, dev, "x")
+    x = as_int32(x, dev, "x")
     if dev.type == "cpu":
         return scan_max_plain(x)
     out = torch.empty_like(x)
@@ -120,14 +115,6 @@ def scan_max(x, device=None) -> torch.Tensor:
 
 
 scan_max.launches = 0
-
-
-@functools.cache
-def _gather_kernel():
-    launch, check = _build.kernel("movebench", "gather")
-    vp = ctypes.c_void_p
-    launch.argtypes = [vp, ctypes.c_longlong, vp, vp, ctypes.c_longlong, ctypes.c_uint, vp]
-    return launch, check
 
 
 @functools.cache
@@ -149,6 +136,41 @@ def inputs(n: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     idx = rng.integers(0, n, (n // 128, 128), dtype=np.int32)
     dev = resolve_device(device)
     return torch.from_numpy(tbl).to(dev), torch.from_numpy(idx).to(dev)
+
+
+BLOCK = 32768                     # a block of the main path, as 256 rows of 128 lanes
+
+
+def primitive_inputs(blocks: int = 64, seed: int = 0) -> dict[str, tuple[np.ndarray, ...]]:
+    """Seeded int32 arguments of each primitive at the main path's batch of
+    ``blocks`` blocks of 32 KiB, laid out as the JAX decoder lays out its
+    output ([blocks, 256, 128]); the limbs are the defaults.
+
+    local_gather, local_scatter_or, compose_round: [blocks, 256, 128]
+    (compose_round's F a position in its block, chunk_end the end of the
+    position's 128-lane row); row_gather: a [256, 128] table and
+    ``blocks * 256`` rows; table_gather: a 32768-entry table of values below
+    2^16 and ``blocks * 32768`` indices; rowwise_gather: [blocks, 32768]
+    tables and indices.  Indices reach past both ends of their range."""
+    rng = np.random.default_rng(seed)
+    shape = (blocks, BLOCK // L, L)
+
+    def ints(lo, hi, shape):
+        return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)
+
+    pos = np.arange(BLOCK, dtype=np.int32).reshape(BLOCK // L, L)
+    chunk_end = np.broadcast_to(((pos >> 7) + 1) << 7, shape).copy()
+    return {
+        "local_gather": (ints(-(1 << 31), 1 << 31, shape), ints(-5, L + 12, shape)),
+        "local_scatter_or": (ints(0, 2, shape), ints(-5, 200, shape)),
+        "compose_round": (ints(0, BLOCK, shape), ints(0, 1 << 15, shape), ints(0, 2, shape),
+                          chunk_end),
+        "row_gather": (ints(0, 1 << 24, (BLOCK // L, L)),
+                       ints(-3, BLOCK // L + 3, (blocks * BLOCK // L,))),
+        "table_gather": (ints(0, 1 << 16, (BLOCK,)), ints(-9, BLOCK + 9, (blocks * BLOCK,))),
+        "rowwise_gather": (ints(0, 1 << 24, (blocks, BLOCK)),
+                           ints(-4, BLOCK + 4, (blocks, BLOCK))),
+    }
 
 
 def main(argv=None) -> int:

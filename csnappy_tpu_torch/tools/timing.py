@@ -6,6 +6,9 @@ card two honest clocks exist, and both are used here:
 
 * :func:`time_ms` — the median of ``n`` CUDA-event-timed calls after
   ``warm`` warm-up calls (a host clock around each call on the CPU);
+* :func:`device_profile` — the device time of each kernel a call runs, from
+  ``torch.profiler``, beside the call's CUDA-event time (their gap is the
+  card idle while the host prepares and launches);
 * :func:`slope_time` / :func:`slope_time_keyed` — the JAX contract, seconds
   per step from the slope between K = ``k_lo`` and K = ``k_hi`` steps, each
   loop timed on a host clock that starts after and ends with a
@@ -44,6 +47,44 @@ def time_ms(fn, n: int = 20, warm: int = 3, device=None) -> float:
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def _self_device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def device_profile(fn, reps: int = 10) -> dict:
+    """Device time per call of each kernel (and copy or fill) ``fn`` runs on
+    the card, their sum (``device_ms``) and the call's CUDA-event time
+    (``event_ms``), after three warm-up calls.  ``kernels`` is empty where
+    the trace holds no device time: then the device time is not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for evt in p.key_averages():
+        us = _self_device_us(evt)
+        if evt.device_type == DeviceType.CUDA and us > 0:
+            rows[evt.key] = us / reps / 1e3
+    rows = dict(sorted(rows.items(), key=lambda kv: -kv[1]))
+    return {"event_ms": a.elapsed_time(b) / reps, "device_ms": sum(rows.values()),
+            "kernels": rows}
 
 
 def _slope(run, k_lo: int, k_hi: int, reps: int, dev: torch.device) -> float:

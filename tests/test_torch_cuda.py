@@ -19,6 +19,7 @@ import torch
 from csnappy_tpu_torch import api
 from csnappy_tpu_torch.models import pymodel, wire
 from csnappy_tpu_torch.ops import decode_fused, encode_fused
+from csnappy_tpu_torch.ops import primitives as prim
 
 pytestmark = pytest.mark.cuda
 DATA = pathlib.Path(__file__).parent / "data"
@@ -339,7 +340,7 @@ def test_gather_kernel_equals_plain(card, n):
 
 
 @pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 32768, 4096 * 4096 + 5, 1 << 24])
-def test_scan_kernel_equals_plain(card, n):
+def test_movebench_scan_kernel_equals_plain(card, n):
     from csnappy_tpu_torch.tools import movebench as mb
 
     x = np.random.default_rng(n).integers(-(1 << 31), 1 << 31, n, dtype=np.int64).astype(np.int32)
@@ -394,3 +395,113 @@ def test_container_fixture_on_card(card):
             with pytest.raises(SnappyError) as e:
                 container.decompress_blocks(cont, int(z["bad_page_size"][i]), device=card)
             assert e.value.code == int(z["bad_code"][i])
+
+
+# ------------------------------------------------------- the primitives slice
+
+
+@pytest.fixture(scope="module")
+def prim_cases():
+    # the fixture tool loads here, not at import, so a fault in it cannot stop
+    # the collection of the other card tests
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_fixtures", DATA.parents[1] / "tools" / "make_torch_fixtures.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read_primitives()
+
+
+def _prim_call(fn, args, limbs, device):
+    got = prim.PRIMITIVES[fn].wrapper(*args, **({"limbs": limbs} if limbs else {}), device=device)
+    return got if isinstance(got, tuple) else (got,)
+
+
+def _prim_launches() -> list[int]:
+    return [p.wrapper.launches for p in prim.PRIMITIVES.values()]
+
+
+@pytest.mark.parametrize("fn", tuple(prim.PRIMITIVES))
+def test_primitive_kernel_equals_fixture(card, prim_cases, fn):
+    # the JAX Pallas kernels' answers, out-of-contract limbs included
+    cases = [c for c in prim_cases if c[1] == fn]
+    assert cases
+    for case, _, limbs, inputs, outs in cases:
+        args = [torch.from_numpy(inputs[a]) for a in prim.PRIMITIVES[fn].args]
+        got = _prim_call(fn, [a.to(card) for a in args], limbs, card)
+        torch.cuda.synchronize()
+        want = _prim_call(fn, args, limbs, "cpu")
+        for g, w, o in zip(got, want, outs):
+            assert g.is_cuda and torch.equal(g.cpu(), w), case
+            assert np.array_equal(g.cpu().numpy(), o), case
+
+
+@pytest.mark.parametrize("fn", tuple(prim.PRIMITIVES))
+def test_primitive_kernel_equals_plain_at_the_main_path_batch(card, fn):
+    # B = 64 blocks of 32 KiB, the shapes chip_smoke.py's primitives phase runs
+    from csnappy_tpu_torch.tools.movebench import primitive_inputs
+
+    args = [torch.from_numpy(a) for a in primitive_inputs(64)[fn]]
+    before = prim.PRIMITIVES[fn].wrapper.launches
+    got = _prim_call(fn, [a.to(card) for a in args], 0, None)      # device=None: the card
+    torch.cuda.synchronize()
+    assert prim.PRIMITIVES[fn].wrapper.launches == before + 1
+    for g, w in zip(got, _prim_call(fn, args, 0, "cpu")):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_primitive_kernels_wide_values_and_edges(card):
+    # full-range values at every limb count, odd row counts, widths that are
+    # not multiples of 128, one-element tables, and empty inputs (no launch)
+    rng = np.random.default_rng(9)
+
+    def ints(lo, hi, shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32))
+
+    full = (-(1 << 31), 1 << 31)
+    cases = [("local_gather", (ints(*full, (3, 5, 128)), ints(-300, 300, (3, 5, 128))), 0),
+             ("local_scatter_or", (ints(-3, 4, (7, 128)), ints(-200, 300, (7, 128))), 0),
+             ("compose_round", (ints(*full, (5, 128)), ints(*full, (5, 128)),
+                                ints(*full, (5, 128)), ints(*full, (5, 128))), 0)]
+    for limbs in (1, 2, 3, 4):
+        cases += [("row_gather", (ints(*full, (1, 128)), ints(-2, 3, (13,))), limbs),
+                  ("table_gather", (ints(*full, (1,)), ints(-2, 3, (5,))), limbs),
+                  ("table_gather", (ints(*full, (1001,)), ints(-5, 1100, (7777,))), limbs),
+                  ("rowwise_gather", (ints(*full, (3, 77)), ints(-9, 90, (3, 1000))), limbs)]
+    for fn, args, limbs in cases:
+        got = _prim_call(fn, [a.to(card) for a in args], limbs, card)
+        torch.cuda.synchronize()
+        for g, w in zip(got, _prim_call(fn, args, limbs, "cpu")):
+            assert torch.equal(g.cpu(), w), (fn, limbs)
+    before = _prim_launches()
+    z = torch.zeros((0, 128), dtype=torch.int32, device=card)
+    assert prim.local_gather(z, z, device=card).shape == (0, 128)
+    assert prim.local_scatter_or(z, z, device=card).shape == (0, 128)
+    assert all(o.shape == (0, 128) for o in prim.compose_round(z, z, z, z, device=card))
+    e = torch.zeros(0, dtype=torch.int32, device=card)
+    assert prim.row_gather(ints(0, 9, (4, 128)), e, device=card).shape == (0, 128)
+    assert prim.table_gather(ints(0, 9, (4,)), e, device=card).shape == (0,)
+    assert prim.rowwise_gather(ints(0, 9, (0, 4)), ints(0, 9, (0, 6)), device=card).shape == (0, 6)
+    assert _prim_launches() == before
+
+
+def test_primitives_never_take_the_plain_version(card, monkeypatch):
+    from csnappy_tpu_torch.tools.movebench import primitive_inputs
+
+    def refuse(*_a, **_k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for fn in prim.PRIMITIVES:
+        monkeypatch.setattr(prim, f"{fn}_plain", refuse)
+    before = _prim_launches()
+    for fn, args in primitive_inputs(1).items():
+        _prim_call(fn, [torch.from_numpy(a).to(card) for a in args], 0, card)
+    torch.cuda.synchronize()
+    assert _prim_launches() == [b + 1 for b in before]
+    x = torch.zeros((2, 128), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        prim.local_gather(x, x, device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        prim.row_gather(x, x[0], device="cpu")
+

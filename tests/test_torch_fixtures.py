@@ -4,11 +4,12 @@
 ``encode_blocks`` and ``compress_np`` (Pallas interpret mode on the CPU) on
 seeded inputs and stored inputs and outputs, and its whole-stream decoders
 and ``api.decompress_noheader`` on seeded streams (``streams.npz``, outputs
-as sha256), its paged container (``container.npz``) and movebench's two
-Pallas kernels (``movebench.npz``).  Here the inputs are rebuilt
-from the seed and must equal the stored ones (drift check); then the port's
-plain path must give the stored outputs exactly: the same bytes, the same
-``produced`` and the same ``status``.
+as sha256), its paged container (``container.npz``), movebench's two
+Pallas kernels (``movebench.npz``) and the six of ``ops/primitives.py``
+(``primitives.npz``).  Here the inputs are rebuilt from the seed and must
+equal the stored ones (drift check); then the port's plain path must give
+the stored outputs exactly: the same bytes, the same ``produced`` and the
+same ``status``.
 """
 import hashlib
 import importlib.util
@@ -171,3 +172,14 @@ def test_movebench_inputs_have_not_drifted():
     with np.load(REF / "movebench.npz") as z:
         for key, arr in MAKER.build_movebench_inputs().items():
             assert arr.dtype == z[key].dtype and np.array_equal(arr, z[key]), key
+
+
+def test_primitives_inputs_have_not_drifted():
+    stored = MAKER.read_primitives()
+    rebuilt = MAKER.build_primitives_inputs()
+    assert [c[:3] for c in rebuilt] == [c[:3] for c in stored]
+    for (case, _, _, arrays), (_, _, _, inputs, _) in zip(rebuilt, stored):
+        assert arrays.keys() == inputs.keys(), case
+        for key, arr in arrays.items():
+            assert arr.dtype == inputs[key].dtype and np.array_equal(arr, inputs[key]), (case, key)
+

@@ -152,7 +152,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import csnappy_tpu_torch, csnappy_tpu_torch.api, csnappy_tpu_torch.interop\n"
         "from csnappy_tpu_torch.ops import decode_fused, decode_jnp, decode_stream, decode_ws,"
-        " encode_fused\n"
+        " encode_fused, primitives\n"
         "from csnappy_tpu_torch.runtime import container, native\n"
         "from csnappy_tpu_torch import cli\n"
         "from csnappy_tpu_torch.tools import benchtable, corpus, movebench, timing, zramsim\n"
@@ -186,6 +186,39 @@ def test_chip_smoke_imports_nothing_of_jax():
 def test_port_module_imports_nothing_of_jax(path):
     # every module, imported at run time or not, and whatever imports it
     assert not _top_level_imports(path) & {"jax", "jaxlib", "csnappy_tpu"}, path
+
+
+def _defined_twice(source: str) -> list[str]:
+    """Functions and classes that a module body, or a class body, of
+    ``source`` defines twice: the second definition replaces the first, so
+    pytest never collects the first."""
+    dups = []
+
+    def scan(body, where):
+        seen = set()
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                if node.name in seen:
+                    dups.append(where + node.name)
+                seen.add(node.name)
+                if isinstance(node, ast.ClassDef):
+                    scan(node.body, f"{where}{node.name}.")
+
+    scan(ast.parse(source).body, "")
+    return dups
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "tests").glob("test_torch_*.py")),
+                         ids=lambda p: p.name)
+def test_port_test_module_defines_each_name_once(path):
+    assert _defined_twice(path.read_text()) == [], path.name
+
+
+def test_defined_twice_finds_a_shadowed_test():
+    source = ("def test_a():\n    pass\n\n\ndef test_b():\n    pass\n\n\n"
+              "def test_a():\n    pass\n\n\nclass TestC:\n    def test_d(self):\n"
+              "        pass\n\n    def test_d(self):\n        pass\n")
+    assert _defined_twice(source) == ["test_a", "TestC.test_d"]
 
 
 # ------------------------------------------------------------- conformance

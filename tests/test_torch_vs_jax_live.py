@@ -125,3 +125,32 @@ def test_container_and_movebench_live(urls10k):
                           np.asarray(gather(jnp.asarray(idx), jnp.asarray(tbl))))
     assert np.array_equal(movebench.scan_max(x, device="cpu").numpy(),
                           np.asarray(scan(jnp.asarray(x))))
+
+
+def test_primitives_pallas_live():
+    # the six Pallas kernels of ops/primitives.py in interpret mode, run anew
+    # on the fixture's seeded cases, against the port's plain path and the
+    # stored outputs
+    import importlib.util
+    import pathlib
+
+    import torch
+
+    from csnappy_tpu_torch.ops import primitives
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_fixtures", root / "tools" / "make_torch_fixtures.py")
+    maker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(maker)
+    cases = maker.build_primitives_inputs()
+    live = maker.primitives_outputs(cases)
+    stored = {c[0]: c[4] for c in maker.read_primitives()}
+    for case, fn, limbs, arrays in cases:
+        args = [torch.from_numpy(arrays[a]) for a in primitives.PRIMITIVES[fn].args]
+        got = primitives.PRIMITIVES[fn].wrapper(*args, **({"limbs": limbs} if limbs else {}),
+                                                device="cpu")
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w, s in zip(got, live[case], stored[case]):
+            assert np.array_equal(g.numpy(), w) and np.array_equal(w, s), case
+

@@ -21,7 +21,11 @@ Writes ``tests/data/torch_ref/``:
   :func:`build_bad_containers` the error code;
 * ``movebench.npz`` — ``tools/movebench.py``'s two Pallas kernels (the flat
   one-hot gather at ``bits = 16`` and the max-scan) on seeded ``(R, 128)``
-  int32 inputs at R = 16 and R = 64 (:func:`build_movebench_inputs`).
+  int32 inputs at R = 16 and R = 64 (:func:`build_movebench_inputs`);
+* ``primitives.npz`` — the six Pallas kernels of ``ops/primitives.py``, run
+  under ``primitives.force_pallas()``, on the seeded cases of
+  :func:`build_primitives_inputs` (values outside the limbs' contract
+  included).
 
 The tests rebuild the inputs from the seed, check them against the stored
 copies (drift check), then hold the port against the stored outputs.
@@ -30,9 +34,9 @@ On a CPU backend the Pallas kernels run in interpret mode, so this takes
 minutes; it is run by hand when the reference or the input set changes, never
 by the tests.  ``--far`` adds the 70000-byte-window COPY_4 vector
 (``far`` group, offset 66000 > 65535), which costs several minutes more.
-``--group blocks``, ``streams``, ``container`` or ``movebench`` writes one
-file only; the stream and container groups run one process per case,
-``--procs`` at a time.
+``--group blocks``, ``streams``, ``container``, ``movebench`` or
+``primitives`` (seconds) writes one file only; the stream and container
+groups run one process per case, ``--procs`` at a time.
 """
 from __future__ import annotations
 
@@ -253,8 +257,8 @@ def build_streams(urls: bytes, golden: bytes, baddata3: bytes,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--far", action="store_true", help="add the far COPY_4 group")
-    ap.add_argument("--group", choices=("all", "blocks", "streams", "container", "movebench"),
-                    default="all")
+    ap.add_argument("--group", default="all",
+                    choices=("all", "blocks", "streams", "container", "movebench", "primitives"))
     ap.add_argument("--procs", type=int, default=4, help="processes for the stream group")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -270,6 +274,8 @@ def main() -> int:
         write_container(args.procs)
     if args.group in ("all", "movebench"):
         write_movebench()
+    if args.group in ("all", "primitives"):
+        write_primitives()
     print(f"wrote {OUT}", flush=True)
     return 0
 
@@ -567,6 +573,118 @@ def write_movebench() -> None:
         a[f"scanned{R}"] = np.asarray(scan(jnp.asarray(a[f"scan{R}"])))
         print(f"movebench R={R} ({time.time() - t0:.0f} s)", flush=True)
     np.savez_compressed(OUT / "movebench.npz", **a)
+
+
+
+# --------------------------------------------------------------- primitives
+
+def _chunk_end(shape) -> np.ndarray:
+    """compose_round's chunk_end as tests/test_primitives.py makes it: the end
+    of each position's 128-lane row."""
+    n = int(np.prod(shape))
+    return (((np.arange(n, dtype=np.int32) >> 7) + 1) << 7).reshape(shape)
+
+
+def build_primitives_inputs() -> list[tuple[str, str, int, dict]]:
+    """Seeded cases of the six primitives as (case, function, limbs, arrays);
+    limbs is 0 for the three local ops.  The shapes of
+    tests/test_primitives.py, leading batch dims with C not a multiple of 8
+    (the TPU grid's RC = 1), row_gather at M = 64 and 2048, table_gather at
+    N not a multiple of 4096, rowwise_gather at G = 12; indices below 0 and
+    at or above the width; table values outside [0, 2^(8 * limbs)) for
+    limbs 1-4; compose_round sums that pass 1 << 23 and that wrap int32."""
+    rng = np.random.default_rng(SEED + 4)
+
+    def ints(lo, hi, shape):
+        return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)
+
+    full = (-(1 << 31), 1 << 31)
+    cases = [
+        ("lg16", "local_gather", 0, dict(values=ints(*full, (16, 128)),
+                                         idx=ints(-5, 140, (16, 128)))),
+        ("lg236", "local_gather", 0, dict(values=ints(*full, (2, 3, 128)),
+                                          idx=ints(-200, 300, (2, 3, 128)))),
+        ("ls16", "local_scatter_or", 0, dict(mask=ints(0, 2, (16, 128)),
+                                             tgt=ints(-5, 200, (16, 128)))),
+        ("ls236", "local_scatter_or", 0, dict(mask=ints(-2, 3, (2, 3, 128)),
+                                              tgt=ints(-130, 260, (2, 3, 128)))),
+        ("cr16", "compose_round", 0, dict(F=ints(0, 16 * 128, (16, 128)),
+                                          S=ints(0, 1 << 15, (16, 128)),
+                                          E=ints(0, 2, (16, 128)),
+                                          chunk_end=_chunk_end((16, 128)))),
+        ("cr236", "compose_round", 0, dict(F=ints(-50, 6 * 128 + 50, (2, 3, 128)),
+                                           S=ints(1 << 22, 1 << 23, (2, 3, 128)),
+                                           E=ints(*full, (2, 3, 128)),
+                                           chunk_end=_chunk_end((2, 3, 128)))),
+        ("crwrap", "compose_round", 0, dict(F=ints(0, 8 * 128, (8, 128)),
+                                            S=ints(1 << 30, (1 << 31) - 1, (8, 128)),
+                                            E=ints(0, 4, (8, 128)),
+                                            chunk_end=_chunk_end((8, 128)))),
+        ("rg2048", "row_gather", 3, dict(table2d=ints(0, 1 << 22, (40, 128)),
+                                         rows=ints(-3, 45, (2048,)))),
+        ("rg64", "row_gather", 3, dict(table2d=ints(0, 1 << 24, (40, 128)),
+                                       rows=ints(-3, 45, (64,)))),
+        ("tg1", "table_gather", 1, dict(table=ints(0, 1 << 8, (4096,)),
+                                        idx=ints(-9, 5000, (3000,)))),
+        ("tg2", "table_gather", 2, dict(table=ints(0, 1 << 16, (4096,)),
+                                        idx=ints(-9, 5000, (3000,)))),
+        ("rw12", "rowwise_gather", 3, dict(tables=ints(0, 1 << 22, (12, 256)),
+                                           idx=ints(-4, 300, (12, 128)))),
+    ]
+    for limbs in (1, 2, 3, 4):          # values outside the contract: negative and >= 2^(8 limbs)
+        cases += [
+            (f"rg_oob{limbs}", "row_gather", limbs, dict(table2d=ints(*full, (40, 128)),
+                                                         rows=ints(-3, 45, (64,)))),
+            (f"tg_oob{limbs}", "table_gather", limbs, dict(table=ints(*full, (512,)),
+                                                           idx=ints(-600, 1200, (5000,)))),
+            (f"rw_oob{limbs}", "rowwise_gather", limbs, dict(tables=ints(*full, (12, 256)),
+                                                             idx=ints(-300, 600, (12, 128)))),
+        ]
+    return cases
+
+
+def primitives_outputs(cases) -> dict[str, list[np.ndarray]]:
+    """Each case's outputs from the JAX package's Pallas kernels
+    (``primitives.force_pallas()``: interpret mode on a CPU backend)."""
+    import jax.numpy as jnp
+
+    from csnappy_tpu.ops import primitives as prim
+    from csnappy_tpu_torch.ops.primitives import PRIMITIVES
+
+    out = {}
+    with prim.force_pallas():
+        for case, fn, limbs, arrays in cases:
+            args = [jnp.asarray(arrays[a]) for a in PRIMITIVES[fn].args]
+            got = getattr(prim, fn)(*args, **({"limbs": limbs} if limbs else {}))
+            out[case] = [np.asarray(g) for g in (got if isinstance(got, tuple) else (got,))]
+    return out
+
+
+def read_primitives() -> list[tuple[str, str, int, dict, list[np.ndarray]]]:
+    """The stored primitives group: (case, function, limbs, inputs, outputs)."""
+    from csnappy_tpu_torch.ops.primitives import PRIMITIVES
+
+    with np.load(OUT / "primitives.npz") as z:
+        out = []
+        for case, fn, limbs in zip(z["cases"], z["fns"], z["limbs"]):
+            case, fn = str(case), str(fn)
+            inputs = {a: z[f"{case}__{a}"] for a in PRIMITIVES[fn].args}
+            outs = [z[f"{case}__out{k}"] for k in range(3 if fn == "compose_round" else 1)]
+            out.append((case, fn, int(limbs), inputs, outs))
+    return out
+
+
+def write_primitives() -> None:
+    t0 = time.time()
+    cases = build_primitives_inputs()
+    outs = primitives_outputs(cases)
+    a = {"cases": np.array([c[0] for c in cases]), "fns": np.array([c[1] for c in cases]),
+         "limbs": np.array([c[2] for c in cases], np.int32)}
+    for case, _, _, arrays in cases:
+        a.update({f"{case}__{k}": v for k, v in arrays.items()})
+        a.update({f"{case}__out{k}": v for k, v in enumerate(outs[case])})
+    np.savez_compressed(OUT / "primitives.npz", **a)
+    print(f"primitives: {len(cases)} cases ({time.time() - t0:.0f} s)", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where the port's block codec spends its device time, on one CUDA card.
+"""Where the port's block codec and primitives spend their device time, on one CUDA card.
 
     python3 tools/torch_profile.py [--out FILE.json]
 
 Runs the main path's batch (B=64 blocks of 32 KiB of urls.10K, block i =
 ``urls[(i % 21) * 32768 : ...]``, as bench.py and chip_smoke.py make it)
 through ``encode_fused.encode_blocks`` and ``decode_fused.decode_blocks``
-under ``torch.profiler`` after a warm-up, and prints for each the device
-time per call of every kernel, copy and fill it ran, their sum, and the
-call's CUDA-event time (the gap is device idle), with the card's name and
-power limit.
+and the six wrappers of ``ops/primitives.py`` on their inputs at the same
+batch (``movebench.primitive_inputs(64)``, on the card) under
+``torch.profiler`` after a warm-up, and prints for each the device time per
+call of every kernel, copy and fill it ran, their sum, and the call's
+CUDA-event time (the gap is device idle), with the card's name and power
+limit.
 Imports nothing of the JAX package.  Exits non-zero without a card.
 """
 from __future__ import annotations
@@ -22,42 +24,6 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 B, BS = 64, 32768
-
-
-def _self_device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
-def profile(torch, fn, reps: int) -> dict:
-    """Device time per call of each kernel (and copy or fill) ``fn`` runs,
-    the sum of them, and the call's CUDA-event time (their gap is idle)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as prof
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = {}
-    for evt in p.key_averages():
-        us = _self_device_us(evt)
-        if evt.device_type == DeviceType.CUDA and us > 0:
-            rows[evt.key] = us / reps / 1e3
-    rows = dict(sorted(rows.items(), key=lambda kv: -kv[1]))
-    return {"event_ms": a.elapsed_time(b) / reps, "device_ms": sum(rows.values()),
-            "kernels": rows}
 
 
 def main() -> int:
@@ -73,6 +39,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from csnappy_tpu_torch.models import pymodel
     from csnappy_tpu_torch.ops import decode_fused, encode_fused
+    from csnappy_tpu_torch.ops.primitives import PRIMITIVES
+    from csnappy_tpu_torch.tools.movebench import primitive_inputs
+    from csnappy_tpu_torch.tools.timing import device_profile
 
     dev = torch.device("cuda")
     urls = (ROOT / "tests" / "data" / "urls.10K").read_bytes()
@@ -94,11 +63,14 @@ def main() -> int:
     ow = encode_fused.ocap(BS)
 
     result = {
-        "encode_blocks (prep + kernel)": profile(torch, lambda: encode_fused._launch(
+        "encode_blocks (prep + kernel)": device_profile(lambda: encode_fused._launch(
             data, blens, *encode_fused.prep(data, blens), ow), args.reps),
-        "decode_blocks": profile(torch, lambda: decode_fused._launch(
+        "decode_blocks": device_profile(lambda: decode_fused._launch(
             decode_fused.decode_blocks, flat, offs, lens, dlim, BS), args.reps),
     }
+    for name, arrays in primitive_inputs(B).items():
+        on_card = [torch.from_numpy(a).to(dev) for a in arrays]
+        result[name] = device_profile(lambda: PRIMITIVES[name].wrapper(*on_card), args.reps)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
