@@ -29,9 +29,7 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              the bytes the function must move over 3.35 TB/s and one
              operation per byte over 67 TOP/s (H100 SXM data sheet).  The
              serial chain (tags or commits of the longest block) is counted
-             and printed beside it, with a design-floor estimate of its
-             time from an assumed shared-memory load latency (printed only,
-             never in the ``kernels`` line, which holds measured numbers);
+             and printed beside it;
 6. whole streams — on every stream of ``tests/data/torch_ref/streams.npz``:
              ``scan_segments.cu`` equal to its plain walk and to the JAX
              scan (``seg``, ``meta``), ``decode_ws`` bytes-or-None equal to
@@ -43,7 +41,10 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              of urls.10K.snappy and of a 16 MiB stream (urls.10K x 24, compressed
              on the card) through ``decode_ws`` with no host scan, of the
              unaligned vector through ``decode_stream`` and of a COPY_4
-             offset-40000 stream through ``decode_jnp``; then times on the
+             offset-40000 stream through ``decode_jnp``, and urls.10K.snappy
+             once more with ``decode_ws`` answering None, through the host
+             scan to one ``decode_segments`` launch and no ``decode_jnp``
+             (a disagreeing segment decoder raises on the card); then times on the
              702 KB and 16 MiB streams (each kernel, the host scan, the whole
              ``decode_ws`` pipeline);
 7. container — ``tools/zramsim.run`` over a 256 MiB tree (the port's
@@ -86,7 +87,21 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              PyTorch call computes the function (``torch.gather``,
              ``torch.index_select``, ``torch.take``, given clamped int64
              indices);
-12. the ``kernels`` JSON line, the card's name and power limit, and the
+12. probes — rows 14a-14d (``csrc/probe.cu``, ``tools/probe.py``): with every
+             count of ``probe.launches`` set to 0, ``probe.measure`` of each
+             probe of ``probe.PROBES`` on the card (device=None): ns and SM
+             cycles per iteration from the slope between k_lo and k_hi (CUDA
+             events, and ``clock64()`` inside the kernel), its output at
+             k_hi equal to the plain version, the shared-memory capacity in
+             bytes by bisection; every count moved; then each probe at
+             every K of ``tests/data/torch_ref/probes.npz`` equal to the JAX
+             probes' answers and to the plain version (0 differing
+             elements); one ``kernels`` row per ``pl.pallas_call`` site with
+             its probes' times as a sub-list; then each serial chain of
+             phases 5 and 6 in units of one measured ``walk_smem`` step (a
+             dependent shared load and four integer operations: a yardstick,
+             not a floor; printed only, never in the ``kernels`` line);
+13. the ``kernels`` JSON line, the card's name and power limit, and the
    result line.
 
 Any failure raises and exits non-zero; with no card, or without the
@@ -104,9 +119,6 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (NVIDIA data sheet)
-OPS_PER_S = 67e12             # H100 SXM 32-bit rate outside the tensor cores
-SMEM_LOAD_CYCLES = 30         # dependent shared-memory load latency per chain step (assumed)
 B, BS = 64, 32768             # the main path's batch: 64 blocks of 32 KiB
 
 
@@ -165,6 +177,8 @@ def _pack(torch, frags):
 
 def _bound(nbytes: int) -> tuple[float, str]:
     """Least time for a function that moves ``nbytes`` and does one operation a byte."""
+    from csnappy_tpu_torch.tools.timing import HBM_BYTES_PER_S, OPS_PER_S
+
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nbytes / OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
@@ -246,6 +260,16 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
     host_calls = []
     native.scan_segments = lambda *a, **k: host_calls.append(1) or host_scan(*a, **k)
     routes = {}
+
+    def via_host_scan(stream: bytes) -> bytes:
+        """The host-scan segmentable route: decode_ws answers None, so the
+        host scan routes the stream to one decode_segments launch."""
+        ws = decode_ws.decompress_noheader_ws
+        decode_ws.decompress_noheader_ws = lambda *a, **k: None
+        try:
+            return api.decompress(stream)
+        finally:
+            decode_ws.decompress_noheader_ws = ws
     try:
         for w in counted.values():
             w.launches = 0
@@ -255,7 +279,8 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
                     (DATA / "unaligned_uint64_test.snappy").read_bytes()), unaligned),
                 ("copy4_offset_40000", lambda: api.decompress_noheader(bytes(far), len(lit) + 8),
                  lit + lit[-40000 : -40000 + 8]),
-                ("urls.10K x24", lambda: api.decompress(big_comp), big)):
+                ("urls.10K x24", lambda: api.decompress(big_comp), big),
+                ("urls.10K.snappy via the host scan", lambda: via_host_scan(golden), urls)):
             before = {k: w.launches for k, w in counted.items()}
             nhost = len(host_calls)
             assert fn() == want, route
@@ -268,6 +293,8 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
     assert all(n > 0 for n in launches.values()), launches
     for route in ("urls.10K.snappy", "urls.10K x24"):
         assert routes[route] == {"scan_segments": 1, "decode_segments": 1, "host_scan": 0}, routes
+    assert routes["urls.10K.snappy via the host scan"] == {"decode_segments": 1, "host_scan": 1}, \
+        routes
     assert routes["unaligned_uint64_test.snappy"].get("decode_stream") == 1, routes
     assert routes["copy4_offset_40000"].get("decode_jnp") == 1, routes
     print(f"[stream-main] api whole-stream routes on the card: {routes}; launches {launches}",
@@ -655,6 +682,72 @@ def _primitives(torch, np, dev, card: str) -> list:
     return rows
 
 
+def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
+    """Phase 12: rows 14a-14d (``csrc/probe.cu``) through ``tools/probe.py``
+    with launch counts: every probe measured on the card and held against
+    its plain version and the JAX probes' answers.  Returns one ``kernels``
+    row per ``pl.pallas_call`` site and each probe's measurement."""
+    from csnappy_tpu_torch.tools import probe
+
+    for name in probe.PROBES:
+        probe.probe.launches[name] = 0
+    recs = {name: probe.measure(name) for name in probe.PROBES}      # device=None: the card
+    torch.cuda.synchronize()
+    launches = dict(probe.probe.launches)
+    assert all(n > 0 for n in launches.values()), launches
+    bad = [name for name, r in recs.items() if not r["result_equals_plain"]]
+    assert not bad, bad
+    clocks = probe.clocks()
+    for name, r in recs.items():
+        if r["ns_per_iter"] is None:
+            continue
+        print(f"[probes] {name}: {r['ns_per_iter']:.2f} ns, {r['cycles_per_iter']:.2f} SM cycles "
+              f"an iteration of {r['steps_per_iter']} step(s) (K {r['k_lo']} -> {r['k_hi']}, "
+              f"{r['space']} memory); {r['ms']:.4f} ms at K = {r['k_hi']}, plain "
+              f"{r['plain_ms']:.1f} ms (host CPU); {launches[name]} launches", flush=True)
+    cap = recs["mosaic_probe5.smem_cap"]
+    print(f"[probes] shared-memory capacity of a block: {cap['capacity_bytes']} bytes; (rows, 128) "
+          f"int32 scratch runs at rows {cap['rows_ok']}", flush=True)
+
+    z = np.load(DATA / "torch_ref" / "probes.npz")
+    ncase = 0
+    for name, pr in probe.PROBES.items():
+        if pr.entry == "smem_cap":
+            continue
+        host = torch.from_numpy(probe.inputs(name))
+        data = host.to(dev)
+        for key in (k for k in z.files if k.startswith(name + "__k")):
+            k = int(key.split("__k")[1])
+            got = probe.probe(name, k, data).cpu()
+            want = pr.plain(k, host)
+            assert np.array_equal(got.numpy(), z[key]) and torch.equal(got, want), (name, k)
+            ncase += 1
+    print(f"[probes] {ncase} fixture cases equal to the JAX probes and to the plain versions on "
+          f"the card; card {card}; SM clock {clocks['clocks.sm']} (max {clocks['clocks.max.sm']})",
+          flush=True)
+
+    rows = []
+    for call, site in probe.SITES.items():
+        names = [n for n, p in probe.PROBES.items() if p.call == call]
+        sub = [{k: recs[n][k] for k in ("probe", "ns_per_iter", "cycles_per_iter", "ms", "k_lo",
+                                        "k_hi", "steps_per_iter", "space", "plain_ms", "bound_ms")}
+               | {"launches": launches[n]} for n in names]
+        top = max(names, key=lambda n: recs[n]["bound_ms"])
+        row = {"name": f"probe:{site}", "route": "cuda",
+               "source": "csnappy_tpu_torch/csrc/probe.cu", "replaces": call,
+               "launches": sum(launches[n] for n in names),
+               "max_abs_err": max(recs[n]["max_abs_err"] for n in names),
+               "ms": sum(recs[n]["ms"] for n in names),
+               "plain_ms": sum(recs[n]["plain_ms"] for n in names),
+               "bound_ms": sum(recs[n]["bound_ms"] for n in names),
+               "bound_by": recs[top]["bound_by"], "library_ms": None, "probes": sub,
+               "clocks_sm": clocks["clocks.sm"]}
+        if site.endswith("smem_cap"):
+            row.update(capacity_bytes=cap["capacity_bytes"], rows_ok=cap["rows_ok"])
+        rows.append(row)
+    return rows, recs
+
+
 def main() -> int:
     import torch
 
@@ -676,7 +769,6 @@ def main() -> int:
     dev = torch.device("cuda")
     card = _smi("name,power.limit,clocks.max.sm")
     name_, power_, clock_ = (s.strip() for s in card.split(","))
-    step_ns = SMEM_LOAD_CYCLES / (float(clock_.split()[0]) * 1e6) * 1e9
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}", flush=True)
 
     # ------------------------------------------------------------ 1. build
@@ -824,7 +916,6 @@ def main() -> int:
          B * BS + 4 * B, B * ow + 8 * B, max(commits), err_enc),
     ):
         bound_ms, bound_by = _bound(nin + nout)
-        chain_ms = steps * step_ns * 1e-6
         src = "csnappy_tpu_torch/csrc/" + ("encode" if name == "encode_blocks" else "decode") \
             + "_blocks.cu"
         useful = B * BS if name != "decode_segments" else len(urls)   # uncompressed bytes
@@ -838,8 +929,7 @@ def main() -> int:
         rows.append(row)
         print(f"[times] {name}: {ms:.4f} ms ({row['GBps']:.3f} GB/s of uncompressed bytes), "
               f"plain {plain_ms:.1f} ms (host CPU), bound {row['bound_ms']:.5f} ms by "
-              f"{row['bound_by']} ({nin + nout} B), serial chain {steps} steps, design-floor "
-              f"estimate {chain_ms:.4f} ms at an assumed {SMEM_LOAD_CYCLES} cycles a step"
+              f"{row['bound_by']} ({nin + nout} B), serial chain {steps} steps"
               + (f"; kernel {kern_ms:.4f} ms + prep {prep_ms:.4f} ms"
                  if name == "encode_blocks" else ""), flush=True)
     print(f"[times] card {name_}, power limit {power_}, max SM clock {clock_}", flush=True)
@@ -859,7 +949,19 @@ def main() -> int:
     # ----------------------------------------------------- 11. primitives
     rows += _primitives(torch, np, dev, card)
 
-    # --------------------------------------------------------- 12. result
+    # --------------------------------------------------------- 12. probes
+    probe_rows, recs = _probes(torch, np, dev, card)
+    rows += probe_rows
+    step = recs["mosaic_probe.walk_smem"]["cycles_per_iter"]
+    step_ms = step / (float(clock_.split()[0]) * 1e3)     # cycles at the max SM clock
+    for row in rows:
+        if "chain_steps" in row and row["route"] == "cuda":
+            print(f"[chain] {row['name']}: {row['chain_steps']} serial steps x one walk_smem step "
+                  f"({step:.2f} SM cycles at {clock_}: a dependent shared load and four integer "
+                  f"operations, not a floor) = {row['chain_steps'] * step_ms:.4f} ms; the kernel "
+                  f"{row['ms']:.4f} ms", flush=True)
+
+    # --------------------------------------------------------- 13. result
     print(json.dumps({"kernels": rows}), flush=True)
     print(_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

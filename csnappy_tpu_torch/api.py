@@ -24,10 +24,17 @@ Routes of the ``torch`` backend, in the order of ``csnappy_tpu/api.py``:
   (torch ops on the card); a crossing stream (a tag or copy across a 32 KiB
   output boundary) goes to the ``decode_stream`` kernel, and to
   ``decode_jnp`` when that answers E_DATA_MALFORMED (a legal literal beyond
-  its 2^24-byte envelope).
+  its 2^24-byte envelope);
+* without the host library (``native.available()`` false: no compiler, or
+  the library does not load) the scan is skipped and the stream goes to
+  ``decode_stream``, then to ``decode_jnp`` on E_DATA_MALFORMED.
 
-A segment decoder that disagrees with the host scan raises ``RuntimeError``:
-that is a kernel fault to surface, not a stream to re-decide.
+A segment decoder that disagrees with the host scan (a bad status, a short
+segment, or a total other than the scan's) on a stream the scan proved
+legal is a fault of ``decode_segments``.  On the card it raises
+``RuntimeError``, so a wrong kernel is never hidden; with ``device="cpu"``
+the general decoder ``decode_jnp`` re-decides the stream, as
+``csnappy_tpu/api.py`` does.
 
 Header-mode :func:`decompress` also checks that the stream produced exactly
 the header-declared length (E_DATA_MALFORMED otherwise).  The oracle's own
@@ -39,7 +46,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .config import DEFAULT, CodecConfig
+from .config import DEFAULT, CodecConfig, resolve_device
 from .errors import E_DATA_MALFORMED, E_HEADER_BAD, E_OK, E_OUTPUT_INSUF, SnappyError, raise_for_code
 from .models import pymodel, wire
 
@@ -123,30 +130,41 @@ def _decompress_stream_routed(src: bytes, dst_len: int, device) -> tuple[int, by
     res = decode_ws.decompress_noheader_ws(body, dst_len, device)
     if res is not None:
         return E_OK, res
-    rc, offs, produced = native.scan_segments(body, dst_len, wire.BLOCK_SIZE)
-    if rc < 0:
+    rc = None
+    if native.available():
+        rc, offs, produced = native.scan_segments(body, dst_len, wire.BLOCK_SIZE)
+    if rc is not None and rc < 0:
         return rc, b""                      # the exact error, no device pass
     if rc == native.SCAN_FAR_OFFSET:
         out, _, status = decode_jnp.decompress_noheader_np(body, dst_len, device)
         return status, out.tobytes()
-    if rc == native.SCAN_CROSSING:
-        out, _, status = decode_stream.decompress_noheader_np(body, dst_len, device)
-        if status == E_DATA_MALFORMED:
-            # a legal stream outside the stream kernel's envelope (a literal
-            # beyond 2^24 bytes): the general decoder decides it
+    if rc == native.SCAN_SEGMENTABLE:
+        nseg = len(offs)
+        if nseg == 0:
+            return E_OK, b""
+        lens = np.diff(np.append(offs, len(body)))
+        dlims = np.minimum(wire.BLOCK_SIZE,
+                           dst_len - np.arange(nseg, dtype=np.int64) * wire.BLOCK_SIZE)
+        out, prod, status = decode_fused.decode_segments(body, offs, lens, dlims, device)
+        prod, status = prod.cpu().numpy(), status.cpu().numpy()
+        if (status != E_OK).any() or (prod[:-1] != wire.BLOCK_SIZE).any() \
+                or int(prod.sum()) != produced:
+            # the scan proved the stream legal, so the segment decoder is at
+            # fault: on the card that is a kernel fault to surface; on the
+            # CPU the general decoder re-decides it, as the JAX package does
+            if resolve_device(device).type != "cpu":
+                raise RuntimeError("decode_segments disagrees with the host boundary scan")
             out, _, status = decode_jnp.decompress_noheader_np(body, dst_len, device)
-        return status, out.tobytes()
-    nseg = len(offs)
-    if nseg == 0:
-        return E_OK, b""
-    lens = np.diff(np.append(offs, len(body)))
-    dlims = np.minimum(wire.BLOCK_SIZE, dst_len - np.arange(nseg, dtype=np.int64) * wire.BLOCK_SIZE)
-    out, prod, status = decode_fused.decode_segments(body, offs, lens, dlims, device)
-    prod, status = prod.cpu().numpy(), status.cpu().numpy()
-    if (status != E_OK).any() or (prod[:-1] != wire.BLOCK_SIZE).any() or int(prod.sum()) != produced:
-        raise RuntimeError("segment decoder disagrees with the boundary scan")
-    # every segment but the last is full, so the rows are the stream
-    return E_OK, out.reshape(-1)[:produced].cpu().numpy().tobytes()
+            return status, out.tobytes()
+        # every segment but the last is full, so the rows are the stream
+        return E_OK, out.reshape(-1)[:produced].cpu().numpy().tobytes()
+    # a crossing stream, or no host scan
+    out, _, status = decode_stream.decompress_noheader_np(body, dst_len, device)
+    if status == E_DATA_MALFORMED:
+        # a legal stream outside the stream kernel's envelope (a literal
+        # beyond 2^24 bytes), or no scan ran: the general decoder decides it
+        out, _, status = decode_jnp.decompress_noheader_np(body, dst_len, device)
+    return status, out.tobytes()
 
 
 def decompress_noheader(src: bytes, dst_len: int, backend: str | None = None,

@@ -34,10 +34,11 @@ SOURCES = {
     "decode_stream": CSRC / "decode_stream.cu",
     "movebench": CSRC / "movebench.cu",
     "primitives": CSRC / "primitives.cu",
+    "probe": CSRC / "probe.cu",
     "csnappy_host": CSRC / "host" / "csnappy_host.cpp",
 }
 CUDA_NAMES = ("decode_blocks", "encode_blocks", "scan_segments", "decode_stream", "movebench",
-              "primitives")
+              "primitives", "probe")
 
 
 def nvcc() -> str:

@@ -52,6 +52,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def available() -> bool:
+    """True when the host library builds and loads; False when the compiler
+    is missing or fails, or the library does not load.  The answer is kept,
+    so a failed build is tried once a process."""
+    try:
+        _lib()
+        return True
+    except (OSError, RuntimeError):
+        return False
+
+
 def _src(data) -> np.ndarray:
     src = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray, memoryview)) \
         else np.ascontiguousarray(data, np.uint8)

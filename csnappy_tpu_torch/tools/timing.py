@@ -24,6 +24,11 @@ import torch
 
 from ..config import resolve_device
 
+# the card's peak rates for the bounds (H100 SXM, NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12       # device memory
+OPS_PER_S = 67e12               # 32-bit operations outside the tensor cores
+BF16_PER_S = 989e12             # dense bf16 on the tensor cores
+
 
 def time_ms(fn, n: int = 20, warm: int = 3, device=None) -> float:
     """Median milliseconds of one ``fn()`` call on ``device`` (None = cuda)."""

@@ -216,3 +216,74 @@ def test_default_device_is_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.decompress(pymodel.compress(b"abc"))
     assert api.compress(b"abc", backend="py") == pymodel.compress(b"abc")
+
+
+# ------------------------------------- the routed decode's fallbacks, as in JAX
+
+
+def _oracle_answer(body: bytes, cap: int) -> tuple[bytes, int]:
+    try:
+        return pymodel.decompress_noheader(body, cap), errors.E_OK
+    except errors.SnappyError as e:
+        return b"", e.code
+
+
+def _port_answer(body: bytes, cap: int) -> tuple[bytes, int]:
+    try:
+        return api.decompress_noheader(body, cap, device=CPU), errors.E_OK
+    except errors.SnappyError as e:
+        return b"", e.code
+
+
+def _spy(monkeypatch, mod, name: str) -> list:
+    calls, real = [], getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a, **k: calls.append(1) or real(*a, **k))
+    return calls
+
+
+def test_segment_decoder_disagreeing_with_the_scan_is_redecided(monkeypatch, urls10k_snappy):
+    # csnappy_tpu/api.py:177-189: with device="cpu" a segment decoder that
+    # disagrees with the host scan (here one segment comes back a byte short)
+    # re-decides the stream with decode_jnp; on the card it raises
+    # (test_torch_cuda.py::test_segment_decoder_fault_raises_on_the_card)
+    from csnappy_tpu_torch.ops import decode_fused, decode_jnp
+
+    real = decode_fused.decode_segments
+
+    def short(*a, **k):
+        out, prod, status = real(*a, **k)
+        prod = prod.clone()
+        prod[0] -= 1
+        return out, prod, status
+
+    monkeypatch.setattr(decode_fused, "decode_segments", short)
+    jnp_calls = _spy(monkeypatch, decode_jnp, "decompress_noheader_np")
+    golden = urls10k_snappy[wire.varint_decode(urls10k_snappy)[1]:]
+    ulen = wire.varint_decode(urls10k_snappy)[0]
+    assert native.scan_segments(golden, ulen)[0] == native.SCAN_SEGMENTABLE
+    for body, cap in ((golden, ulen), _fixture_stream("straddling_literal")):
+        assert _port_answer(body, cap) == _oracle_answer(body, cap)
+    assert len(jnp_calls) == 1                       # the golden stream, re-decided
+
+
+def test_routed_decode_without_the_host_library(monkeypatch, request, urls10k_snappy):
+    # csnappy_tpu/api.py:141-147, :197-205: with no host library the scan is
+    # skipped and decode_stream (then decode_jnp on E_DATA_MALFORMED) decides
+    from csnappy_tpu_torch.ops import decode_stream, decode_ws
+
+    def no_library():
+        raise OSError("libcsnappy_host: cannot open shared object file")
+
+    monkeypatch.setattr(native, "_lib", no_library)
+    native.available.cache_clear()                   # available() keeps its answer
+    request.addfinalizer(native.available.cache_clear)
+    assert native.available() is False
+    stream_calls = _spy(monkeypatch, decode_stream, "decompress_noheader_np")
+    crossing = _fixture_stream("straddling_literal")
+    assert _port_answer(*crossing) == _oracle_answer(*crossing)
+    # a stream decode_ws does not verify, with no scan to route it
+    monkeypatch.setattr(decode_ws, "decompress_noheader_ws", lambda *a, **k: None)
+    golden = urls10k_snappy[wire.varint_decode(urls10k_snappy)[1]:]
+    ulen = wire.varint_decode(urls10k_snappy)[0]
+    assert _port_answer(golden, ulen) == _oracle_answer(golden, ulen)
+    assert len(stream_calls) == 2

@@ -20,6 +20,7 @@ from csnappy_tpu_torch import api
 from csnappy_tpu_torch.models import pymodel, wire
 from csnappy_tpu_torch.ops import decode_fused, encode_fused
 from csnappy_tpu_torch.ops import primitives as prim
+from csnappy_tpu_torch.tools import probe as pb
 
 pytestmark = pytest.mark.cuda
 DATA = pathlib.Path(__file__).parent / "data"
@@ -304,6 +305,35 @@ def test_api_whole_stream_routes_launch_their_kernels(card, urls10k, urls10k_sna
     assert api.decompress(urls10k_snappy) == urls10k
 
 
+def test_segment_decoder_fault_raises_on_the_card(card, urls10k, urls10k_snappy, monkeypatch):
+    # the host-scan segmentable route on the card: with decode_ws answering
+    # None the scan sends urls.10K.snappy to one decode_segments launch and
+    # decode_jnp never runs; a segment decoder that disagrees with the scan
+    # raises instead of being re-decided by decode_jnp
+    from csnappy_tpu_torch.ops import decode_jnp, decode_ws
+
+    monkeypatch.setattr(decode_ws, "decompress_noheader_ws", lambda *a, **k: None)
+    jnp_calls, real_jnp = [], decode_jnp.decompress_noheader_np
+    monkeypatch.setattr(decode_jnp, "decompress_noheader_np",
+                        lambda *a, **k: jnp_calls.append(1) or real_jnp(*a, **k))
+    before = decode_fused.decode_segments.launches
+    assert api.decompress(urls10k_snappy) == urls10k
+    assert decode_fused.decode_segments.launches == before + 1 and not jnp_calls
+    real = decode_fused.decode_segments
+
+    def short(*a, **k):
+        out, prod, status = real(*a, **k)
+        prod = prod.clone()
+        prod[0] -= 1
+        return out, prod, status
+
+    short.launches = 0                  # the kernel counts on the module's decode_segments
+    monkeypatch.setattr(decode_fused, "decode_segments", short)
+    with pytest.raises(RuntimeError, match="disagrees with the host boundary scan"):
+        api.decompress(urls10k_snappy)
+    assert not jnp_calls
+
+
 def test_whole_stream_never_takes_a_plain_version(card, urls10k_snappy, urls10k, monkeypatch):
     from csnappy_tpu_torch.ops import decode_stream, decode_ws
 
@@ -505,3 +535,67 @@ def test_primitives_never_take_the_plain_version(card, monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensor"):
         prim.row_gather(x, x[0], device="cpu")
 
+
+
+# ------------------------------------------------------------- the probes slice
+
+PROBE_NAMES = tuple(n for n, p in pb.PROBES.items() if p.entry != "smem_cap")
+
+
+@pytest.fixture(scope="module")
+def probe_fixture():
+    with np.load(DATA / "torch_ref" / "probes.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.mark.parametrize("name", PROBE_NAMES)
+def test_probe_kernel_equals_plain_and_fixture(card, probe_fixture, name):
+    # every fixture K (the JAX probes' own answers) and the probe's k_hi
+    pr = pb.PROBES[name]
+    host = torch.from_numpy(pb.inputs(name))
+    data = host.to(card)
+    ks = sorted(int(key.split("__k")[1]) for key in probe_fixture if key.startswith(name + "__k"))
+    assert ks
+    before = pb.probe.launches[name]
+    for k in ks + [pr.k_hi]:
+        got = pb.probe(name, k, data)                      # device=None: the card
+        torch.cuda.synchronize()
+        assert got.is_cuda and torch.equal(got.cpu(), pr.plain(k, host)), (name, k)
+        if k in ks:
+            assert np.array_equal(got.cpu().numpy(), probe_fixture[f"{name}__k{k}"]), (name, k)
+    assert pb.probe.launches[name] == before + len(ks) + 1
+
+
+def test_probe_shared_memory_capacity(card, probe_fixture):
+    cap = pb.smem_capacity()
+    assert cap >= 128 * 1024 and cap % 4 == 0
+    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", None)
+    if optin is not None:
+        assert cap == optin
+    for rows in pb.SMEM_ROWS:
+        assert pb.smem_cap(rows) == (rows * 128 * 4 <= cap), rows
+    assert bool(probe_fixture["smem_cap_ok"][0]) and pb.smem_cap(256)
+    out = pb.probe("smem_cap", 256, pb.inputs("smem_cap"))
+    assert (out.cpu() == 2).all()
+    with pytest.raises(RuntimeError, match="do not launch"):
+        pb.probe("smem_cap", 2048, pb.inputs("smem_cap"))
+
+
+def test_probe_slopes_are_positive(card):
+    for name in PROBE_NAMES:
+        rec = pb.measure(name)
+        assert rec["result_equals_plain"], name
+        assert rec["ns_per_iter"] > 0 and rec["cycles_per_iter"] > 0, (name, rec)
+        assert rec["space"] == pb.PROBES[name].space
+
+
+def test_probes_never_take_the_plain_version(card, monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("plain version called on the card")
+
+    for name in pb.PROBES:
+        monkeypatch.setitem(pb.PROBES, name, pb.PROBES[name]._replace(plain=refuse))
+    data = torch.from_numpy(pb.inputs("walk_smem")).to(card)
+    assert pb.probe("walk_smem", 37, data).is_cuda
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pb.probe("walk_smem", 37, data, device="cpu")

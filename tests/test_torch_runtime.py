@@ -155,7 +155,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " encode_fused, primitives\n"
         "from csnappy_tpu_torch.runtime import container, native\n"
         "from csnappy_tpu_torch import cli\n"
-        "from csnappy_tpu_torch.tools import benchtable, corpus, movebench, timing, zramsim\n"
+        "from csnappy_tpu_torch.tools import benchtable, corpus, movebench, probe, timing,"
+        " zramsim\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'csnappy_tpu'))\n"
         "assert not bad, bad\n"

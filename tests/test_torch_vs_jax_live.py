@@ -154,3 +154,42 @@ def test_primitives_pallas_live():
         for g, w, s in zip(got, live[case], stored[case]):
             assert np.array_equal(g.numpy(), w) and np.array_equal(w, s), case
 
+
+
+def test_probes_live():
+    # every probe of tools/mosaic_probe.py, mosaic_probe2.py and
+    # mosaic_probe5.py in interpret mode at a seeded random K, on a fresh
+    # seeded input, against the port's plain versions
+    import importlib.util
+    import pathlib
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from csnappy_tpu_torch.tools import probe
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_fixtures", root / "tools" / "make_torch_fixtures.py")
+    maker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(maker)
+    rng = np.random.default_rng(int.from_bytes(b"probe", "little"))
+    data = rng.integers(0, 2**20, (probe.ROWS, 128), dtype=np.int32)
+    for mod_name in ("mosaic_probe", "mosaic_probe2"):
+        mod = maker.probe_module(mod_name)
+        for name, entry in mod.PROBES.items():
+            k = int(rng.integers(0, 3000))
+            want = jax.jit(mod._call(entry[0], entry[1]))(jnp.full((1,), k, jnp.int32),
+                                                          jnp.asarray(data))
+            got = probe.probe(f"{mod_name}.{name}", k, data, device="cpu")
+            assert np.array_equal(got.numpy(), np.asarray(want)), (name, k)
+    for chains, rows in maker.WALK_CONFIGS:
+        n = int(rng.integers(0, 5000))
+        d = rng.integers(2, 9, size=(rows, 128)).astype(np.int32)
+        want = maker.walk_call(chains, rows)(jnp.full((4,), n, jnp.int32), jnp.asarray(d))
+        got = probe.probe(f"mosaic_probe5.walk_c{chains}_r{rows}", n, d, device="cpu")
+        assert np.array_equal(got.numpy(), np.asarray(want)), (chains, rows, n)
+    rows = int(rng.integers(1, 600))
+    assert maker.probe_module("mosaic_probe5").smem_cap(rows) == probe.smem_cap(rows, device="cpu")
+    assert (probe.probe("smem_cap", rows, torch.ones(4, dtype=torch.int32), device="cpu") == 2).all()

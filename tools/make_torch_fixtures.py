@@ -25,7 +25,13 @@ Writes ``tests/data/torch_ref/``:
 * ``primitives.npz`` — the six Pallas kernels of ``ops/primitives.py``, run
   under ``primitives.force_pallas()``, on the seeded cases of
   :func:`build_primitives_inputs` (values outside the limbs' contract
-  included).
+  included);
+* ``probes.npz`` — the latency and capacity probes of ``tools/mosaic_probe.py``,
+  ``mosaic_probe2.py`` and ``mosaic_probe5.py`` (:func:`write_probes`): the
+  inputs their ``main()``s make from seed 0, each named probe's ``o_ref`` at
+  K in ``PROBE_KS``, ``walk_kern`` at N in ``WALK_NS`` for the five
+  configurations of ``mosaic_probe5.main()``, and ``smem_cap`` at
+  ``SMEM_ROWS`` as the interpreter answers it.
 
 The tests rebuild the inputs from the seed, check them against the stored
 copies (drift check), then hold the port against the stored outputs.
@@ -34,14 +40,16 @@ On a CPU backend the Pallas kernels run in interpret mode, so this takes
 minutes; it is run by hand when the reference or the input set changes, never
 by the tests.  ``--far`` adds the 70000-byte-window COPY_4 vector
 (``far`` group, offset 66000 > 65535), which costs several minutes more.
-``--group blocks``, ``streams``, ``container``, ``movebench`` or
-``primitives`` (seconds) writes one file only; the stream and container
+``--group blocks``, ``streams``, ``container``, ``movebench``,
+``primitives`` or ``probes`` (seconds) writes one file only; the stream and container
 groups run one process per case, ``--procs`` at a time.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
+import importlib.util
 import pathlib
 import sys
 import time
@@ -258,7 +266,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--far", action="store_true", help="add the far COPY_4 group")
     ap.add_argument("--group", default="all",
-                    choices=("all", "blocks", "streams", "container", "movebench", "primitives"))
+                    choices=("all", "blocks", "streams", "container", "movebench", "primitives",
+                             "probes"))
     ap.add_argument("--procs", type=int, default=4, help="processes for the stream group")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -276,6 +285,8 @@ def main() -> int:
         write_movebench()
     if args.group in ("all", "primitives"):
         write_primitives()
+    if args.group in ("all", "probes"):
+        write_probes()
     print(f"wrote {OUT}", flush=True)
     return 0
 
@@ -685,6 +696,95 @@ def write_primitives() -> None:
         a.update({f"{case}__out{k}": v for k, v in enumerate(outs[case])})
     np.savez_compressed(OUT / "primitives.npz", **a)
     print(f"primitives: {len(cases)} cases ({time.time() - t0:.0f} s)", flush=True)
+
+
+# ------------------------------------------------------------------- probes
+
+PROBE_KS = (0, 1, 37, 300, 2100)      # 300 passes the window refill at step 255,
+                                      # 2100 the 2048-entry scratch wrap and int32 wrap
+WALK_NS = (0, 1, 3000)
+WALK_CONFIGS = ((1, 144), (2, 144), (2, 288), (4, 144), (4, 576))   # mosaic_probe5.main()
+SMEM_ROWS = (256, 512)
+
+
+def probe_module(name: str):
+    """``tools/<name>.py`` of the JAX package, imported from its file."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def build_probe_inputs() -> dict[str, np.ndarray]:
+    """The probes' inputs as the JAX ``main()``s make them: ``data`` for
+    mosaic_probe.py and mosaic_probe2.py (mosaic_probe.py:224), ``walk_r<rows>``
+    for each walk of mosaic_probe5.py (a fresh seed-0 generator each,
+    mosaic_probe5.py:117-118)."""
+    out = {"data": np.random.default_rng(0).integers(0, 2**20, (304, 128), dtype=np.int32)}
+    for rows in sorted({r for _, r in WALK_CONFIGS}):
+        out[f"walk_r{rows}"] = np.random.default_rng(0).integers(
+            2, 9, size=(rows, 128)).astype(np.int32)
+    return out
+
+
+def walk_call(nchains: int, rows: int):
+    """The ``pl.pallas_call`` of ``mosaic_probe5.time_walk`` (:102-117) for one
+    configuration, without its timing."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    mp5 = probe_module("mosaic_probe5")
+    return jax.jit(pl.pallas_call(
+        functools.partial(mp5.walk_kern, nchains, rows),
+        out_shape=jax.ShapeDtypeStruct((8, 128), jnp.int32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM), pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        scratch_shapes=[pltpu.SMEM((rows, 128), jnp.int32), pltpu.SemaphoreType.DMA],
+        interpret=mp5.INTERP))
+
+
+def probe_outputs(inputs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Each probe's ``o_ref`` from the JAX kernels (interpret mode on a CPU
+    backend), keyed ``<module>.<probe>__k<K>``; the walks as
+    ``mosaic_probe5.walk_c<chains>_r<rows>__k<N>``."""
+    import jax
+    import jax.numpy as jnp
+
+    out = {}
+    data = jnp.asarray(inputs["data"])
+    for mod_name in ("mosaic_probe", "mosaic_probe2"):
+        mod = probe_module(mod_name)
+        for name, entry in mod.PROBES.items():
+            fn = jax.jit(mod._call(entry[0], entry[1]))
+            for k in PROBE_KS:
+                got = fn(jnp.full((1,), k, jnp.int32), data)
+                out[f"{mod_name}.{name}__k{k}"] = np.asarray(got)
+    for nchains, rows in WALK_CONFIGS:
+        fn = walk_call(nchains, rows)
+        d = jnp.asarray(inputs[f"walk_r{rows}"])
+        for n in WALK_NS:
+            got = fn(jnp.full((4,), n, jnp.int32), d)
+            out[f"mosaic_probe5.walk_c{nchains}_r{rows}__k{n}"] = np.asarray(got)
+    return out
+
+
+def read_probes() -> dict[str, np.ndarray]:
+    """The stored probes group, every array by its key."""
+    with np.load(OUT / "probes.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def write_probes() -> None:
+    t0 = time.time()
+    a = build_probe_inputs()
+    a.update(probe_outputs(a))
+    mp5 = probe_module("mosaic_probe5")
+    a["smem_cap_rows"] = np.array(SMEM_ROWS, np.int32)
+    a["smem_cap_ok"] = np.array([mp5.smem_cap(r) for r in SMEM_ROWS])
+    np.savez_compressed(OUT / "probes.npz", **a)
+    print(f"probes: {len(a)} arrays ({time.time() - t0:.0f} s)", flush=True)
 
 
 if __name__ == "__main__":
