@@ -87,16 +87,18 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              PyTorch call computes the function (``torch.gather``,
              ``torch.index_select``, ``torch.take``, given clamped int64
              indices);
-12. probes — rows 14a-14d (``csrc/probe.cu``, ``tools/probe.py``): with every
+12. probes — rows 14a-14g (``csrc/probe.cu``, ``csrc/probe3.cu``,
+             ``tools/probe.py``): with every
              count of ``probe.launches`` set to 0, ``probe.measure`` of each
              probe of ``probe.PROBES`` on the card (device=None): ns and SM
              cycles per iteration from the slope between k_lo and k_hi (CUDA
              events, and ``clock64()`` inside the kernel), its output at
              k_hi equal to the plain version, the shared-memory capacity in
              bytes by bisection; every count moved; then each probe at
-             every K of ``tests/data/torch_ref/probes.npz`` equal to the JAX
-             probes' answers and to the plain version (0 differing
-             elements); one ``kernels`` row per ``pl.pallas_call`` site with
+             every K of ``tests/data/torch_ref/probes.npz`` (and on its
+             constructed inputs) equal to the JAX probes' answers and to the
+             plain version (0 differing elements); one ``kernels`` row per
+             ``pl.pallas_call`` site (seven) with
              its probes' times as a sub-list; then each serial chain of
              phases 5 and 6 in units of one measured ``walk_smem`` step (a
              dependent shared load and four integer operations: a yardstick,
@@ -683,7 +685,7 @@ def _primitives(torch, np, dev, card: str) -> list:
 
 
 def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
-    """Phase 12: rows 14a-14d (``csrc/probe.cu``) through ``tools/probe.py``
+    """Phase 12: rows 14a-14g (``csrc/probe.cu``, ``csrc/probe3.cu``) through ``tools/probe.py``
     with launch counts: every probe measured on the card and held against
     its plain version and the JAX probes' answers.  Returns one ``kernels``
     row per ``pl.pallas_call`` site and each probe's measurement."""
@@ -714,13 +716,16 @@ def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
     for name, pr in probe.PROBES.items():
         if pr.entry == "smem_cap":
             continue
-        host = torch.from_numpy(probe.inputs(name))
-        data = host.to(dev)
-        for key in (k for k in z.files if k.startswith(name + "__k")):
-            k = int(key.split("__k")[1])
-            got = probe.probe(name, k, data).cpu()
-            want = pr.plain(k, host)
-            assert np.array_equal(got.numpy(), z[key]) and torch.equal(got, want), (name, k)
+        tbl = probe.walk_table(name)
+        htab = None if tbl is None else torch.from_numpy(tbl)
+        tab = None if htab is None else htab.to(dev)
+        for key in (k for k in z.files if k.startswith(name + "__")):
+            # <name>__k<K> on the probe's own input, <name>__<case>_k<K> on case_<case>
+            case, k = key.split("__")[1].rsplit("k", 1)
+            host = torch.from_numpy(z["case_" + case[:-1]] if case else probe.inputs(name))
+            got = probe.probe(name, int(k), host.to(dev), tab).cpu()
+            want = probe.probe(name, int(k), host, htab, device="cpu")
+            assert np.array_equal(got.numpy(), z[key]) and torch.equal(got, want), key
             ncase += 1
     print(f"[probes] {ncase} fixture cases equal to the JAX probes and to the plain versions on "
           f"the card; card {card}; SM clock {clocks['clocks.sm']} (max {clocks['clocks.max.sm']})",
@@ -734,7 +739,7 @@ def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
                | {"launches": launches[n]} for n in names]
         top = max(names, key=lambda n: recs[n]["bound_ms"])
         row = {"name": f"probe:{site}", "route": "cuda",
-               "source": "csnappy_tpu_torch/csrc/probe.cu", "replaces": call,
+               "source": f"csnappy_tpu_torch/csrc/{probe.PROBES[top].lib}.cu", "replaces": call,
                "launches": sum(launches[n] for n in names),
                "max_abs_err": max(recs[n]["max_abs_err"] for n in names),
                "ms": sum(recs[n]["ms"] for n in names),

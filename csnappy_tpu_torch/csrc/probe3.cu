@@ -1,0 +1,970 @@
+// Walk-form, tensor-core, wide-gather, scan and lane-gather probes for Hopper (sm_90a).
+//
+// Replaces the Mosaic probes of three of the JAX package's tools: the twenty
+// of tools/mosaic_probe3.py (pl.pallas_call at :32), the eleven of
+// tools/mosaic_probe3b.py (:35) and the eight of tools/mosaic_probe3c.py
+// (:27).  Each kernel computes what its TPU kernel computes: the same int32
+// (8, 128) output for the same K, input and walk table, 32-bit sums wrapping
+// (uint32 arithmetic, cast back).  Scratch that a TPU kernel reads before it
+// writes holds INT32_MIN, the Pallas interpreter's fill of unwritten int32
+// scratch, so the answers are defined.
+//
+// What bounds them on this card: latency, by design.  A probe loops K times
+// inside one launch, each iteration depending on the last, so the slope of
+// its time in K is the cost of one iteration.  Its bytes (a 152 KiB input,
+// a table of at most 144 KiB, a 4 KiB output) and operations are small
+// beside that.  Thread 0 of block 0 times its loop with clock64() and writes
+// the cycles to `cycles`.  Nothing of the work is left out because only
+// part of it reaches the output: every product, gather, scan and chain is
+// done every iteration and its result stored (shared memory, or the global
+// scratch `g_state`), as the TPU kernel computes it whole.
+//
+// Design, per family:
+// * walks (mosaic_probe3.py :46-172, :206, :352; mosaic_probe3b.py :52-143)
+//   — the walk table and the tag scratch staged into shared memory, one
+//   thread walks: a dependent shared load a step, tag stores where the TPU
+//   kernel stores.  Loads and stores go through a shared address computed
+//   once in volatile PTX, so the compiler keeps the base in a register
+//   instead of re-deriving the block's shared window in the loop.  The 2-D
+//   (160, 128) tag stores of mosaic_probe3b.py are flat stores at
+//   row * 128 + lane: the same address.  mosaic_probe3b.py's table and tags
+//   take 229,376 of a block's 232,448 bytes.  The walk tables are drawn from
+//   [1, 2^20) or [1, 2^22), so v > 0 always holds: the encoder walks always
+//   take the match arm; walk_enc keeps its branch as a branch all the same,
+//   because the branch is what it measures against walk_enc_nobr;
+// * products (vec_only, vec_scal, dot_s8, dot_bf16_256) — tensor cores
+//   through nvcuda::wmma: the (8, 128) @ (128, 128) bf16 chain as m8n32k16
+//   tiles on four warps, float sums rounded to bf16 between products;
+//   vec_scal adds a fifth warp whose one thread walks the 256 steps while
+//   the four run the products (warp-specialised; both meet at a barrier
+//   once an iteration); the (128, 256) @ (256, 128) products as m16n16k16
+//   tiles on eight warps, int8 with int32 sums or bf16 with float sums, the
+//   whole (128, 128) result stored to shared memory every iteration though
+//   it does not depend on i (the operands are re-read after a barrier, so
+//   the compiler cannot hoist the product out of the loop); float results
+//   convert to int32 as XLA does: toward zero, saturating, NaN to 0;
+// * wide gathers (15 probes, one template) — the one-hot products and limbs
+//   are the TPU's way to gather; here the R x 128 table is staged into
+//   shared memory and 1024 threads gather the E values by address every
+//   iteration into a shared (1, E) vector, of which the first 128 are added
+//   to the carry; the value keeps its low 8 * limbs (7 * limbs for int8)
+//   bits, as the limbs do;
+// * scatter-adds — a (256, 128) shared histogram takes the 2048 values with
+//   shared atomicAdd, rows 0-7 are added to the carry, the bins written are
+//   cleared; the limbs recombine exactly, so both probes are one kernel;
+// * scans — one block-wide row-major inclusive scan of (256, 128) an
+//   iteration: 32 elements a thread (a quarter row) in registers, a
+//   shuffle scan over a row's four quarters, one warp's scan over the 256
+//   row totals, the result stored to shared memory (padded off one bank)
+//   and rows 0-7 added;
+//   scan_tril carries its row totals mod 2^24 (its three 8-bit limbs) and
+//   wraps at 32 bits, scan_mm_cur saturates every sum at 2^23 (the port's
+//   own copy of scan2d_mm(op="addsat", bits=24));
+// * lane gathers (take_along_axis) — one thread a chain, every element of
+//   the carry its own dependent chain: (256, 128) over 32 blocks, each with
+//   the whole base in shared memory; (128, 2048) over 256 blocks (all
+//   resident at once on 132 SMs), each with d[:, 0], since
+//   base[r, c] = d[r, 0] + c;
+// * inrow_round — one block, par (256, 128) in shared memory, 32 elements a
+//   thread: every element reads the old par into registers, a barrier, all
+//   write, a barrier: a synchronous round.
+
+#include <climits>
+#include <cstdint>
+#include <cstring>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+namespace {
+
+constexpr int L = 128;
+constexpr int kOut = 8 * L;                      // the (8, 128) output
+constexpr int32_t kUnwritten = INT_MIN;          // the interpreter's fill of scratch
+constexpr uint32_t kN1d = 16384;                 // mosaic_probe3.py N1D
+constexpr uint32_t kNBig = 36864;                // mosaic_probe3.py NBIG
+constexpr uint32_t kNt = 36864;                  // mosaic_probe3b.py NT
+constexpr int kWalkThreads = 256;                // stage the table; thread 0 walks
+constexpr int kBlock = 1024;                     // gathers, scatters, scans, chains
+
+// The chains of taa_ax0_128x2048 (and of the (256, 128) lane gathers) end
+// here, where the TPU kernel's carry would be: only rows 0-7 of columns
+// 0-127 reach the output.
+__device__ int32_t g_state[L * 2048];
+
+__device__ __forceinline__ void fill_out(int32_t* out, int32_t v) {
+  for (int i = threadIdx.x; i < kOut; i += blockDim.x) out[i] = v;
+}
+
+// The shared-memory address of `p`, computed in volatile PTX so that the
+// compiler keeps it in a register (see csrc/probe.cu, smem_window_dma).
+__device__ __forceinline__ uint32_t smem_addr_opaque(const void* p) {
+  uint32_t addr;
+  asm volatile("{\n\t.reg .u64 a;\n\tcvta.to.shared.u64 a, %1;\n\tcvt.u32.u64 %0, a;\n\t}"
+               : "=r"(addr)
+               : "l"(p));
+  return addr;
+}
+
+__device__ __forceinline__ uint32_t lds(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+// XLA's float -> int32 convert: toward zero, saturating, NaN to 0.
+__device__ __forceinline__ int32_t sat_int(float f) {
+  if (f != f) return 0;
+  if (f >= 2147483648.0f) return INT_MAX;
+  if (f <= -2147483648.0f) return INT_MIN;
+  return static_cast<int32_t>(f);
+}
+
+// ------------------------------------------------------------------ walks
+//
+// A walk is a struct: kTable table entries and kTags tag entries of shared
+// memory, and run(tab, tags, k), the walk itself on thread 0 from the two
+// shared addresses, returning the kernel's scalar result.
+
+// mosaic_probe3.py:46 k_walk_1d (kUnroll 1) and :60 k_walk_1d_u4 (4):
+// v = t[p]; tags[tc] = p; p = (p + (v & 63) + 1) & 16383; tc += v != 0.
+template <int kUnroll>
+struct Walk1d {
+  static constexpr int kTable = kN1d, kTags = 2048;
+  __device__ static uint32_t run(uint32_t tab, uint32_t tags, int k) {
+    uint32_t p = 0, tc = 0;
+    for (int i = 0; i < k; ++i) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const uint32_t v = lds(tab + 4 * p);
+        sts(tags + 4 * tc, p);
+        p = (p + (v & 63u) + 1u) & (kN1d - 1);
+        tc = (tc + (v != 0u)) & 2047u;
+      }
+    }
+    return p + tc + lds(tags);
+  }
+};
+
+// mosaic_probe3.py:77 k_walk_il4: four chains from 0, 11, 217, 3001, their
+// loads issued together, tags at tc .. tc + 3.
+struct WalkIl4 {
+  static constexpr int kTable = kN1d, kTags = 2052;
+  __device__ static uint32_t run(uint32_t tab, uint32_t tags, int k) {
+    uint32_t p0 = 0, p1 = 11, p2 = 217, p3 = 3001, tc = 0;
+    for (int i = 0; i < k; ++i) {
+      const uint32_t v0 = lds(tab + 4 * p0), v1 = lds(tab + 4 * p1);
+      const uint32_t v2 = lds(tab + 4 * p2), v3 = lds(tab + 4 * p3);
+      sts(tags + 4 * tc, p0);
+      sts(tags + 4 * (tc + 1), p1);
+      sts(tags + 4 * (tc + 2), p2);
+      sts(tags + 4 * (tc + 3), p3);
+      p0 = (p0 + (v0 & 63u) + 1u) & (kN1d - 1);
+      p1 = (p1 + (v1 & 63u) + 1u) & (kN1d - 1);
+      p2 = (p2 + (v2 & 63u) + 1u) & (kN1d - 1);
+      p3 = (p3 + (v3 & 63u) + 1u) & (kN1d - 1);
+      tc = (tc + 4u) & 2047u;
+    }
+    return p0 + p1 + p2 + p3 + tc + lds(tags);
+  }
+};
+
+// mosaic_probe3.py:101 k_walk_dec_real: the walk with its error and end
+// checks as written; its `done & 0` leaves every step live, which the
+// compiler may see as the TPU's could.
+struct WalkDecReal {
+  static constexpr int kTable = kN1d, kTags = 2048;
+  __device__ static uint32_t run(uint32_t tab, uint32_t tags, int k) {
+    uint32_t p = 0, tc = 0, err = 0, done = 0;
+    for (int i = 0; i < k; ++i) {
+      const uint32_t v = lds(tab + 4 * p);
+      const uint32_t live = done == 0u;
+      const uint32_t take = (v != 0u) & (done == 0u);
+      sts(tags + 4 * tc, p);
+      err |= live - take;
+      done |= 1u - take;
+      p = (p + (v & 63u) + 1u) & (kN1d - 1);
+      done &= (p != kN1d - 1) | 1u;
+      tc = (tc + take) & 2047u;
+      done &= 0u;
+    }
+    return p + tc + err + done + lds(tags);
+  }
+};
+
+// mosaic_probe3.py:120 k_walk_enc (a branch: the data always takes the
+// match arm) and :150 k_walk_enc_nobr (both tag slots stored every step);
+// tb1 and tb2 are 2048 entries each.
+struct WalkEnc {
+  static constexpr int kTable = kN1d, kTags = 4096;
+  __device__ static uint32_t run(uint32_t tab, uint32_t tb1, int k) {
+    const uint32_t tb2 = tb1 + 4 * 2048;
+    uint32_t p = 0, lits = 0, tc = 0;
+    for (int i = 0; i < k; ++i) {
+      const uint32_t v = lds(tab + 4 * p);
+      if (static_cast<int32_t>(v) > 0) {
+        const uint32_t ml = (v >> 15) & 63u;
+        sts(tb1 + 4 * tc, lits | ((p - lits) << 15));
+        sts(tb2 + 4 * tc, 0u);
+        const uint32_t tc2 = (tc + (lits < p)) & 2047u;
+        sts(tb1 + 4 * tc2, p | (ml << 15));
+        sts(tb2 + 4 * tc2, v & 0x7FFFu);
+        p = lits = p + ml + 4u;
+        tc = (tc2 + 1u) & 2047u;
+      } else {
+        p = p + (v & 31u) + 1u;
+      }
+      p &= kN1d - 1;
+      lits &= kN1d - 1;
+    }
+    return p + lits + tc + lds(tb1) + lds(tb2);
+  }
+};
+
+struct WalkEncNobr {
+  static constexpr int kTable = kN1d, kTags = 4096;
+  __device__ static uint32_t run(uint32_t tab, uint32_t tb1, int k) {
+    const uint32_t tb2 = tb1 + 4 * 2048;
+    uint32_t p = 0, lits = 0, tc = 0;
+    for (int i = 0; i < k; ++i) {
+      const uint32_t v = lds(tab + 4 * p);
+      const uint32_t m = static_cast<int32_t>(v) > 0;
+      const uint32_t ml = ((v >> 15) & 63u) + 4u;
+      sts(tb1 + 4 * tc, lits | ((p - lits) << 15));
+      sts(tb2 + 4 * tc, 0u);
+      const uint32_t tc2 = (tc + (m & (lits < p))) & 2047u;
+      sts(tb1 + 4 * tc2, p | (ml << 15));
+      sts(tb2 + 4 * tc2, v & 0x7FFFu);
+      tc = (tc2 + m) & 2047u;
+      const uint32_t p2 = (p + (m ? ml : (v & 31u) + 1u)) & (kN1d - 1);
+      lits = (m ? p2 : lits) & (kN1d - 1);
+      p = p2;
+    }
+    return p + lits + tc + lds(tb1) + lds(tb2);
+  }
+};
+
+// mosaic_probe3.py:196 _scal_chunk: 256 steps, tc advancing every step.
+__device__ __forceinline__ void scal_chunk(uint32_t tab, uint32_t tags, uint32_t& p,
+                                           uint32_t& tc) {
+  for (int j = 0; j < 256; ++j) {
+    const uint32_t v = lds(tab + 4 * p);
+    sts(tags + 4 * tc, p);
+    p = (p + (v & 63u) + 1u) & (kN1d - 1);
+    tc = (tc + 1u) & 2047u;
+  }
+}
+
+// mosaic_probe3.py:206 k_scal_only.
+struct ScalOnly {
+  static constexpr int kTable = kN1d, kTags = 2048;
+  __device__ static uint32_t run(uint32_t tab, uint32_t tags, int k) {
+    uint32_t p = 0, tc = 0;
+    for (int i = 0; i < k; ++i) scal_chunk(tab, tags, p, tc);
+    return p + tc + lds(tags);
+  }
+};
+
+// mosaic_probe3.py:352 k_big_smem: 36,864 entries % 36864, 17,408 tags % 17408
+// (compile-time moduli: a multiply-high each); tags[0] + tags[17407] out.
+struct BigSmem {
+  static constexpr int kTable = kNBig, kTags = 17408;
+  __device__ static uint32_t run(uint32_t tab, uint32_t tags, int k) {
+    uint32_t p = 0, tc = 0;
+    for (int i = 0; i < k; ++i) {
+      const uint32_t v = lds(tab + 4 * p);
+      sts(tags + 4 * tc, p);
+      p = (p + (v & 63u) + 1u) % kNBig;
+      tc = (tc + 1u) % 17408u;
+    }
+    return p + tc + lds(tags) + lds(tags + 4 * 17407);
+  }
+};
+
+// mosaic_probe3b.py:52 k_walk_u8: 8 steps an iteration, p masked with
+// 36863 = 0x8FFF (an AND, not a modulus), tags (160, 128) stored at tc.
+struct WalkU8 {
+  static constexpr int kTable = kNt, kTags = 160 * L;
+  __device__ static uint32_t run(uint32_t tab, uint32_t tags, int k) {
+    uint32_t p = 0, tc = 0;
+    for (int i = 0; i < k; ++i) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const uint32_t v = lds(tab + 4 * p);
+        sts(tags + 4 * tc, p);
+        tc = (tc + (v != 0u)) & 8191u;
+        p = (p + (v & 63u) + 2u) & (kNt - 1);
+      }
+    }
+    return p + tc + lds(tags);
+  }
+};
+
+// One pair-table step of mosaic_probe3b.py:69 and :91: tags p and p + a
+// (a = bits 17-21 of v) at tc and tc + 1.
+__device__ __forceinline__ void pair_step(uint32_t tab, uint32_t tags, uint32_t& p,
+                                          uint32_t& tc) {
+  const uint32_t v = lds(tab + 4 * p);
+  const uint32_t a = (v >> 17) & 31u;
+  sts(tags + 4 * tc, p);
+  sts(tags + 4 * (tc + 1), p + a);
+  tc = (tc + 1u + (a != 0u)) & 8191u;
+  p = (p + (v & 63u) + 2u) & (kNt - 1);
+}
+
+// mosaic_probe3b.py:69 k_walk_pair_u4: 4 pair steps an iteration.
+struct WalkPairU4 {
+  static constexpr int kTable = kNt, kTags = 160 * L;
+  __device__ static uint32_t run(uint32_t tab, uint32_t tags, int k) {
+    uint32_t p = 0, tc = 0;
+    for (int i = 0; i < k; ++i) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) pair_step(tab, tags, p, tc);
+    }
+    return p + tc + lds(tags);
+  }
+};
+
+// mosaic_probe3b.py:91 k_walk_dec_full: rounds of 128 pair steps while the
+// last round moved p and fewer than k rounds ran.
+struct WalkDecFull {
+  static constexpr int kTable = kNt, kTags = 160 * L;
+  __device__ static uint32_t run(uint32_t tab, uint32_t tags, int k) {
+    uint32_t p = 0, tc = 0;
+    bool done = false;
+    for (int rounds = 0; !done && rounds < k; ++rounds) {
+      const uint32_t p0 = p;
+      for (int j = 0; j < 128; ++j) pair_step(tab, tags, p, tc);
+      done = p == p0;
+    }
+    return p + tc + lds(tags);
+  }
+};
+
+// mosaic_probe3b.py:121 k_walk_enc_real: the branch-free encoder walk, 4
+// steps an iteration, a literal tag and a copy tag stored a step.
+struct WalkEncReal {
+  static constexpr int kTable = kNt, kTags = 160 * L;
+  __device__ static uint32_t run(uint32_t tab, uint32_t tags, int k) {
+    uint32_t p = 0, lits = 0, tc = 0;
+    for (int i = 0; i < k; ++i) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t v = lds(tab + 4 * p);
+        const uint32_t m = static_cast<int32_t>(v) > 0;
+        const uint32_t ml = ((v >> 15) & 63u) + 4u;
+        sts(tags + 4 * tc, lits | ((p - lits) << 15));
+        const uint32_t t2 = tc + (m & (lits < p));
+        sts(tags + 4 * t2, p | (ml << 15) | (v & 0x7FFFu));
+        tc = (t2 + m) & 8191u;
+        p = (p + (m ? ml : (v & 31u) + 2u)) & (kNt - 1);
+        lits = m ? p : lits;
+      }
+    }
+    return p + lits + tc + lds(tags);
+  }
+};
+
+template <class W>
+__global__ void __launch_bounds__(kWalkThreads)
+walk_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int k, int32_t* out,
+            long long* cycles) {
+  extern __shared__ __align__(16) int32_t walk_smem[];
+  __shared__ int32_t result;
+  for (int i = threadIdx.x; i < W::kTable; i += blockDim.x) walk_smem[i] = table[i];
+  for (int i = threadIdx.x; i < W::kTags; i += blockDim.x) walk_smem[W::kTable + i] = kUnwritten;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint32_t tab = smem_addr_opaque(walk_smem);
+    const long long t0 = clock64();
+    const uint32_t r = W::run(tab, tab + 4 * W::kTable, k);
+    cycles[0] = clock64() - t0;
+    result = static_cast<int32_t>(r);
+  }
+  __syncthreads();
+  fill_out(out, result);
+}
+
+template <class W>
+constexpr int walk_smem_bytes() {
+  return (W::kTable + W::kTags) * 4;
+}
+
+// --------------------------------------------------------------- products
+
+using namespace nvcuda;
+
+// bf16 fragments loaded with the .shared form of wmma.load: through
+// wmma::load_matrix_sync the bf16 fragments compile to generic 32-bit loads
+// (LD.E), where the int8 ones become ldmatrix.  The loads are volatile, so
+// they stay in the loop, and the products they feed with them.
+template <class Frag, int N>
+__device__ __forceinline__ void to_frag(Frag& f, const uint32_t (&r)[N]) {
+  static_assert(sizeof(f.x) == 4 * N, "fragment size");
+  memcpy(f.x, r, sizeof(f.x));
+}
+
+__device__ __forceinline__ void load_a16(
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>& f,
+    const __nv_bfloat16* p, int ld) {
+  uint32_t r[4];
+  asm volatile("wmma.load.a.sync.aligned.row.m16n16k16.shared.bf16 {%0, %1, %2, %3}, [%4], %5;"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr_opaque(p)), "r"(ld)
+               : "memory");
+  to_frag(f, r);
+}
+
+__device__ __forceinline__ void load_b16(
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>& f,
+    const __nv_bfloat16* p, int ld) {
+  uint32_t r[4];
+  asm volatile("wmma.load.b.sync.aligned.col.m16n16k16.shared.bf16 {%0, %1, %2, %3}, [%4], %5;"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr_opaque(p)), "r"(ld)
+               : "memory");
+  to_frag(f, r);
+}
+
+__device__ __forceinline__ void load_a8x32(
+    wmma::fragment<wmma::matrix_a, 8, 32, 16, __nv_bfloat16, wmma::row_major>& f,
+    const __nv_bfloat16* p, int ld) {
+  uint32_t r[2];
+  asm volatile("wmma.load.a.sync.aligned.row.m8n32k16.shared.bf16 {%0, %1}, [%2], %3;"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr_opaque(p)), "r"(ld)
+               : "memory");
+  to_frag(f, r);
+}
+
+__device__ __forceinline__ void load_b8x32(
+    wmma::fragment<wmma::matrix_b, 8, 32, 16, __nv_bfloat16, wmma::row_major>& f,
+    const __nv_bfloat16* p, int ld) {
+  uint32_t r[8];
+  asm volatile(
+      "wmma.load.b.sync.aligned.row.m8n32k16.shared.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, [%8], "
+      "%9;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]), "=r"(r[6]),
+        "=r"(r[7])
+      : "r"(smem_addr_opaque(p)), "r"(ld)
+      : "memory");
+  to_frag(f, r);
+}
+
+constexpr int kLdh = L + 8;                      // padded bf16 rows (bank spread)
+constexpr int kLdf = L + 4;                      // padded float / int32 rows
+constexpr int kVecWarps = 4;                     // the product chain
+constexpr int kVecThreads = kVecWarps * 32;
+
+struct VecSmem {
+  __nv_bfloat16 m[L * kLdh];                     // d[0:128] & 1
+  __nv_bfloat16 x[8 * kLdh];                     // the carry
+  float y[8 * kLdf];                             // one product's float sums
+};
+
+// Named barrier 1 over the four product warps only.
+__device__ __forceinline__ void vec_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kVecThreads) : "memory");
+}
+
+// mosaic_probe3.py:175 _vec_chunk: 8 dependent products x = bf16(x @ m),
+// (8, 128) @ (128, 128); warp w computes columns 32w..32w+31 (m8n32k16).
+__device__ __forceinline__ void vec_chunk(VecSmem& s, int warp) {
+  for (int prod = 0; prod < 8; ++prod) {
+    wmma::fragment<wmma::accumulator, 8, 32, 16, float> cf;
+    wmma::fill_fragment(cf, 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < L / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 8, 32, 16, __nv_bfloat16, wmma::row_major> af;
+      wmma::fragment<wmma::matrix_b, 8, 32, 16, __nv_bfloat16, wmma::row_major> bf;
+      load_a8x32(af, s.x + kk * 16, kLdh);
+      load_b8x32(bf, s.m + kk * 16 * kLdh + warp * 32, kLdh);
+      wmma::mma_sync(cf, af, bf, cf);
+    }
+    wmma::store_matrix_sync(s.y + warp * 32, cf, kLdf, wmma::mem_row_major);
+    vec_sync();
+    for (int e = threadIdx.x; e < kOut; e += kVecThreads)
+      s.x[(e >> 7) * kLdh + (e & 127)] = __float2bfloat16_rn(s.y[(e >> 7) * kLdf + (e & 127)]);
+    vec_sync();
+  }
+}
+
+// mosaic_probe3.py:187 k_vec_only (kWalk false) and :214 k_vec_scal (true):
+// warps 0-3 run the product chain; for vec_scal warp 4's thread 0 walks
+// the 256 steps of _scal_chunk over the table in shared memory meanwhile,
+// and all meet at a barrier once an iteration.  The output is int32(acc),
+// plus p + tc + tags[0] for vec_scal.
+template <bool kWalk>
+__global__ void __launch_bounds__(kVecThreads + (kWalk ? 32 : 0))
+vec_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int k, int32_t* out,
+           long long* cycles) {
+  extern __shared__ __align__(128) unsigned char vec_smem[];
+  VecSmem& s = *reinterpret_cast<VecSmem*>(vec_smem);
+  int32_t* tab = reinterpret_cast<int32_t*>(vec_smem + sizeof(VecSmem));
+  __shared__ uint32_t walk_result;
+  const int t = threadIdx.x, warp = t >> 5;
+  for (int e = t; e < L * L; e += blockDim.x)
+    s.m[(e >> 7) * kLdh + (e & 127)] = __float2bfloat16_rn(static_cast<float>(d[e] & 1));
+  for (int e = t; e < kOut; e += blockDim.x)
+    s.x[(e >> 7) * kLdh + (e & 127)] = __float2bfloat16_rn(static_cast<float>(d[e] & 1));
+  if (kWalk) {
+    for (int i = t; i < static_cast<int>(kN1d); i += blockDim.x) tab[i] = table[i];
+    for (int i = t; i < 2048; i += blockDim.x) tab[kN1d + i] = kUnwritten;
+  }
+  __syncthreads();
+  const long long t0 = clock64();
+  if (warp < kVecWarps) {
+    for (int i = 0; i < k; ++i) {
+      vec_chunk(s, warp);
+      if (kWalk) __syncthreads();
+    }
+  } else if (kWalk) {                            // warp 4: its lane 0 walks
+    const uint32_t at = smem_addr_opaque(tab);
+    uint32_t p = 0, tc = 0;
+    for (int i = 0; i < k; ++i) {
+      if (t == kVecThreads) scal_chunk(at, at + 4 * kN1d, p, tc);
+      __syncwarp();
+      __syncthreads();
+    }
+    if (t == kVecThreads) walk_result = p + tc + lds(at + 4 * kN1d);
+  }
+  if (t == 0) cycles[0] = clock64() - t0;
+  __syncthreads();
+  const uint32_t add = kWalk ? walk_result : 0u;
+  for (int e = t; e < kOut; e += blockDim.x) {
+    const int32_t v = sat_int(__bfloat162float(s.x[(e >> 7) * kLdh + (e & 127)]));
+    out[e] = static_cast<int32_t>(static_cast<uint32_t>(v) + add);
+  }
+}
+
+constexpr int kVecSmem = static_cast<int>(sizeof(VecSmem));
+constexpr int kVecScalSmem = kVecSmem + (kN1d + 2048) * 4;
+
+constexpr int kDotWarps = 8;                     // 16 rows of the (128, 128) result each
+constexpr int kDotThreads = kDotWarps * 32;
+
+template <typename T>
+struct DotTraits;
+template <>
+struct DotTraits<signed char> {
+  using Acc = int;
+  static constexpr int kLd = 256 + 16;           // bytes: a multiple of 16, off the banks
+  __device__ static signed char from(int v) { return static_cast<signed char>(v); }
+  __device__ static int32_t to_int(int v) { return v; }
+  template <class F>                             // ldmatrix from shared memory
+  __device__ static void load(F& f, const signed char* p) { wmma::load_matrix_sync(f, p, kLd); }
+};
+template <>
+struct DotTraits<__nv_bfloat16> {
+  using Acc = float;
+  static constexpr int kLd = 256 + 8;
+  __device__ static __nv_bfloat16 from(int v) { return __float2bfloat16_rn(static_cast<float>(v)); }
+  __device__ static int32_t to_int(float v) { return sat_int(v); }
+  __device__ static void load(
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>& f,
+      const __nv_bfloat16* p) {
+    load_a16(f, p, kLd);
+  }
+  __device__ static void load(
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>& f,
+      const __nv_bfloat16* p) {
+    load_b16(f, p, kLd);
+  }
+};
+
+// A = b^T and B = a staged transposed, rows of 256 along the contracted
+// axis (A row-major, B column-major), and the (128, 128) result.
+template <typename T>
+struct DotSmem {
+  T bt[L * DotTraits<T>::kLd];                   // bt[i][r] = b[r][i]
+  T at[L * DotTraits<T>::kLd];                   // at[j][r] = a[r][j]
+  typename DotTraits<T>::Acc y[L * kLdf];
+};
+
+// mosaic_probe3.py:229 k_dot_s8 (T = signed char) and :245 k_dot_bf16_256
+// (bf16): y = b^T a with a = d[0:256] & 1, b = d[0:256] & 0x7F, acc +=
+// y[0:8] + i (DotSmem); warp w computes rows 16w..16w+15 of y in eight
+// 16 x 16 tiles, and stores them every iteration.  The operands are reached
+// through the shared struct, so the fragments load with shared-memory
+// instructions, not generic ones.
+template <typename T>
+__global__ void __launch_bounds__(kDotThreads)
+dot_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int k, int32_t* out,
+           long long* cycles) {
+  using Tr = DotTraits<T>;
+  using Acc = typename Tr::Acc;
+  constexpr int kLd = Tr::kLd;
+  extern __shared__ __align__(128) unsigned char dot_smem[];
+  DotSmem<T>& s = *reinterpret_cast<DotSmem<T>*>(dot_smem);
+  const int t = threadIdx.x, warp = t >> 5;
+  for (int e = t; e < 256 * L; e += kDotThreads) {
+    const int r = e >> 7, c = e & 127;
+    s.bt[c * kLd + r] = Tr::from(d[e] & 0x7F);
+    s.at[c * kLd + r] = Tr::from(d[e] & 1);
+  }
+  uint32_t acc[kOut / kDotThreads] = {};
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int i = 0; i < k; ++i) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> cf[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) wmma::fill_fragment(cf[n], static_cast<Acc>(0));
+#pragma unroll 2
+    for (int kk = 0; kk < 256 / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> af;
+      Tr::load(af, s.bt + warp * 16 * kLd + kk * 16);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bf;
+        Tr::load(bf, s.at + n * 16 * kLd + kk * 16);
+        wmma::mma_sync(cf[n], af, bf, cf[n]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      wmma::store_matrix_sync(s.y + warp * 16 * kLdf + n * 16, cf[n], kLdf,
+                              wmma::mem_row_major);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kOut / kDotThreads; ++j) {
+      const int e = t + j * kDotThreads;
+      acc[j] += static_cast<uint32_t>(Tr::to_int(s.y[(e >> 7) * kLdf + (e & 127)])) + i;
+    }
+    __syncthreads();
+  }
+  if (t == 0) cycles[0] = clock64() - t0;
+#pragma unroll
+  for (int j = 0; j < kOut / kDotThreads; ++j)
+    out[t + j * kDotThreads] = static_cast<int32_t>(acc[j]);
+}
+
+// ------------------------------------------------------- gathers, scatters
+
+// mosaic_probe3.py:260 _wide_gather (_mk_gather, :289), mosaic_probe3b.py
+// :146 (:176) and mosaic_probe3c.py:65 _wide_gather_v2 (_mk_gv2, :82): the
+// E indices idx = (d.flat[:E] + i) & (R * 128 - 1) pick d.flat[idx] & kVmask
+// from the (R, 128) table in shared memory into the shared (1, E) vector;
+// its first 128 values are added to every row of the carry.  Index e is
+// thread e % 1024's, in registers.
+template <int R, int E, uint32_t kVmask>
+__global__ void __launch_bounds__(kBlock)
+gather_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int k,
+              int32_t* out, long long* cycles) {
+  constexpr int kPer = E / kBlock;
+  constexpr uint32_t kMask = R * L - 1;          // 0x43FF, 0x87FF: masks, not moduli
+  static_assert(E % kBlock == 0 && R * L <= 304 * L, "shape");
+  extern __shared__ __align__(16) int32_t gather_smem[];
+  int32_t* tab = gather_smem;                    // R * 128
+  uint32_t* vals = reinterpret_cast<uint32_t*>(gather_smem + R * L);   // E
+  const int t = threadIdx.x;
+  for (int e = t; e < R * L; e += kBlock) tab[e] = d[e];
+  uint32_t base[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) base[j] = static_cast<uint32_t>(d[t + j * kBlock]);
+  __syncthreads();
+  uint32_t acc = 0;
+  const long long t0 = clock64();
+  for (int i = 0; i < k; ++i) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      vals[t + j * kBlock] = static_cast<uint32_t>(tab[(base[j] + i) & kMask]) & kVmask;
+    __syncthreads();
+    if (t < L) acc += vals[t];
+    __syncthreads();
+  }
+  if (t == 0) cycles[0] = clock64() - t0;
+  if (t < L)
+    for (int j = 0; j < 8; ++j) out[j * L + t] = static_cast<int32_t>(acc);
+}
+
+// mosaic_probe3b.py:188 _mk_scatter(256, 2048, limbs): h[pos] += val over a
+// (256, 128) shared histogram, pos = (d.flat[:2048] + i) & 32767, val =
+// d.flat[:2048] & 0x7FFF; rows 0-7 of h are added to the carry; the bins
+// written are cleared for the next iteration.
+__global__ void __launch_bounds__(kBlock)
+scatter_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int k,
+               int32_t* out, long long* cycles) {
+  constexpr int kE = 2048, kPer = kE / kBlock;
+  extern __shared__ __align__(16) int32_t hist[];                      // 256 * 128 bins
+  const int t = threadIdx.x;
+  for (int e = t; e < 256 * L; e += kBlock) hist[e] = 0;
+  uint32_t base[kPer], val[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    base[j] = static_cast<uint32_t>(d[t + j * kBlock]);
+    val[j] = base[j] & 0x7FFFu;
+  }
+  __syncthreads();
+  uint32_t acc = 0;
+  const long long t0 = clock64();
+  for (int i = 0; i < k; ++i) {
+    uint32_t pos[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      pos[j] = (base[j] + i) & 32767u;
+      atomicAdd(&hist[pos[j]], static_cast<int32_t>(val[j]));
+    }
+    __syncthreads();
+    acc += static_cast<uint32_t>(hist[t]);       // rows 0-7: bins 0-1023
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) hist[pos[j]] = 0;
+    __syncthreads();
+  }
+  if (t == 0) cycles[0] = clock64() - t0;
+  out[t] = static_cast<int32_t>(acc);
+}
+
+// ------------------------------------------------------------------ scans
+
+constexpr uint32_t kSat = 1u << 23;              // kernel_lib.SAT
+
+template <bool kSaturate>
+__device__ __forceinline__ uint32_t comb(uint32_t a, uint32_t b) {
+  return kSaturate ? min(a + b, kSat) : a + b;
+}
+
+// mosaic_probe3.py:301 k_scan_tril (kSaturate false) and :337 k_scan_mm_cur
+// (true): y = the row-major inclusive scan of (d[0:256] & 0x1FFFF) + (i & 1)
+// over (256, 128), stored whole to shared memory, acc += y[0:8].  Thread t
+// holds row t / 4, columns 32 (t % 4) .. + 31 in registers.  y's element e
+// sits at e + e / 32: a warp's 32 threads store 32 elements apart, which
+// unpadded would all fall in one bank.
+constexpr int kScanSmem = (256 * L + 256 * L / 32) * 4;
+
+__device__ __forceinline__ int padded(int e) { return e + (e >> 5); }
+
+template <bool kSaturate>
+__global__ void __launch_bounds__(kBlock)
+scan_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int k, int32_t* out,
+            long long* cycles) {
+  extern __shared__ __align__(16) uint32_t ybuf[];                     // (256, 128), padded
+  __shared__ uint32_t rowtot[256], rowpre[256];
+  const int t = threadIdx.x, lane = t & 31, q = t & 3, r = t >> 2;
+  uint32_t x[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) x[j] = static_cast<uint32_t>(d[r * L + q * 32 + j]) & 0x1FFFFu;
+  uint32_t acc = 0;
+  const long long t0 = clock64();
+  for (int i = 0; i < k; ++i) {
+    const uint32_t inc = static_cast<uint32_t>(i) & 1u;
+    uint32_t s = 0;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s = comb<kSaturate>(s, x[j] + inc);
+    uint32_t g = s;                              // inclusive over the row's quarters
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      const uint32_t n = __shfl_up_sync(0xFFFFFFFFu, g, o, 4);
+      if (q >= o) g = comb<kSaturate>(g, n);
+    }
+    const uint32_t before = __shfl_up_sync(0xFFFFFFFFu, g, 1, 4);
+    if (q == 3) rowtot[r] = kSaturate ? g : (g & 0xFFFFFFu);   // scan_tril: 3 limbs of 8 bits
+    __syncthreads();
+    if (t < 32) {                                // one warp: exclusive scan of the row totals
+      uint32_t v[8], run = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] = rowtot[lane * 8 + j];
+        run = comb<kSaturate>(run, v[j]);
+      }
+      uint32_t incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t n = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (lane >= o) incl = comb<kSaturate>(incl, n);
+      }
+      uint32_t ex = __shfl_up_sync(0xFFFFFFFFu, incl, 1);
+      if (lane == 0) ex = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        rowpre[lane * 8 + j] = ex;
+        ex = comb<kSaturate>(ex, v[j]);
+      }
+    }
+    __syncthreads();
+    uint32_t run = comb<kSaturate>(rowpre[r], q == 0 ? 0u : before);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      run = comb<kSaturate>(run, x[j] + inc);
+      ybuf[padded(r * L + q * 32 + j)] = run;
+    }
+    __syncthreads();
+    acc += ybuf[padded(t)];                      // rows 0-7
+  }
+  if (t == 0) cycles[0] = clock64() - t0;
+  out[t] = static_cast<int32_t>(acc);
+}
+
+// ---------------------------------------------------------- lane gathers
+
+// mosaic_probe3c.py:40 _mk_taa(256, 128, axis): chain (r, c) (thread
+// blockIdx.x * 1024 + threadIdx.x = r * 128 + c) runs idx = (acc + i) % lim,
+// acc = (base[idx, c] + 1) % lim (axis 0, lim 256) or (base[r, idx] + 1) %
+// lim (axis 1, lim 128), from (r + c) % lim; base = d[0:256] in shared
+// memory in each of the 32 blocks.  lim is a power of two, so % is & here
+// (and for a wrapped negative sum too, as XLA's floor modulus).
+template <int kAxis>
+__global__ void __launch_bounds__(kBlock)
+taa_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int k, int32_t* out,
+           long long* cycles) {
+  constexpr uint32_t kLim = kAxis == 0 ? 256 : L;
+  extern __shared__ __align__(16) int32_t base[];                      // (256, 128)
+  const int g = blockIdx.x * kBlock + threadIdx.x, r = g >> 7, c = g & 127;
+  for (int e = threadIdx.x; e < 256 * L; e += kBlock) base[e] = d[e];
+  __syncthreads();
+  uint32_t acc = static_cast<uint32_t>(r + c) & (kLim - 1);
+  const long long t0 = clock64();
+  for (int i = 0; i < k; ++i) {
+    const uint32_t idx = (acc + i) & (kLim - 1);
+    const int32_t y = kAxis == 0 ? base[idx * L + c] : base[r * L + idx];
+    acc = static_cast<uint32_t>(y + 1) & (kLim - 1);
+  }
+  if (g == 0) cycles[0] = clock64() - t0;
+  g_state[g] = static_cast<int32_t>(acc);
+  if (r < 8) out[g] = static_cast<int32_t>(acc);
+}
+
+// mosaic_probe3c.py:40 _mk_taa(128, 2048, 0): 262,144 chains over 256
+// blocks, block b holding columns 8b..8b+7 (thread = (c % 8) * 128 + r),
+// base[r, c] = d[r, 0] + c from the 128 values d[:, 0] in shared memory,
+// lim 128.
+__global__ void __launch_bounds__(kBlock)
+taa_wide_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int k,
+                int32_t* out, long long* cycles) {
+  __shared__ int32_t col0[L];
+  const int g = blockIdx.x * kBlock + threadIdx.x, r = g & 127, c = g >> 7;
+  if (threadIdx.x < L) col0[threadIdx.x] = d[threadIdx.x * L];
+  __syncthreads();
+  uint32_t acc = static_cast<uint32_t>(r + c) & 127u;
+  const long long t0 = clock64();
+  for (int i = 0; i < k; ++i) {
+    const int32_t y = col0[(acc + i) & 127u] + c;
+    acc = static_cast<uint32_t>(y + 1) & 127u;
+  }
+  if (g == 0) cycles[0] = clock64() - t0;
+  g_state[r * 2048 + c] = static_cast<int32_t>(acc);
+  if (r < 8 && c < L) out[r * L + c] = static_cast<int32_t>(acc);
+}
+
+// mosaic_probe3c.py:94 k_inrow_round: par = d[0:256] & 32767 in shared
+// memory; a round: par[r, c] <- par[r, par[r, c] & 127] where
+// par[r, c] >> 7 == r, every element read from the old par, then
+// ^ (i & 1).  Thread t holds elements t + 1024 j (row t / 128 + 8 j).
+__global__ void __launch_bounds__(kBlock)
+inrow_round_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int k,
+                   int32_t* out, long long* cycles) {
+  extern __shared__ __align__(16) int32_t par[];                       // (256, 128)
+  const int t = threadIdx.x;
+  for (int e = t; e < 256 * L; e += kBlock) par[e] = d[e] & 32767;
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int i = 0; i < k; ++i) {
+    int32_t nxt[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int e = t + j * kBlock, row = e >> 7;
+      const int32_t p = par[e];
+      nxt[j] = ((p >> 7) == row ? par[row * L + (p & 127)] : p) ^ (i & 1);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 32; ++j) par[t + j * kBlock] = nxt[j];
+    __syncthreads();
+  }
+  if (t == 0) cycles[0] = clock64() - t0;
+  out[t] = par[t];
+}
+
+// -------------------------------------------------------------- launching
+
+using Probe3Kernel = void (*)(const int32_t*, const int32_t*, int, int32_t*, long long*);
+
+// Launch `grid` blocks of `threads` with `smem` bytes of dynamic shared
+// memory; returns the first CUDA error (cleared from the thread's last
+// error), or 0.  A kernel that walks a table refuses a null one.
+int run(Probe3Kernel kernel, int grid, int threads, int smem, bool needs_table, const void* d,
+        const void* table, int k, void* out, void* cycles, void* stream) {
+  if (k < 0 || d == nullptr || (needs_table && table == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(e);
+  }
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(d), static_cast<const int32_t*>(table), k,
+      static_cast<int32_t*>(out), static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+#define PROBE3_ENTRY(name, kernel, grid, threads, smem, needs_table)                        \
+  int probe3_##name##_launch(const void* d, const void* table, int k, void* out, void* cycles, \
+                             void* stream) {                                                  \
+    return run(kernel, grid, threads, smem, needs_table, d, table, k, out, cycles, stream);   \
+  }
+#define WALK_ENTRY(name, W) \
+  PROBE3_ENTRY(name, walk_kernel<W>, 1, kWalkThreads, walk_smem_bytes<W>(), true)
+#define GATHER_ENTRY(name, R, E, vmask) \
+  PROBE3_ENTRY(name, (gather_kernel<R, E, vmask>), 1, kBlock, ((R) * L + (E)) * 4, false)
+
+// mosaic_probe3.py (:32)
+WALK_ENTRY(walk_1d, Walk1d<1>)
+WALK_ENTRY(walk_1d_u4, Walk1d<4>)
+WALK_ENTRY(walk_il4, WalkIl4)
+WALK_ENTRY(walk_dec_real, WalkDecReal)
+WALK_ENTRY(walk_enc, WalkEnc)
+WALK_ENTRY(walk_enc_nobr, WalkEncNobr)
+PROBE3_ENTRY(vec_only, vec_kernel<false>, 1, kVecThreads, kVecSmem, false)
+WALK_ENTRY(scal_only, ScalOnly)
+PROBE3_ENTRY(vec_scal, vec_kernel<true>, 1, kVecThreads + 32, kVecScalSmem, true)
+PROBE3_ENTRY(dot_s8, dot_kernel<signed char>, 1, kDotThreads, sizeof(DotSmem<signed char>), false)
+PROBE3_ENTRY(dot_bf16_256, dot_kernel<__nv_bfloat16>, 1, kDotThreads,
+             sizeof(DotSmem<__nv_bfloat16>), false)
+GATHER_ENTRY(gather_r136_e2048_l2, 136, 2048, 0xFFFFu)
+GATHER_ENTRY(gather_r272_e2048_l2, 272, 2048, 0xFFFFu)
+GATHER_ENTRY(gather_r64_e2048_l2, 64, 2048, 0xFFFFu)
+GATHER_ENTRY(gather_r272_e2048_l4, 272, 2048, 0xFFFFFFFFu)
+GATHER_ENTRY(gather_s8_r272_e2048_l2, 272, 2048, 0x3FFFu)
+GATHER_ENTRY(gather_s8_r272_e2048_l3, 272, 2048, 0x1FFFFFu)
+PROBE3_ENTRY(scan_tril, scan_kernel<false>, 1, kBlock, kScanSmem, false)
+PROBE3_ENTRY(scan_mm_cur, scan_kernel<true>, 1, kBlock, kScanSmem, false)
+WALK_ENTRY(big_smem, BigSmem)
+// mosaic_probe3b.py (:35)
+WALK_ENTRY(walk_u8, WalkU8)
+WALK_ENTRY(walk_pair_u4, WalkPairU4)
+WALK_ENTRY(walk_dec_full, WalkDecFull)
+WALK_ENTRY(walk_enc_real, WalkEncReal)
+GATHER_ENTRY(gather_r256_e8192_l2, 256, 8192, 0xFFFFu)
+GATHER_ENTRY(gather_r256_e8192_l1, 256, 8192, 0xFFu)
+GATHER_ENTRY(gather_r256_e4096_l2, 256, 4096, 0xFFFFu)
+GATHER_ENTRY(gather_r136_e8192_l2, 136, 8192, 0xFFFFu)
+GATHER_ENTRY(gather_s8_r256_e8192_l3, 256, 8192, 0x1FFFFFu)
+PROBE3_ENTRY(scatter_oc256_e2048_l2, scatter_kernel, 1, kBlock, 256 * L * 4, false)
+PROBE3_ENTRY(scatter_oc256_e2048_l4, scatter_kernel, 1, kBlock, 256 * L * 4, false)
+// mosaic_probe3c.py (:27)
+PROBE3_ENTRY(taa_ax0_256x128, taa_kernel<0>, 32, kBlock, 256 * L * 4, false)
+PROBE3_ENTRY(taa_ax1_256x128, taa_kernel<1>, 32, kBlock, 256 * L * 4, false)
+PROBE3_ENTRY(taa_ax0_128x2048, taa_wide_kernel, 256, kBlock, 0, false)
+GATHER_ENTRY(gv2_r256_e2048_l2, 256, 2048, 0xFFFFu)
+GATHER_ENTRY(gv2_r256_e4096_l2, 256, 4096, 0xFFFFu)
+GATHER_ENTRY(gv2_r136_e2048_l2, 136, 2048, 0xFFFFu)
+GATHER_ENTRY(gv2_r256_e2048_l1, 256, 2048, 0xFFu)
+PROBE3_ENTRY(inrow_round, inrow_round_kernel, 1, kBlock, 256 * L * 4, false)
+
+#undef GATHER_ENTRY
+#undef WALK_ENTRY
+#undef PROBE3_ENTRY
+
+const char* probe3_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -35,10 +35,11 @@ SOURCES = {
     "movebench": CSRC / "movebench.cu",
     "primitives": CSRC / "primitives.cu",
     "probe": CSRC / "probe.cu",
+    "probe3": CSRC / "probe3.cu",
     "csnappy_host": CSRC / "host" / "csnappy_host.cpp",
 }
 CUDA_NAMES = ("decode_blocks", "encode_blocks", "scan_segments", "decode_stream", "movebench",
-              "primitives", "probe")
+              "primitives", "probe", "probe3")
 
 
 def nvcc() -> str:

@@ -28,6 +28,7 @@ from ..config import resolve_device
 HBM_BYTES_PER_S = 3.35e12       # device memory
 OPS_PER_S = 67e12               # 32-bit operations outside the tensor cores
 BF16_PER_S = 989e12             # dense bf16 on the tensor cores
+INT8_PER_S = 1979e12            # dense int8 on the tensor cores
 
 
 def time_ms(fn, n: int = 20, warm: int = 3, device=None) -> float:

@@ -550,20 +550,26 @@ def probe_fixture():
 
 @pytest.mark.parametrize("name", PROBE_NAMES)
 def test_probe_kernel_equals_plain_and_fixture(card, probe_fixture, name):
-    # every fixture K (the JAX probes' own answers) and the probe's k_hi
+    # every fixture K (the JAX probes' own answers, on the probe's input and
+    # on a constructed one) and the probe's k_hi
     pr = pb.PROBES[name]
-    host = torch.from_numpy(pb.inputs(name))
-    data = host.to(card)
-    ks = sorted(int(key.split("__k")[1]) for key in probe_fixture if key.startswith(name + "__k"))
-    assert ks
+    tbl = pb.walk_table(name)
+    htab = None if tbl is None else torch.from_numpy(tbl)
+    tab = None if htab is None else htab.to(card)
+    runs = [(key, *key.split("__")[1].rsplit("k", 1)) for key in probe_fixture
+            if key.startswith(name + "__")]
+    runs.append((None, "", str(pr.k_hi)))
+    assert len(runs) > 1
     before = pb.probe.launches[name]
-    for k in ks + [pr.k_hi]:
-        got = pb.probe(name, k, data)                      # device=None: the card
+    for key, case, k in runs:
+        host = torch.from_numpy(probe_fixture["case_" + case[:-1]] if case else pb.inputs(name))
+        got = pb.probe(name, int(k), host.to(card), tab)   # device=None: the card
         torch.cuda.synchronize()
-        assert got.is_cuda and torch.equal(got.cpu(), pr.plain(k, host)), (name, k)
-        if k in ks:
-            assert np.array_equal(got.cpu().numpy(), probe_fixture[f"{name}__k{k}"]), (name, k)
-    assert pb.probe.launches[name] == before + len(ks) + 1
+        want = pb.probe(name, int(k), host, htab, device="cpu")
+        assert got.is_cuda and torch.equal(got.cpu(), want), (name, case, k)
+        if key is not None:
+            assert np.array_equal(got.cpu().numpy(), probe_fixture[key]), key
+    assert pb.probe.launches[name] == before + len(runs)
 
 
 def test_probe_shared_memory_capacity(card, probe_fixture):
@@ -599,3 +605,8 @@ def test_probes_never_take_the_plain_version(card, monkeypatch):
     assert pb.probe("walk_smem", 37, data).is_cuda
     with pytest.raises(ValueError, match="CUDA tensor"):
         pb.probe("walk_smem", 37, data, device="cpu")
+    table = torch.from_numpy(pb.walk_table("walk_1d")).to(card)
+    assert pb.probe("walk_1d", 37, data, table).is_cuda
+    assert pb.probe("inrow_round", 37, data).is_cuda
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pb.probe("walk_1d", 37, data.cpu(), table, device="cpu")

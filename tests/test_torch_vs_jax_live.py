@@ -157,9 +157,10 @@ def test_primitives_pallas_live():
 
 
 def test_probes_live():
-    # every probe of tools/mosaic_probe.py, mosaic_probe2.py and
-    # mosaic_probe5.py in interpret mode at a seeded random K, on a fresh
-    # seeded input, against the port's plain versions
+    # every probe of tools/mosaic_probe.py, mosaic_probe2.py, mosaic_probe5.py,
+    # mosaic_probe3.py, mosaic_probe3b.py and mosaic_probe3c.py in interpret
+    # mode at a seeded random K, on a fresh seeded input (and walk table),
+    # against the port's plain versions
     import importlib.util
     import pathlib
 
@@ -193,3 +194,18 @@ def test_probes_live():
     rows = int(rng.integers(1, 600))
     assert maker.probe_module("mosaic_probe5").smem_cap(rows) == probe.smem_cap(rows, device="cpu")
     assert (probe.probe("smem_cap", rows, torch.ones(4, dtype=torch.int32), device="cpu") == 2).all()
+    # mosaic_probe3.py, mosaic_probe3b.py, mosaic_probe3c.py: fresh tables
+    # in their ranges; K below 600 (the one-hot gathers are slow to interpret)
+    tables = {"p3_t16384": rng.integers(1, 2**20, (16384,), dtype=np.int32),
+              "p3_t36864": rng.integers(1, 2**20, (36864,), dtype=np.int32),
+              "p3b_t36864": rng.integers(1, 2**22, (36864,), dtype=np.int32)}
+    data3c = rng.integers(0, 2**15, (probe.ROWS, 128), dtype=np.int32)
+    for mod_name in maker.PROBE3_FILES:
+        for name in maker.probe_module(mod_name).PROBES:
+            fn, tkey = maker.probe3_call(mod_name, name)
+            d = data3c if mod_name == "mosaic_probe3c" else data
+            tbl = () if tkey is None else (tables[tkey],)
+            k = int(rng.integers(0, 600))
+            want = fn(jnp.full((1,), k, jnp.int32), jnp.asarray(d), *map(jnp.asarray, tbl))
+            got = probe.probe(f"{mod_name}.{name}", k, d, *tbl, device="cpu")
+            assert np.array_equal(got.numpy(), np.asarray(want)), (name, k)

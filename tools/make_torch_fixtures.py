@@ -31,7 +31,11 @@ Writes ``tests/data/torch_ref/``:
   inputs their ``main()``s make from seed 0, each named probe's ``o_ref`` at
   K in ``PROBE_KS``, ``walk_kern`` at N in ``WALK_NS`` for the five
   configurations of ``mosaic_probe5.main()``, and ``smem_cap`` at
-  ``SMEM_ROWS`` as the interpreter answers it.
+  ``SMEM_ROWS`` as the interpreter answers it; then the walk-form and
+  wide-gather probes of ``tools/mosaic_probe3.py``, ``mosaic_probe3b.py`` and
+  ``mosaic_probe3c.py`` at K in ``PROBE3_KS`` on their ``main()``s' inputs
+  (the walk tables beside ``data``), and on the constructed inputs of
+  ``PROBE3_CASES`` where the seed-0 data hides a mechanism.
 
 The tests rebuild the inputs from the seed, check them against the stored
 copies (drift check), then hold the port against the stored outputs.
@@ -50,6 +54,7 @@ import argparse
 import functools
 import hashlib
 import importlib.util
+import os
 import pathlib
 import sys
 import time
@@ -59,6 +64,8 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DATA = ROOT / "tests" / "data"
 OUT = DATA / "torch_ref"
+JAX_CACHE = ROOT / "build" / "jax_cache"      # git-ignored: the JAX probe files default to a
+                                              # cache inside the tree
 SEED = 20261016
 
 # decode groups: name -> block_out (one decode_blocks call each)
@@ -271,6 +278,7 @@ def main() -> int:
     ap.add_argument("--procs", type=int, default=4, help="processes for the stream group")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
+    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(JAX_CACHE))
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -705,10 +713,20 @@ PROBE_KS = (0, 1, 37, 300, 2100)      # 300 passes the window refill at step 255
 WALK_NS = (0, 1, 3000)
 WALK_CONFIGS = ((1, 144), (2, 144), (2, 288), (4, 144), (4, 576))   # mosaic_probe5.main()
 SMEM_ROWS = (256, 512)
+PROBE3_KS = (0, 1, 3, 37, 300, 2100)  # floor(3 / 2) is odd: inrow_round's flip shows
+PROBE3_FILES = ("mosaic_probe3", "mosaic_probe3b", "mosaic_probe3c")
+# constructed inputs (``case_<case>``) for probes whose seed-0 data hides the mechanism
+PROBE3_CASES = {"mosaic_probe3c.inrow_round": "inrow",
+                "mosaic_probe3b.scatter_oc256_e2048_l2": "collide",
+                "mosaic_probe3b.scatter_oc256_e2048_l4": "collide",
+                "mosaic_probe3.scan_tril": "rowfull",
+                "mosaic_probe3.scan_mm_cur": "rowfull"}
 
 
 def probe_module(name: str):
-    """``tools/<name>.py`` of the JAX package, imported from its file."""
+    """``tools/<name>.py`` of the JAX package, imported from its file (its
+    compilation cache kept out of the tree)."""
+    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(JAX_CACHE))
     spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -724,7 +742,58 @@ def build_probe_inputs() -> dict[str, np.ndarray]:
     for rows in sorted({r for _, r in WALK_CONFIGS}):
         out[f"walk_r{rows}"] = np.random.default_rng(0).integers(
             2, 9, size=(rows, 128)).astype(np.int32)
+    out.update(build_probe3_inputs())
     return out
+
+
+def build_probe3_inputs() -> dict[str, np.ndarray]:
+    """The inputs of mosaic_probe3.py, mosaic_probe3b.py and mosaic_probe3c.py:
+    their ``main()``s draw ``data`` (the same array as ``data`` above) and
+    then the walk tables from one seed-0 generator: ``p3_t16384`` and
+    ``p3_t36864`` in [1, 2^20) (mosaic_probe3.py:421-426; CPython iterates
+    the set {16384, 36864} in that order), ``p3b_t36864`` in [1, 2^22)
+    (mosaic_probe3b.py:246-248); ``p3c_data`` in [0, 2^15)
+    (mosaic_probe3c.py:141-142).  Then the constructed inputs:
+    ``case_inrow``, whose pointers (``& 32767``) stay in their row for seven
+    elements in eight, ``case_collide``, whose rows 0-15 lie in [0, 512), so
+    the scatters' positions collide in rows 0-7, and ``case_rowfull``,
+    ``data`` with rows 0 and 3 all 0x1FFFF, so at odd i those rows of the
+    scans total 2^24, which ``scan_tril``'s three 8-bit limbs drop."""
+    out = {}
+    rng = np.random.default_rng(0)
+    data = rng.integers(0, 2**20, (304, 128), dtype=np.int32)
+    for n in (16384, 36864):
+        out[f"p3_t{n}"] = rng.integers(1, 2**20, (n,), dtype=np.int32)
+    rng = np.random.default_rng(0)
+    rng.integers(0, 2**20, (304, 128), dtype=np.int32)
+    out["p3b_t36864"] = rng.integers(1, 2**22, (36864,), dtype=np.int32)
+    out["p3c_data"] = np.random.default_rng(0).integers(0, 2**15, (304, 128), dtype=np.int32)
+    rng = np.random.default_rng(SEED + 5)
+    rows = (np.arange(304) % 256)[:, None]
+    inrow = rows * 128 + rng.integers(0, 128, (304, 128))
+    off = rng.random((304, 128)) < 0.125
+    inrow[off] = rng.integers(0, 1 << 15, int(off.sum()))
+    out["case_inrow"] = inrow.astype(np.int32)
+    collide = rng.integers(0, 2**20, (304, 128))
+    collide[:16] = rng.integers(0, 512, (16, 128))
+    out["case_collide"] = collide.astype(np.int32)
+    rowfull = data.copy()
+    rowfull[[0, 3]] = 0x1FFFF
+    out["case_rowfull"] = rowfull
+    return out
+
+
+def probe3_call(mod_name: str, name: str):
+    """The jitted ``pl.pallas_call`` of one probe of mosaic_probe3.py,
+    mosaic_probe3b.py or mosaic_probe3c.py, and whether it takes a table."""
+    import jax
+
+    mod = probe_module(mod_name)
+    entry = mod.PROBES[name]
+    if mod_name == "mosaic_probe3":
+        return jax.jit(mod._call(entry[0], entry[1], tbl_n=entry[4])), f"p3_t{entry[4]}"
+    return jax.jit(mod._call(entry[0], entry[1])), ("p3b_t36864" if mod_name == "mosaic_probe3b"
+                                                    else None)
 
 
 def walk_call(nchains: int, rows: int):
@@ -767,6 +836,30 @@ def probe_outputs(inputs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         for n in WALK_NS:
             got = fn(jnp.full((4,), n, jnp.int32), d)
             out[f"mosaic_probe5.walk_c{nchains}_r{rows}__k{n}"] = np.asarray(got)
+    out.update(probe3_outputs(inputs))
+    return out
+
+
+def probe3_outputs(inputs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Each probe of mosaic_probe3.py, mosaic_probe3b.py and mosaic_probe3c.py
+    at K in ``PROBE3_KS``, keyed ``<module>.<probe>__k<K>``, and on its
+    constructed input, keyed ``<module>.<probe>__<case>_k<K>``."""
+    import jax.numpy as jnp
+
+    out = {}
+    for mod_name in PROBE3_FILES:
+        for name in probe_module(mod_name).PROBES:
+            fn, tkey = probe3_call(mod_name, name)
+            tbl = () if tkey is None else (jnp.asarray(inputs[tkey]),)
+            full = f"{mod_name}.{name}"
+            runs = [("", inputs["p3c_data" if mod_name == "mosaic_probe3c" else "data"])]
+            if full in PROBE3_CASES:
+                runs.append((PROBE3_CASES[full] + "_", inputs["case_" + PROBE3_CASES[full]]))
+            for case, data in runs:
+                d = jnp.asarray(data)
+                for k in PROBE3_KS:
+                    got = fn(jnp.full((1,), k, jnp.int32), d, *tbl)
+                    out[f"{full}__{case}k{k}"] = np.asarray(got)
     return out
 
 
