@@ -87,23 +87,41 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              PyTorch call computes the function (``torch.gather``,
              ``torch.index_select``, ``torch.take``, given clamped int64
              indices);
-12. probes — rows 14a-14g (``csrc/probe.cu``, ``csrc/probe3.cu``,
-             ``tools/probe.py``): with every
+12. probes — rows 14a-14i (``csrc/probe.cu``, ``csrc/probe3.cu``,
+             ``csrc/probe4.cu``, ``tools/probe.py``): with every
              count of ``probe.launches`` set to 0, ``probe.measure`` of each
-             probe of ``probe.PROBES`` on the card (device=None): ns and SM
-             cycles per iteration from the slope between k_lo and k_hi (CUDA
-             events, and ``clock64()`` inside the kernel), its output at
-             k_hi equal to the plain version, the shared-memory capacity in
-             bytes by bisection; every count moved; then each probe at
-             every K of ``tests/data/torch_ref/probes.npz`` (and on its
-             constructed inputs) equal to the JAX probes' answers and to the
-             plain version (0 differing elements); one ``kernels`` row per
-             ``pl.pallas_call`` site (seven) with
-             its probes' times as a sub-list; then each serial chain of
-             phases 5 and 6 in units of one measured ``walk_smem`` step (a
-             dependent shared load and four integer operations: a yardstick,
-             not a floor; printed only, never in the ``kernels`` line);
-13. the ``kernels`` JSON line, the card's name and power limit, and the
+             kernel of ``probe.TIMED`` (probes that share an entry, as
+             mosaic_probe6's four gathers do, once) and the capacity probe on
+             the card (device=None): ns and SM cycles per iteration from the slope
+             between k_lo and k_hi (CUDA events, and ``clock64()`` inside the
+             kernel), its output at k_hi equal to the plain version, the
+             shared-memory capacity in bytes by bisection; every count moved;
+             then each probe at every K of ``tests/data/torch_ref/probes.npz``
+             (and on its constructed inputs) equal to the JAX probes' answers
+             and to the plain version (0 differing elements), and the
+             resolve-phase gathers at ``probe.WRAP_K``, past the int32 wrap of
+             their sum, equal to the plain version; one ``kernels`` row per
+             ``pl.pallas_call`` site (nine) with its probes' times as a
+             sub-list (``mosaic_probe6.taa_4096x128`` listed as failing to
+             trace in JAX); then each serial chain of phases 5 and 6 in units
+             of one measured ``walk_smem`` step (a dependent shared load and
+             four integer operations: a yardstick, not a floor; printed only,
+             never in the ``kernels`` line);
+13. kernel_lib — rows 15a-15b (``csrc/kernel_lib.cu`` over
+             ``csrc/kernel_lib.cuh``, ``ops/kernel_lib.py``): with every count
+             of ``kernel_lib.launches`` set to 0, each helper of
+             ``kernel_lib.HELPERS`` on every case of
+             ``tests/data/torch_ref/kernel_lib.npz`` on the card (device=None),
+             equal to the JAX helpers' answers and to the plain version (0
+             differing elements); every count moved; a call of each helper on
+             its first case and the PyTorch call that computes the same
+             function inside the contract, where there is one, timed in
+             ``KL_ROUNDS`` interleaved rounds (median and spread), beside its
+             kernel's own device time, the plain version and the bound
+             (``kernel_lib.traffic``: what the helper reads on that case); one
+             ``kernels`` row for each of the two ``pl.pallas_call`` sites with
+             its helpers as a sub-list;
+14. the ``kernels`` JSON line, the card's name and power limit, and the
    result line.
 
 Any failure raises and exits non-zero; with no card, or without the
@@ -121,6 +139,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
+KL_ROUNDS = 5                   # phase 13's interleaved timing rounds
 B, BS = 64, 32768             # the main path's batch: 64 blocks of 32 KiB
 
 
@@ -685,17 +704,24 @@ def _primitives(torch, np, dev, card: str) -> list:
 
 
 def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
-    """Phase 12: rows 14a-14g (``csrc/probe.cu``, ``csrc/probe3.cu``) through ``tools/probe.py``
-    with launch counts: every probe measured on the card and held against
-    its plain version and the JAX probes' answers.  Returns one ``kernels``
-    row per ``pl.pallas_call`` site and each probe's measurement."""
+    """Phase 12: rows 14a-14i (``csrc/probe.cu``, ``csrc/probe3.cu``, ``csrc/probe4.cu``) through
+    ``tools/probe.py`` with launch counts: every probe with a kernel measured on the card and held
+    against its plain version and the JAX probes' answers.  Returns one ``kernels`` row per
+    ``pl.pallas_call`` site and each probe's measurement."""
     from csnappy_tpu_torch.tools import probe
 
+    # one measurement a kernel: probes that share an entry (mosaic_probe6's
+    # four gathers, one function) are measured once, under the first name
+    same = {}
+    for name in probe.TIMED:
+        same.setdefault((probe.PROBES[name].lib, probe.PROBES[name].entry), []).append(name)
+    also = {names[0]: names[1:] for names in same.values()}
     for name in probe.PROBES:
         probe.probe.launches[name] = 0
-    recs = {name: probe.measure(name) for name in probe.PROBES}      # device=None: the card
+    names = tuple(also) + ("mosaic_probe5.smem_cap",)
+    recs = {name: probe.measure(name) for name in names}               # device=None: the card
     torch.cuda.synchronize()
-    launches = dict(probe.probe.launches)
+    launches = {name: probe.probe.launches[name] for name in names}
     assert all(n > 0 for n in launches.values()), launches
     bad = [name for name, r in recs.items() if not r["result_equals_plain"]]
     assert not bad, bad
@@ -706,17 +732,17 @@ def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
         print(f"[probes] {name}: {r['ns_per_iter']:.2f} ns, {r['cycles_per_iter']:.2f} SM cycles "
               f"an iteration of {r['steps_per_iter']} step(s) (K {r['k_lo']} -> {r['k_hi']}, "
               f"{r['space']} memory); {r['ms']:.4f} ms at K = {r['k_hi']}, plain "
-              f"{r['plain_ms']:.1f} ms (host CPU); {launches[name]} launches", flush=True)
+              f"{r['plain_ms']:.1f} ms (host CPU); {launches[name]} launches"
+              + (f"; the same kernel as {', '.join(also[name])}" if also.get(name) else ""),
+              flush=True)
     cap = recs["mosaic_probe5.smem_cap"]
     print(f"[probes] shared-memory capacity of a block: {cap['capacity_bytes']} bytes; (rows, 128) "
           f"int32 scratch runs at rows {cap['rows_ok']}", flush=True)
 
     z = np.load(DATA / "torch_ref" / "probes.npz")
     ncase = 0
-    for name, pr in probe.PROBES.items():
-        if pr.entry == "smem_cap":
-            continue
-        tbl = probe.walk_table(name)
+    for name in probe.TIMED:
+        tbl = probe.second_input(name)
         htab = None if tbl is None else torch.from_numpy(tbl)
         tab = None if htab is None else htab.to(dev)
         for key in (k for k in z.files if k.startswith(name + "__")):
@@ -727,16 +753,27 @@ def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
             want = probe.probe(name, int(k), host, htab, device="cpu")
             assert np.array_equal(got.numpy(), z[key]) and torch.equal(got, want), key
             ncase += 1
+    rand = torch.from_numpy(z["case_p4rand"])
+    wrapped = []
+    for name in (n for n in probe.TIMED if n.startswith("mosaic_probe4.gather_r")):
+        got = probe.probe(name, probe.WRAP_K, rand.to(dev)).cpu()
+        want = probe.probe(name, probe.WRAP_K, rand, device="cpu")
+        assert torch.equal(got, want), name
+        wrapped += [int(want[0, 0])] if name.endswith("_l2") else []
+    assert all(v < 0 for v in wrapped), wrapped
     print(f"[probes] {ncase} fixture cases equal to the JAX probes and to the plain versions on "
-          f"the card; card {card}; SM clock {clocks['clocks.sm']} (max {clocks['clocks.max.sm']})",
-          flush=True)
+          f"the card; the 12 resolve-phase gathers at K = {probe.WRAP_K} on case_p4rand equal to "
+          f"the plain versions past the int32 wrap of their sum (16-bit answers {wrapped}); card "
+          f"{card}; SM clock {clocks['clocks.sm']} (max {clocks['clocks.max.sm']})", flush=True)
 
     rows = []
     for call, site in probe.SITES.items():
-        names = [n for n, p in probe.PROBES.items() if p.call == call]
+        names = [n for n in recs if probe.PROBES[n].call == call]
         sub = [{k: recs[n][k] for k in ("probe", "ns_per_iter", "cycles_per_iter", "ms", "k_lo",
                                         "k_hi", "steps_per_iter", "space", "plain_ms", "bound_ms")}
-               | {"launches": launches[n]} for n in names]
+               | {"launches": launches[n], "same_kernel_as": also.get(n, [])} for n in names]
+        sub += [{"probe": n, "fails_to_trace_in_jax": p.fails, "kernel": None}
+                for n, p in probe.PROBES.items() if p.call == call and p.fails]
         top = max(names, key=lambda n: recs[n]["bound_ms"])
         row = {"name": f"probe:{site}", "route": "cuda",
                "source": f"csnappy_tpu_torch/csrc/{probe.PROBES[top].lib}.cu", "replaces": call,
@@ -751,6 +788,162 @@ def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
             row.update(capacity_bytes=cap["capacity_bytes"], rows_ok=cap["rows_ok"])
         rows.append(row)
     return rows, recs
+
+
+def _kernel_lib(torch, np, dev, card: str) -> list:
+    """Phase 13: rows 15a-15b (``csrc/kernel_lib.cu``) through the helpers of
+    ``ops/kernel_lib.py`` with launch counts: every fixture case on the card,
+    held against the JAX helpers' answers and the plain versions; a call of
+    each helper and of its PyTorch counterpart timed in ``KL_ROUNDS``
+    interleaved rounds (the median of 20 calls a round), the median round
+    kept with its spread.  Returns the two ``kernels`` rows."""
+    from csnappy_tpu_torch.ops import kernel_lib as kl
+    from csnappy_tpu_torch.tools.timing import (HBM_BYTES_PER_S, OPS_PER_S, device_profile,
+                                                time_ms)
+
+    cases = kl.read_cases(DATA / "torch_ref" / "kernel_lib.npz")
+    on_card = {c[0]: {k: torch.from_numpy(v).to(dev) for k, v in c[2].items()} for c in cases}
+    torch.cuda.synchronize()
+    for name in kl.launches:
+        kl.launches[name] = 0
+    got = {case: kl.call(helper, on_card[case], params)                # device=None: the card
+           for case, helper, _, params, _ in cases}
+    torch.cuda.synchronize()
+    launches = dict(kl.launches)
+    assert launches == {h: sum(c[1] == h for c in cases) for h in kl.HELPERS}, launches
+    err = dict.fromkeys(kl.HELPERS, 0)
+    for case, helper, arrays, params, outs in cases:
+        want = kl.call(helper, {k: torch.from_numpy(v) for k, v in arrays.items()}, params,
+                       device="cpu")
+        assert len(got[case]) == len(outs) == len(want), case
+        for g, o, w in zip(got[case], outs, want):
+            g = g.cpu()
+            assert np.array_equal(g.numpy(), o) and torch.equal(g, w), case
+            err[helper] = max(err[helper], int((g.long() - w.long()).abs().max()))
+    print(f"[kernel_lib] main path: the {len(kl.HELPERS)} helpers on the card on the "
+          f"{len(cases)} cases of kernel_lib.npz (the 35 of tests/test_kernel_lib.py, answers "
+          f"outside the contracts, the helpers no JAX test runs), equal to the JAX helpers and "
+          f"the plain versions; launches {launches}", flush=True)
+
+    def library(helper, a, params):
+        """One PyTorch call computing the helper inside its contract, or None."""
+        x = next(iter(a.values()))
+        d, k = params.get("d", 0), params.get("k", 0) % 128
+        flat = x.reshape(-1)
+        pad = torch.nn.functional.pad
+        calls = {
+            "stream_shift_down": ("F.pad(x.flat[:n - d], (d, 0), value=fill)",
+                                  lambda: pad(flat[: flat.numel() - d], (d, 0),
+                                              value=params.get("fill", 0))),
+            "stream_shift_up": ("F.pad(x.flat[d:], (0, d), value=fill)",
+                                lambda: pad(flat[d:], (0, d), value=params.get("fill", 0))),
+            "stream_shift_up_mm": ("F.pad(x.flat[d:], (0, d))", lambda: pad(flat[d:], (0, d))),
+            "stream_shift_down_mm": ("F.pad(x.flat[:n - d], (d, 0))",
+                                     lambda: pad(flat[: flat.numel() - d], (d, 0))),
+            "lane_shift_down": ("F.pad(x[:, :128 - k], (k, 0))",
+                                lambda: pad(x[:, : 128 - k], (k, 0))),
+            "lane_shift_up": ("F.pad(x[:, k:], (0, k))", lambda: pad(x[:, k:], (0, k))),
+            "row_shift_down": ("F.pad(x[:R - k], (0, 0, k, 0), value=fill)",
+                               lambda: pad(x[: max(x.shape[0] - k, 0)],
+                                           (0, 0, min(k, x.shape[0]), 0),
+                                           value=params.get("fill", 0))),
+            "row_shift_up": ("F.pad(x[k:], (0, 0, 0, k), value=fill)",
+                             lambda: pad(x[k:], (0, 0, 0, min(k, x.shape[0])),
+                                         value=params.get("fill", 0))),
+            "scan2d": ("torch.cummax / torch.cumsum of x.flat", lambda: torch.cummax(flat, 0)
+                       if params["op"] == "max" else torch.cumsum(flat, 0, dtype=torch.int32)),
+            "scan2d_mm": ("torch.cummax / torch.cumsum of x.flat", lambda: torch.cummax(flat, 0)
+                          if params["op"] == "max" else torch.cumsum(flat, 0, dtype=torch.int32)),
+            "scan2d_tril": ("torch.cumsum(x.flat)",
+                            lambda: torch.cumsum(flat, 0, dtype=torch.int32)),
+            "flip2d": ("torch.flip(x.flat, (0,))", lambda: torch.flip(flat, (0,))),
+        }
+        if helper in ("gather_flat", "local_gather_rows", "lane_gather"):
+            tbl, ix = a.values()
+            ix64 = ix.long().clamp(0, (tbl.numel() if helper == "gather_flat" else 128) - 1)
+            calls[helper] = (("torch.take(table, idx)", lambda: torch.take(tbl, ix64))
+                             if helper == "gather_flat" else
+                             ("torch.gather(x, 1, idx)", lambda: torch.gather(tbl, 1, ix64)))
+        if helper == "gather_rows_multi":
+            *tbls, ix = a.values()
+            stacked = torch.stack([t.reshape(-1) for t in tbls])     # set-up, not timed
+            rows = ix[params["r0"] : params["r0"] + params["nrows"]].reshape(-1)
+            ix64 = rows.long().clamp(0, stacked.shape[1] - 1)
+            calls[helper] = ("torch.index_select(stacked tables, 1, idx)",
+                             lambda: torch.index_select(stacked, 1, ix64))
+        if helper in ("scatter_rows_multi", "scatter_sum_tile"):
+            pos, val = list(a.values())[:2]             # the first value tile
+            n_out = 128 * (params["out_rows"])
+            keep = (pos >= 0) & (pos < n_out)
+            if helper == "scatter_sum_tile":
+                keep &= list(a.values())[2] != 0
+            p_ok, v_ok = pos[keep].long(), val[keep]
+            h = torch.zeros(n_out, dtype=torch.int32, device=dev)
+            calls[helper] = ("H.index_add_(0, pos, val) (in-range positions)",
+                             lambda: h.index_add_(0, p_ok, v_ok))
+        return calls.get(helper, (None, None))
+
+    first = {helper: next(c for c in cases if c[1] == helper) for helper in kl.HELPERS}
+    libs = {helper: library(helper, on_card[c[0]], c[3]) for helper, c in first.items()}
+    call_ms = {helper: [] for helper in kl.HELPERS}
+    lib_ms = {helper: [] for helper in kl.HELPERS}
+    plain_ms = {helper: [] for helper in kl.HELPERS}
+    for _ in range(KL_ROUNDS):          # interleaved: a slow spell hits every helper
+        for helper, (case, _, arrays, params, _) in first.items():
+            call_ms[helper].append(time_ms(lambda: kl.call(helper, on_card[case], params)))
+            if libs[helper][1] is not None:
+                lib_ms[helper].append(time_ms(libs[helper][1]))
+            host = {k: torch.from_numpy(v) for k, v in arrays.items()}
+            t0 = time.perf_counter()
+            kl.call(helper, host, params, device="cpu")
+            plain_ms[helper].append((time.perf_counter() - t0) * 1e3)
+
+    subs = {"15a": [], "15b": []}
+    for helper, h in kl.HELPERS.items():
+        case, _, arrays, params, _ = first[helper]
+        a = on_card[case]
+        device_ms = device_profile(lambda: kl.call(helper, a, params))["device_ms"] or None
+        nbytes, nops = kl.traffic(helper, arrays, params)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / OPS_PER_S * 1e3
+        ms, lib_name = statistics.median(call_ms[helper]), libs[helper][0]
+        lms = statistics.median(lib_ms[helper]) if lib_ms[helper] else None
+        shapes = [list(v.shape) for v in arrays.values()]
+        subs[h.row].append({"helper": helper, "kind": h.kind, "jax": h.jax, "test": h.test,
+                            "case": case, "shapes": shapes,
+                            "launches": launches[helper], "max_abs_err": err[helper], "ms": ms,
+                            "ms_rounds": call_ms[helper], "device_ms": device_ms,
+                            "plain_ms": statistics.median(plain_ms[helper]),
+                            "bound_ms": max(bytes_ms, ops_ms), "bound_bytes": nbytes,
+                            "bound_ops": nops,
+                            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                            "library": lib_name, "library_ms": lms,
+                            "library_ms_rounds": lib_ms[helper] or None})
+        print(f"[kernel_lib] {helper} ({h.kind}) on {case} {shapes}: {ms:.4f} ms a call (median "
+              f"of {KL_ROUNDS} rounds, {min(call_ms[helper]):.4f}-{max(call_ms[helper]):.4f}), "
+              f"kernel alone {_or_not_measured(device_ms)}, plain "
+              f"{statistics.median(plain_ms[helper]):.2f} ms (host CPU), bound "
+              f"{max(bytes_ms, ops_ms):.7f} ms ({nbytes} B, {nops} operations), library "
+              + (f"{lib_name} {lms:.4f} ms ({min(lib_ms[helper]):.4f}-"
+                 f"{max(lib_ms[helper]):.4f})" if lms is not None else "none")
+              + f"; {launches[helper]} launches", flush=True)
+    rows = []
+    for row, name, replaces in (
+            ("15a", "kernel_lib:test_kernel_lib._run", "tests/test_kernel_lib.py:16"),
+            ("15b", "kernel_lib:test_kernel_lib.gather_rows_multi",
+             "tests/test_kernel_lib.py:137")):
+        sub = subs[row]
+        # one PyTorch call for the row: only where the row is one helper (15b)
+        library_ms = sub[0]["library_ms"] if len(sub) == 1 else None
+        rows.append({"name": name, "route": "cuda",
+                     "source": "csnappy_tpu_torch/csrc/kernel_lib.cu", "replaces": replaces,
+                     "launches": sum(r["launches"] for r in sub),
+                     "max_abs_err": max(r["max_abs_err"] for r in sub),
+                     "ms": sum(r["ms"] for r in sub), "plain_ms": sum(r["plain_ms"] for r in sub),
+                     "bound_ms": sum(r["bound_ms"] for r in sub),
+                     "bound_by": max(sub, key=lambda r: r["bound_ms"])["bound_by"],
+                     "library_ms": library_ms, "helpers": sub})
+    print(f"[kernel_lib] card {card}", flush=True)
+    return rows
 
 
 def main() -> int:
@@ -966,7 +1159,10 @@ def main() -> int:
                   f"operations, not a floor) = {row['chain_steps'] * step_ms:.4f} ms; the kernel "
                   f"{row['ms']:.4f} ms", flush=True)
 
-    # --------------------------------------------------------- 13. result
+    # ------------------------------------------------------- 13. kernel_lib
+    rows += _kernel_lib(torch, np, dev, card)
+
+    # --------------------------------------------------------- 14. result
     print(json.dumps({"kernels": rows}), flush=True)
     print(_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

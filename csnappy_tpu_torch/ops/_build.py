@@ -8,8 +8,9 @@ with a plain C interface, loaded with :mod:`ctypes`:
 * ``*.cpp`` — ``c++ -O3 -shared`` (host runtime).
 
 Libraries go to ``csnappy_tpu_torch/build/`` under a name that carries a
-hash of the source and the command, so an edited source is rebuilt and a
-stale library is never loaded.  Concurrent builds (test workers) each
+hash of the source, of every local header it includes (``#include "..."``,
+followed through headers) and of the command, so an edited source or
+header is rebuilt and a stale library is never loaded.  Concurrent builds (test workers) each
 write a private file and rename it into place.  ``build()`` starts one
 compiler per missing library, all at once, and waits for them together.
 """
@@ -20,6 +21,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -36,10 +38,13 @@ SOURCES = {
     "primitives": CSRC / "primitives.cu",
     "probe": CSRC / "probe.cu",
     "probe3": CSRC / "probe3.cu",
+    "kernel_lib": CSRC / "kernel_lib.cu",
+    "probe4": CSRC / "probe4.cu",
     "csnappy_host": CSRC / "host" / "csnappy_host.cpp",
 }
 CUDA_NAMES = ("decode_blocks", "encode_blocks", "scan_segments", "decode_stream", "movebench",
-              "primitives", "probe", "probe3")
+              "primitives", "probe", "probe3", "kernel_lib", "probe4")
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def nvcc() -> str:
@@ -59,8 +64,24 @@ def _command(name: str, out: pathlib.Path) -> list[str]:
             "-o", str(out), str(src)]
 
 
+def local_headers(src: pathlib.Path) -> list[pathlib.Path]:
+    """The local headers ``src`` includes (``#include "..."``, resolved
+    beside the including file), and theirs, each once, in order."""
+    found, todo = [], [src]
+    while todo:
+        f = todo.pop(0)
+        for inc in _LOCAL_INCLUDE.findall(f.read_text()):
+            h = (f.parent / inc).resolve()
+            if h not in found:
+                found.append(h)
+                todo.append(h)
+    return found
+
+
 def target(name: str) -> pathlib.Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in local_headers(SOURCES[name]):
+        h.update(header.read_bytes())
     h.update(" ".join(_command(name, pathlib.Path("x"))[1:]).encode())
     return BUILD / f"lib{name}_{h.hexdigest()[:12]}.so"
 

@@ -1,6 +1,7 @@
 """Latency and capacity probes on the card (port of ``tools/mosaic_probe.py``,
 ``mosaic_probe2.py``, ``mosaic_probe5.py``, ``mosaic_probe3.py``,
-``mosaic_probe3b.py`` and ``mosaic_probe3c.py``).
+``mosaic_probe3b.py``, ``mosaic_probe3c.py``, ``mosaic_probe4.py`` and
+``mosaic_probe6.py``).
 
 The JAX tools measure, on the TPU, what one step of the constructs the
 fused kernels are built from costs: a dependent load per step from vector
@@ -12,21 +13,30 @@ encoder over a 1-D walk table (plain, unrolled, interleaved, pair-table,
 with the real checks, with and without a branch), matrix products beside a
 scalar walk, int8 and bf16 products, wide gathers by table height and
 limbs, scatter-adds, triangular and saturating scans, lane gathers
-(``take_along_axis``) and an in-row pointer-jumping round.  Each probe
-loops K times inside one kernel, so the cost of a step is the slope between
-two values of K.
+(``take_along_axis``) and an in-row pointer-jumping round; then the
+decoder's resolve-phase building blocks: a 4,096-wide gather whose indices
+depend on the last gather, by table height and limbs, a lane gather,
+pointer-jumping rounds with and without a convergence check, a window read
+at a dynamic base, and flat gathers at the resolve shape.  Each probe loops
+K times inside one kernel, so the cost of a step is the slope between two
+values of K.
 
-Here each probe is a kernel of ``csrc/probe.cu`` or ``csrc/probe3.cu`` that
-computes what the TPU kernel computes (the same int32 (8, 128) ``o_ref`` for
-the same K, input and walk table), written for Hopper: the scalar walks are
-one thread walking a table in shared or global memory, the vector probes
-128 or 1024 threads, the products tensor-core ``wmma`` products, the rolls a
-128-lane rotate through shared memory, the window copy a ``cp.async.bulk``
-into shared memory, the wide gathers 1024 threads gathering by address from
-a table in shared memory, the lane gathers one thread a chain.  ``PROBES``
-names each probe by its JAX name (``"mosaic_probe.walk_load"``, ...,
-``"mosaic_probe3c.inrow_round"``) with its plain version, its CUDA source
-and entry, its TPU site and its (k_lo, k_hi).
+Here each probe is a kernel of ``csrc/probe.cu``, ``csrc/probe3.cu`` or
+``csrc/probe4.cu`` that computes what the TPU kernel computes (the same
+int32 (8, 128) ``o_ref`` for the same K, input and second input), written
+for Hopper: the scalar walks are one thread walking a table in shared or
+global memory, the vector probes 128 or 1024 threads, the products
+tensor-core ``wmma`` products, the rolls a 128-lane rotate through shared
+memory, the window copy a ``cp.async.bulk`` into shared memory, the wide
+gathers 1024 threads gathering by address from a table in shared memory,
+the lane gathers one thread a chain; ``csrc/probe4.cu`` builds its probes on
+the gather of ``csrc/kernel_lib.cuh``.  ``PROBES`` names each probe by its
+JAX name (``"mosaic_probe.walk_load"``, ..., ``"mosaic_probe6.el_i16"``)
+with its plain version, its CUDA source and entry, its TPU site and its
+(k_lo, k_hi).  ``mosaic_probe6.taa_4096x128`` fails to trace in JAX (a
+``broadcast_to`` of (8, 128) to (4096, 128), ``mosaic_probe6.py:138``), so
+it has no kernel and no plain version: :func:`probe` raises the JAX
+``ValueError`` for it; ``TIMED`` lists the probes that are timed by slope.
 
 * :func:`probe` — one probe's output at K on the card (``device=None``) or,
   with ``device="cpu"``, its plain version: torch ops (Python ints for the
@@ -35,8 +45,9 @@ and entry, its TPU site and its (k_lo, k_hi).
   hoist what does not depend on the iteration (the kernels do neither).
   Scratch that a TPU kernel reads before writing holds INT32_MIN, as the
   Pallas interpreter fills it; the kernels fill it the same.  The probes of
-  mosaic_probe3.py and mosaic_probe3b.py take their walk ``table`` beside
-  the input (:func:`walk_table` draws it as their ``main()``s do).
+  mosaic_probe3.py and mosaic_probe3b.py take their walk table beside the
+  input, those of mosaic_probe6.py a (32, 128) index (:func:`second_input`
+  draws either as their ``main()``s do).
 * :func:`measure` — ns and SM cycles per iteration on the card: the
   CUDA-event slope between launches at k_lo and k_hi (as the JAX ``slope``,
   which drops the launch cost), and the ``clock64()`` slope of the loop
@@ -650,6 +661,83 @@ def big_smem_plain(k: int, d: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return _full(p + tc + tag0 + tag_last)
 
 
+# --------------------------------------- plain versions, mosaic_probe4.py and mosaic_probe6.py
+
+R4 = 400                        # mosaic_probe4.py RMAX: input rows
+R6, RG6 = 424, 32               # mosaic_probe6.py R, RG: table and index rows
+MASK6 = R6 * L - 1              # 0xD3FF: an AND mask, not a modulus
+
+
+def gather4_plain(rows: int, limbs: int, k: int, d: torch.Tensor) -> torch.Tensor:
+    """mosaic_probe4.py:64 ``gather_kern``: T = d[0:rows] & (2^(8 limbs) - 1),
+    idx = d[0:32] % (rows * 128); each iteration g = T.flat[idx], then
+    ``idx = (g + acc + i) % (rows * 128)`` with the old acc (int32 sums,
+    jnp's floor modulus), then acc += g[0, 0].  Element (0, 0)'s index
+    depends only on itself and acc, so its chain alone reaches the output."""
+    m = rows * L
+    t = (d[:rows].reshape(-1) & ((1 << 8 * limbs) - 1)).tolist()
+    ix, acc = int(d[0, 0]) % m, 0
+    for i in range(k):
+        g = t[min(max(ix, 0), m - 1)]
+        ix = _i32(g + acc + i) % m
+        acc = _i32(acc + g)
+    return _full(acc)
+
+
+def lane_gather4_plain(k: int, d: torch.Tensor) -> torch.Tensor:
+    """mosaic_probe4.py:79 ``lane_gather_kern``: x = d[0:32] % 128;
+    ``g[r, c] = x[r, x[r, c] & 127]``, ``x = (g + i) % 128``, acc += g[0, 0].
+    Row 0 reads only itself, so it runs alone here."""
+    x = d[0].long() % L
+    acc = 0
+    for i in range(k):
+        g = x[x & (L - 1)]
+        x = (g + i) % L
+        acc = _i32(acc + int(g[0]))
+    return _full(acc)
+
+
+def conv4_plain(check: bool, k: int, d: torch.Tensor) -> torch.Tensor:
+    """mosaic_probe4.py:92 ``while_conv_kern``: x = d[0:32] % 4096; each
+    iteration 4 pointer-jumping rounds ``x = (x & 0xFFFF).flat[clip(x)] %
+    4096``, every element reading the old x; with ``check`` the rounds stop
+    after the first that changed nothing; acc += x[0, 0]."""
+    x = d[:32].reshape(-1).long() % (32 * L)
+    acc = 0
+    for _ in range(k):
+        rounds, changed = 0, 1
+        while rounds < 4 and (changed or not check):
+            g = (x & 0xFFFF)[x.clamp(0, 32 * L - 1)]
+            changed = int((g != x).sum())
+            x = g % (32 * L)
+            rounds += 1
+        acc = _i32(acc + int(x[0]))
+    return _full(acc)
+
+
+def dynslice4_plain(k: int, d: torch.Tensor) -> torch.Tensor:
+    """mosaic_probe4.py:118 ``dynslice_kern``: base = ((acc + i) % 40) * 8,
+    ``acc = (acc + d[base, 0]) % 251`` (the 32-row window's [0, 0])."""
+    col = d[:, 0].tolist()
+    acc = 0
+    for i in range(k):
+        acc = _i32(acc + col[(_i32(acc + i) % 40) * 8]) % 251
+    return _full(acc)
+
+
+def gather6_plain(k: int, d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """mosaic_probe6.py:55 ``mk_base`` (and ``mk_el``, :96, the same
+    function): acc += (d.flat[(idx + i) & 0xD3FF] & 0xFF) each iteration;
+    the output is acc[0:8], so only idx[0:8] is gathered here."""
+    t = (d.reshape(-1) & 0xFF).long()
+    ix = idx[:8].reshape(-1).long()
+    acc = torch.zeros(8 * L, dtype=torch.int64)
+    for i0 in range(0, k, 512):
+        i = torch.arange(i0, min(k, i0 + 512))
+        acc += t[(ix[None, :] + i[:, None]) & MASK6].sum(0)
+    return _wrap(acc).int().reshape(OUT_SHAPE)
+
+
 # -------------------------------------------------------------------- the table
 
 
@@ -668,6 +756,8 @@ class Probe(NamedTuple):
     tensor: str = ""            # "bf16" or "int8": ops are tensor-core operations of that type
     table: int = 0              # entries of the 1-D int32 walk table beside the input; 0: none
     lib: str = "probe"          # the CUDA source csrc/<lib>.cu, entry <lib>_<entry>_launch
+    index: int = 0              # rows of the (rows, 128) int32 index beside the input; 0: none
+    fails: str = ""             # the JAX probe's trace-time error: no kernel, no plain version
 
 
 P1, P2, P5 = "tools/mosaic_probe.py", "tools/mosaic_probe2.py", "tools/mosaic_probe5.py"
@@ -754,6 +844,46 @@ def _probe3() -> dict[str, Probe]:
     return out
 
 
+P4, P6 = "tools/mosaic_probe4.py", "tools/mosaic_probe6.py"
+C4, C6 = f"{P4}:37", f"{P6}:37"
+TAA6_ERROR = "Incompatible shapes for broadcasting: (8, 128) and requested shape (4096, 128)"
+# A K past the int32 wrap of acc in every 16-bit gather_r*_l2 probe on the constructed
+# (400, 128) input in [0, 2^16) (case_p4rand of probes.npz): the first wrap comes at
+# 56,213-77,894 iterations, and from there a truncating % would give negative indices.
+WRAP_K = 100_000
+
+
+def _probe4() -> dict[str, Probe]:
+    """The probes of mosaic_probe4.py (named by the labels of its ``main()``,
+    :128-139) and mosaic_probe6.py (its ``PROBES``, :155), kernels of
+    ``csrc/probe4.cu``.  A gather reads its table and 32 x 128 indices;
+    ``dynslice_32`` the rows its windows cover on the tool's data by k_hi
+    (12 bases of the 40, 200 rows)."""
+    e = RG6 * L                                  # 4,096 gathered values an iteration
+    out = {"mosaic_probe4.lane_gather_32x128": Probe(
+        lane_gather4_plain, "lane_gather_32x128", f"{P4}:79", C4, 1024, 8192, 1, "shared", R4,
+        e, e, lib="probe4")}
+    for rows in (32, 64, 128, 160, 288, 400):
+        for limbs in (1, 2):
+            short = f"gather_r{rows}_l{limbs}"
+            out[f"mosaic_probe4.{short}"] = Probe(
+                P(gather4_plain, rows, limbs), short, f"{P4}:64", C4, 1024, 8192, 1, "shared", R4,
+                rows * L + e, e, lib="probe4")
+    for short, check in (("conv_unrolled", False), ("conv_check", True)):
+        out[f"mosaic_probe4.{short}"] = Probe(
+            P(conv4_plain, check), short, f"{P4}:92", C4, 512, 4096, 4, "shared", R4, e, 4 * e,
+            lib="probe4")
+    out["mosaic_probe4.dynslice_32"] = Probe(dynslice4_plain, "dynslice_32", f"{P4}:118", C4, 1024,
+                                             8192, 1, "shared", R4, 200 * L, e, lib="probe4")
+    for short, line in (("base", 55), ("base_i16", 55), ("el_orient", 96), ("el_i16", 96)):
+        out[f"mosaic_probe6.{short}"] = Probe(               # one function: one entry
+            gather6_plain, "flat_gather", f"{P6}:{line}", C6, 128, 1024, 1, "shared", R6,
+            R6 * L + e, e, lib="probe4", index=RG6)
+    out["mosaic_probe6.taa_4096x128"] = Probe(None, "", f"{P6}:136", C6, 512, 4096, 1, "", R6, 0,
+                                              0, lib="probe4", index=RG6, fails=TAA6_ERROR)
+    return out
+
+
 PROBES: dict[str, Probe] = {
     "mosaic_probe.walk_load": Probe(walk_load_plain, "walk_load", f"{P1}:58", C1,
                                     1024, 4096, 1, "global", ROWS, ROWS * L, 4),
@@ -799,10 +929,13 @@ PROBES: dict[str, Probe] = {
                                     256, 256, 0, "shared", 0, 4, 2),
     **_walks(),
     **_probe3(),
+    **_probe4(),
 }
 SITES = {C1: "mosaic_probe", C2: "mosaic_probe2", C5C: "mosaic_probe5.smem_cap",
          C5W: "mosaic_probe5.time_walk", C3: "mosaic_probe3", C3B: "mosaic_probe3b",
-         C3C: "mosaic_probe3c"}
+         C3C: "mosaic_probe3c", C4: "mosaic_probe4", C6: "mosaic_probe6"}
+# the probes timed by the slope in K: all but the capacity probe and those without a kernel
+TIMED = tuple(n for n, p in PROBES.items() if p.entry not in ("smem_cap", ""))
 
 
 def resolve(name: str) -> str:
@@ -820,7 +953,9 @@ def inputs(name: str, seed: int = 0) -> np.ndarray:
     [0, 2^20) (mosaic_probe.py:224, mosaic_probe3.py:422,
     mosaic_probe3b.py:247), in [0, 2^15) for mosaic_probe3c.py (:142);
     (rows, 128) in [2, 9) for a walk of mosaic_probe5.py (:117-118); the k
-    vector ``ones(4)`` for smem_cap."""
+    vector ``ones(4)`` for smem_cap; ``arange(400 * 128) % 251`` as (400,
+    128) for mosaic_probe4.py (:55; no seed); the (424, 128) table in
+    [0, 256) for mosaic_probe6.py (:195-196)."""
     name = resolve(name)
     pr = PROBES[name]
     rng = np.random.default_rng(seed)
@@ -828,20 +963,29 @@ def inputs(name: str, seed: int = 0) -> np.ndarray:
         return np.ones((4,), np.int32)
     if pr.entry == "walk":
         return rng.integers(2, 9, size=(pr.rows, L)).astype(np.int32)
+    if name.startswith("mosaic_probe4."):
+        return np.arange(R4 * L, dtype=np.int32).reshape(R4, L) % 251
+    if name.startswith("mosaic_probe6."):
+        return rng.integers(0, 256, (R6, L), dtype=np.int32)
     return rng.integers(0, 2**15 if name.startswith("mosaic_probe3c.") else 2**20, (ROWS, L),
                         dtype=np.int32)
 
 
-def walk_table(name: str, seed: int = 0) -> np.ndarray | None:
-    """A probe's 1-D walk table as its JAX ``main()`` draws it after the
-    input, or None: mosaic_probe3.py:423-426 draws 16,384 and then 36,864
-    entries in [1, 2^20) (CPython iterates the set {16384, 36864} in that
-    order), mosaic_probe3b.py:248 36,864 in [1, 2^22)."""
+def second_input(name: str, seed: int = 0) -> np.ndarray | None:
+    """A probe's second input as its JAX ``main()`` draws it after the
+    first, or None: the 1-D walk table of mosaic_probe3.py (:423-426 draws
+    16,384 and then 36,864 entries in [1, 2^20); CPython iterates the set
+    {16384, 36864} in that order) and mosaic_probe3b.py (:248, 36,864 in
+    [1, 2^22)), or mosaic_probe6.py's (32, 128) index in [0, 424 * 128)
+    (:197)."""
     name = resolve(name)
     pr = PROBES[name]
+    rng = np.random.default_rng(seed)
+    if pr.index:
+        rng.integers(0, 256, (R6, L), dtype=np.int32)
+        return rng.integers(0, R6 * L, (pr.index, L), dtype=np.int32)
     if not pr.table:
         return None
-    rng = np.random.default_rng(seed)
     rng.integers(0, 2**20, (ROWS, L), dtype=np.int32)
     if name.startswith("mosaic_probe3b."):
         return rng.integers(1, 2**22, (NT,), dtype=np.int32)
@@ -856,7 +1000,7 @@ def walk_table(name: str, seed: int = 0) -> np.ndarray | None:
 def _kernel(entry: str, lib: str = "probe"):
     launch, check = _build.kernel(lib, entry)
     vp, i = ctypes.c_void_p, ctypes.c_int
-    if lib == "probe3":
+    if lib in ("probe3", "probe4"):
         launch.argtypes = [vp, vp, i, vp, vp, vp]
     else:
         launch.argtypes = {"walk": [vp, i, i, i, vp, vp, vp], "smem_cap": [vp, ctypes.c_longlong, vp, vp]
@@ -873,30 +1017,39 @@ def _as_input(name: str, data, dev: torch.device) -> torch.Tensor:
     return t.to(dev).contiguous()
 
 
-def _as_table(name: str, table, dev: torch.device) -> torch.Tensor | None:
-    n = PROBES[name].table
-    if not n:
-        if table is not None:
-            raise ValueError(f"{name} takes no walk table")
+def _as_second(name: str, second, dev: torch.device) -> torch.Tensor | None:
+    pr = PROBES[name]
+    what, want = ("walk table", (pr.table,)) if pr.table else ("index", (pr.index, L))
+    if not pr.table and not pr.index:
+        if second is not None:
+            raise ValueError(f"{name} takes no walk table or index")
         return None
-    if table is None:
-        raise ValueError(f"{name} needs its walk table: int32 ({n},), see walk_table()")
-    t = table if isinstance(table, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(table))
-    if t.dtype != torch.int32 or tuple(t.shape) != (n,):
-        raise ValueError(f"{name}: the walk table must be int32 ({n},), got {t.dtype} "
+    if second is None:
+        raise ValueError(f"{name} needs its {what}: int32 {want}, see second_input()")
+    t = (second if isinstance(second, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(second)))
+    if t.dtype != torch.int32 or tuple(t.shape) != want:
+        raise ValueError(f"{name}: the {what} must be int32 {want}, got {t.dtype} "
                          f"{tuple(t.shape)}")
     return t.to(dev).contiguous()
 
 
 def _plain(name: str, k: int, d: torch.Tensor, t: torch.Tensor | None) -> torch.Tensor:
     pr = PROBES[name]
-    return pr.plain(k, d, t) if pr.table else pr.plain(k, d)
+    return pr.plain(k, d) if t is None else pr.plain(k, d, t)
+
+
+def _traces(name: str) -> None:
+    """Raise what the JAX probe raises when it fails to trace."""
+    if PROBES[name].fails:
+        raise ValueError(f"{name}: {PROBES[name].fails} (the JAX kernel fails to trace; "
+                         "there is no TPU kernel to port)")
 
 
 def _launch(name: str, k: int, d: torch.Tensor,
             t: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``name``'s kernel at K = ``k`` on card tensor ``d`` (and walk
-    table ``t``); returns the (8, 128) output and the loop's ``clock64()``
+    """Launch ``name``'s kernel at K = ``k`` on card tensor ``d`` (and second
+    input ``t``); returns the (8, 128) output and the loop's ``clock64()``
     cycles, and counts the launch."""
     pr = PROBES[name]
     if d.data_ptr() % 16:
@@ -907,7 +1060,7 @@ def _launch(name: str, k: int, d: torch.Tensor,
     launch, check = _kernel(pr.entry, pr.lib)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if pr.lib == "probe3":
+        if pr.lib in ("probe3", "probe4"):
             check(launch(d.data_ptr(), None if t is None else t.data_ptr(), k, out.data_ptr(),
                          cycles.data_ptr(), stream))
         elif pr.entry == "walk":
@@ -919,19 +1072,21 @@ def _launch(name: str, k: int, d: torch.Tensor,
     return out, cycles
 
 
-def probe(name: str, k: int, data, table=None, device=None) -> torch.Tensor:
+def probe(name: str, k: int, data, second=None, device=None) -> torch.Tensor:
     """The (8, 128) int32 output of probe ``name`` after ``k`` iterations on
-    ``data`` and, for the probes of mosaic_probe3.py and mosaic_probe3b.py,
-    the walk ``table`` (for ``smem_cap``, ``k`` is the scratch's rows and
-    ``data`` the k vector).  On the card (``device=None``) its kernel; with
-    ``device="cpu"`` its plain version."""
+    ``data`` and its ``second`` input, if it has one (the walk table of
+    mosaic_probe3.py and mosaic_probe3b.py, the index of mosaic_probe6.py;
+    for ``smem_cap``, ``k`` is the scratch's rows and ``data`` the k vector).
+    On the card (``device=None``) its kernel; with ``device="cpu"`` its plain
+    version.  A probe that fails to trace in JAX raises its ValueError."""
     name = resolve(name)
+    _traces(name)
     dev = resolve_device(device)
-    refuse_card_tensors(dev, data, table)
+    refuse_card_tensors(dev, data, second)
     if not 0 <= k < 1 << 31:
         raise ValueError(f"k must be in [0, 2^31), got {k}")
     d = _as_input(name, data, dev)
-    t = _as_table(name, table, dev)
+    t = _as_second(name, second, dev)
     pr = PROBES[name]
     if pr.entry == "smem_cap" and k < 1:
         raise ValueError("smem_cap needs at least one row")
@@ -1040,9 +1195,10 @@ def measure(name: str, seed: int = 0, device=None, reps: int = 5) -> dict:
     k_hi, and whether its output at k_hi equals the plain version's.  With
     ``device="cpu"`` only the plain version runs and no time is measured."""
     name = resolve(name)
+    _traces(name)
     pr = PROBES[name]
     dev = resolve_device(device)
-    data, table = inputs(name, seed), walk_table(name, seed)
+    data, table = inputs(name, seed), second_input(name, seed)
     host = torch.from_numpy(data)
     rec = {"probe": name, "site": pr.site, "entry": pr.entry, "k_lo": pr.k_lo, "k_hi": pr.k_hi,
            "steps_per_iter": pr.steps, "space": pr.space, "device": dev.type}
@@ -1065,7 +1221,7 @@ def measure(name: str, seed: int = 0, device=None, reps: int = 5) -> dict:
                    capacity_bytes=smem_capacity(dev),
                    rows_ok={r: smem_cap(r, dev) for r in SMEM_ROWS})
     else:
-        t = _as_table(name, table, dev)
+        t = _as_second(name, table, dev)
         ns, cycles, ms, got = slope(lambda k: _launch(name, k, d, t), pr.k_lo, pr.k_hi, reps)
         rec.update(ns_per_iter=ns, cycles_per_iter=cycles, ms=ms)
     diff = (got.cpu().long() - want.long()).abs()
@@ -1086,13 +1242,13 @@ def clocks() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("names", nargs="*", help="probes (default: all but smem_cap)")
+    ap.add_argument("names", nargs="*",
+                    help="probes (default: TIMED, all with a kernel but smem_cap)")
     ap.add_argument("--smem", action="store_true", help="add the shared-memory capacity probe")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the card; cpu = plain versions")
     args = ap.parse_args(argv)
-    names = [resolve(n) for n in args.names] or [n for n, p in PROBES.items()
-                                                if p.entry != "smem_cap"]
+    names = [resolve(n) for n in args.names] or list(TIMED)
     if args.smem and "mosaic_probe5.smem_cap" not in names:
         names.append("mosaic_probe5.smem_cap")
     dev = resolve_device(args.device)

@@ -19,6 +19,7 @@ import torch
 from csnappy_tpu_torch import api
 from csnappy_tpu_torch.models import pymodel, wire
 from csnappy_tpu_torch.ops import decode_fused, encode_fused
+from csnappy_tpu_torch.ops import kernel_lib as kl
 from csnappy_tpu_torch.ops import primitives as prim
 from csnappy_tpu_torch.tools import probe as pb
 
@@ -539,7 +540,7 @@ def test_primitives_never_take_the_plain_version(card, monkeypatch):
 
 # ------------------------------------------------------------- the probes slice
 
-PROBE_NAMES = tuple(n for n, p in pb.PROBES.items() if p.entry != "smem_cap")
+PROBE_NAMES = pb.TIMED                  # every probe with a kernel but smem_cap
 
 
 @pytest.fixture(scope="module")
@@ -553,7 +554,7 @@ def test_probe_kernel_equals_plain_and_fixture(card, probe_fixture, name):
     # every fixture K (the JAX probes' own answers, on the probe's input and
     # on a constructed one) and the probe's k_hi
     pr = pb.PROBES[name]
-    tbl = pb.walk_table(name)
+    tbl = pb.second_input(name)
     htab = None if tbl is None else torch.from_numpy(tbl)
     tab = None if htab is None else htab.to(card)
     runs = [(key, *key.split("__")[1].rsplit("k", 1)) for key in probe_fixture
@@ -605,8 +606,116 @@ def test_probes_never_take_the_plain_version(card, monkeypatch):
     assert pb.probe("walk_smem", 37, data).is_cuda
     with pytest.raises(ValueError, match="CUDA tensor"):
         pb.probe("walk_smem", 37, data, device="cpu")
-    table = torch.from_numpy(pb.walk_table("walk_1d")).to(card)
+    table = torch.from_numpy(pb.second_input("walk_1d")).to(card)
     assert pb.probe("walk_1d", 37, data, table).is_cuda
     assert pb.probe("inrow_round", 37, data).is_cuda
     with pytest.raises(ValueError, match="CUDA tensor"):
         pb.probe("walk_1d", 37, data.cpu(), table, device="cpu")
+    d4 = torch.from_numpy(pb.inputs("conv_check")).to(card)
+    assert pb.probe("conv_check", 37, d4).is_cuda and pb.probe("gather_r400_l2", 37, d4).is_cuda
+    d6 = torch.from_numpy(pb.inputs("el_i16")).to(card)
+    idx = torch.from_numpy(pb.second_input("el_i16")).to(card)
+    assert pb.probe("el_i16", 37, d6, idx).is_cuda
+    with pytest.raises(ValueError, match="Incompatible shapes for broadcasting"):
+        pb.probe("taa_4096x128", 37, d6, idx)
+
+
+@pytest.mark.parametrize("name", [n for n in PROBE_NAMES if n.startswith("mosaic_probe4.gather_r")])
+def test_resolve_gather_kernel_past_the_wrap(card, probe_fixture, name):
+    # on case_p4rand the 16-bit gathers' acc passes 2^31 before WRAP_K; the
+    # kernel's floor modulus must keep agreeing with the plain version there
+    host = torch.from_numpy(probe_fixture["case_p4rand"])
+    got = pb.probe(name, pb.WRAP_K, host.to(card))
+    torch.cuda.synchronize()
+    want = pb.probe(name, pb.WRAP_K, host, device="cpu")
+    assert torch.equal(got.cpu(), want), name
+    if name.endswith("_l2"):
+        assert int(want[0, 0]) < 0, name
+
+
+# ------------------------------------------------------- the kernel_lib slice
+
+
+@pytest.fixture(scope="module")
+def kl_cases():
+    return kl.read_cases(DATA / "torch_ref" / "kernel_lib.npz")
+
+
+@pytest.mark.parametrize("helper", tuple(kl.HELPERS))
+def test_kernel_lib_kernel_equals_fixture(card, kl_cases, helper):
+    # every stored case of the helper (the JAX helper's answer, outside its
+    # contract too) on the card, one launch each, equal to the plain version
+    cases = [c for c in kl_cases if c[1] == helper]
+    assert cases
+    before = kl.launches[helper]
+    for case, _, arrays, params, outs in cases:
+        got = kl.call(helper, {k: torch.from_numpy(v).to(card) for k, v in arrays.items()}, params)
+        torch.cuda.synchronize()
+        want = kl.call(helper, {k: torch.from_numpy(v) for k, v in arrays.items()}, params,
+                       device="cpu")
+        assert len(got) == len(outs) == len(want), case
+        for g, o, w in zip(got, outs, want):
+            assert g.is_cuda and np.array_equal(g.cpu().numpy(), o), case
+            assert torch.equal(g.cpu(), w), case
+    assert kl.launches[helper] == before + len(cases)
+
+
+def test_kernel_lib_kernels_on_wide_tiles(card):
+    # tiles larger than the JAX tests', random over all of int32, against the
+    # plain versions; a tile past a block's shared memory raises
+    rng = np.random.default_rng(11)
+
+    def ints(lo, hi, shape):
+        return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)
+
+    x = ints(-(2**31), 2**31, (96, 128))
+    runs = [
+        ("stream_shift_down", (x, 5000), {"fill": 3}), ("stream_shift_up", (x, 129), {}),
+        ("stream_shift_up_mm", (x, 77), {"bits": 24}), ("lane_shift_up", (x, 300), {"bits": 8}),
+        ("row_shift_down", (x, 40), {"fill": -1}), ("scan2d", (x,), {"op": "add"}),
+        ("scan2d_mm", (x,), {"op": "addsat", "bits": 20}), ("scan2d_tril", (x,), {"bits": 24}),
+        ("fill_max_rows", (x, 18, 3), {}), ("flip2d", (x,), {"bits": 31}),
+        ("gather_flat", (x, ints(-10, 96 * 128 + 10, (3, 1000)), 16), {}),
+        ("lane_gather", (x, ints(-300, 300, (96, 40))), {}),
+        ("local_gather_rows", (x, ints(-5, 133, (96, 200))), {}),
+        ("scatter_sum_tile", (ints(-9, 3000, (1, 4000)), x.reshape(-1)[:4000][None],
+                              ints(0, 2, (1, 4000)), 20, 31), {}),
+    ]
+    for helper, args, kw in runs:
+        fn = kl.HELPERS[helper].wrapper
+        got = fn(*(torch.from_numpy(a).to(card) if isinstance(a, np.ndarray) else a
+                   for a in args), **kw)
+        want = fn(*args, **kw, device="cpu")
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w), helper
+    idx = ints(-50, 64 * 128 + 50, (64, 128))
+    tabs = [(ints(-(2**31), 2**31, (64, 128)), b) for b in (8, 16, 24, 32, 5, 12, 31, 1)]
+    got = kl.gather_rows_multi([(torch.from_numpy(t).to(card), b) for t, b in tabs],
+                               torch.from_numpy(idx).to(card), 7, nrows=50)
+    want = kl.gather_rows_multi(tabs, idx, 7, nrows=50, device="cpu")
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    pos, vals = ints(-100, 40 * 128 + 100, (64, 128)), ints(-(2**31), 2**31, (64, 128))
+    v = torch.from_numpy(vals).to(card)
+    got = kl.scatter_rows_multi(torch.from_numpy(pos).to(card), [(v, 31), (v, 9)], 3, 40,
+                                nrows=60)
+    want = kl.scatter_rows_multi(pos, [(vals, 31), (vals, 9)], 3, 40, nrows=60, device="cpu")
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="shared memory"):
+        kl.scan2d_mm(torch.zeros((300, 128), dtype=torch.int32, device=card))
+
+
+def test_kernel_lib_never_takes_the_plain_version(card, monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("plain version called on the card")
+
+    for fn in ("_shift_plain", "_scan_plain", "_gather_plain", "_scatter_plain"):
+        monkeypatch.setattr(kl, fn, refuse)
+    x = torch.arange(8 * 128, dtype=torch.int32, device=card).reshape(8, 128)
+    before = sum(kl.launches.values())
+    assert kl.stream_shift_down(x, 3).is_cuda and kl.scan2d_mm(x, op="add").is_cuda
+    assert kl.gather_flat(x, x[:1], 16).is_cuda and kl.flip2d(x).is_cuda
+    assert kl.scatter_sum_tile(x[:1], x[:1], x[:1], 8, 16).is_cuda
+    assert sum(kl.launches.values()) == before + 5
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kl.scan2d(x, device="cpu")

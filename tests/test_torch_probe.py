@@ -8,16 +8,19 @@
   ``WALK_NS``, ``smem_cap``, and every probe of ``tools/mosaic_probe3.py``,
   ``mosaic_probe3b.py`` and ``mosaic_probe3c.py`` at K in ``PROBE3_KS``
   (with their walk tables), also on the constructed inputs of
-  ``PROBE3_CASES``; 0 differing elements;
+  ``PROBE3_CASES``, and every probe of ``tools/mosaic_probe4.py`` and
+  ``mosaic_probe6.py`` with a TPU kernel at K in ``PROBE4_KS``, also on the
+  constructed inputs of ``PROBE4_CASES``; 0 differing elements;
 * the inputs and walk tables rebuilt from the seed equal the stored ones
   (drift check);
 * the answers that hinge on XLA's float convert (saturation, NaN to 0), on
   unwritten scratch, on ``inrow_round``'s flip and on ``scan_tril``'s row
-  totals mod 2^24;
+  totals mod 2^24; the resolve-phase gathers' floor modulus past the int32
+  wrap of their sum; ``mosaic_probe6.taa_4096x128`` raising JAX's error;
 * the bound's bytes: what each probe reads, not its whole input;
 * the ``PROBES`` table: every entry names an existing JAX site (a factory's
-  ``def`` for a factory-made probe) and an entry of ``csrc/probe.cu`` or
-  ``csrc/probe3.cu``;
+  ``def`` for a factory-made probe) and an entry of ``csrc/probe.cu``,
+  ``csrc/probe3.cu`` or ``csrc/probe4.cu``;
 * the CLI with ``--device cpu``, and ``device=None`` raising without a card.
 
 The kernels themselves are held against these plain versions on the card
@@ -53,11 +56,13 @@ CASES += [(name, n) for name, p in pb.PROBES.items() if p.entry == "walk" for n 
 CASES3 = [(name, "", k) for name, p in pb.PROBES.items() if p.lib == "probe3"
           for k in MAKER.PROBE3_KS]
 CASES3 += [(name, case, k) for name, case in MAKER.PROBE3_CASES.items() for k in MAKER.PROBE3_KS]
+CASES4 = [(name, case, k) for name in pb.TIMED if pb.PROBES[name].lib == "probe4"
+          for case in ("",) + MAKER.PROBE4_CASES.get(name, ()) for k in MAKER.PROBE4_KS]
 
 
 def _plain3(name, k, data=None):
-    table = pb.walk_table(name)
-    return pb.probe(name, k, pb.inputs(name) if data is None else data, table, device="cpu")
+    second = pb.second_input(name)
+    return pb.probe(name, k, pb.inputs(name) if data is None else data, second, device="cpu")
 
 
 @pytest.mark.parametrize("name, k", CASES, ids=[f"{n.split('.')[1]}-k{k}" for n, k in CASES])
@@ -80,11 +85,27 @@ def test_plain_equals_the_jax_probe3(name, case, k):
     assert int((got.numpy() != want).sum()) == 0
 
 
+@pytest.mark.parametrize("name, case, k", CASES4,
+                         ids=[f"{n.split('.')[0][12:]}.{n.split('.')[1]}-{c or 'seed0'}-k{k}"
+                              for n, c, k in CASES4])
+def test_plain_equals_the_jax_probe4(name, case, k):
+    # mosaic_probe4.py and mosaic_probe6.py: the JAX main()s' inputs (and
+    # mosaic_probe6's index), or a constructed input
+    got = _plain3(name, k, FIXTURE["case_" + case] if case else None)
+    want = FIXTURE[f"{name}__{case + '_' if case else ''}k{k}"]
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape == pb.OUT_SHAPE
+    assert int((got.numpy() != want).sum()) == 0
+
+
 def test_every_probe_has_fixture_cases():
     names = {key.split("__")[0] for key in FIXTURE if "__k" in key}
-    assert names == {n for n, p in pb.PROBES.items() if p.entry != "smem_cap"}
+    assert names == set(pb.TIMED)
     assert len(CASES) == 19 * len(MAKER.PROBE_KS) + 5 * len(MAKER.WALK_NS)
     assert len(CASES3) == (39 + 5) * len(MAKER.PROBE3_KS)
+    # 20 probes with a kernel on their own inputs, and 16 + 2 + 4 constructed runs
+    assert len(CASES4) == (20 + 22) * len(MAKER.PROBE4_KS)
+    assert {key for key in FIXTURE if key.startswith(("mosaic_probe4", "mosaic_probe6"))} == {
+        f"{n}__{c + '_' if c else ''}k{k}" for n, c, k in CASES4}
     assert any((k // 2) % 2 for k in MAKER.PROBE3_KS)       # inrow_round's flip shows
     assert {key for key in FIXTURE if key.startswith("mosaic_probe3")} == {
         f"{n}__{c + '_' if c else ''}k{k}" for n, c, k in CASES3}
@@ -101,15 +122,30 @@ def test_inputs_match_the_stored_inputs():
         assert np.array_equal(pb.inputs(name), FIXTURE[f"walk_r{pb.PROBES[name].rows}"])
     # the probe module's own inputs and tables, one probe of each kind
     for name, data, table in (("walk_1d", "data", "p3_t16384"), ("big_smem", "data", "p3_t36864"),
-                              ("walk_u8", "data", "p3b_t36864"), ("inrow_round", "p3c_data", None)):
+                              ("walk_u8", "data", "p3b_t36864"), ("inrow_round", "p3c_data", None),
+                              ("conv_check", "p4_data", None), ("el_i16", "p6_tab", "p6_idx")):
         assert np.array_equal(pb.inputs(name), FIXTURE[data]), name
-        t = pb.walk_table(name)
+        t = pb.second_input(name)
         assert (t is None) if table is None else np.array_equal(t, FIXTURE[table]), name
     # the constructed inputs show the mechanism the seed-0 data hides
     par = FIXTURE["case_inrow"][:256] & 32767
     assert ((par >> 7) == np.arange(256)[:, None]).mean() > 0.8
     pos = FIXTURE["case_collide"][:16].reshape(-1)
     assert (pos < 1024).all() and len(np.unique(pos)) < len(pos) // 3
+    # mosaic_probe4's own data is j % 251 at every flat j: every gather
+    # answers alike whatever its rows and limbs, and pointer jumping is at a
+    # fixed point; the constructed inputs part them
+    same = {int(FIXTURE[f"mosaic_probe4.gather_r{r}_l{l}__k37"][0, 0])
+            for r in (32, 64, 128, 160, 288, 400) for l in (1, 2)}
+    parted = {int(FIXTURE[f"mosaic_probe4.gather_r{r}_l{l}__p4rand_k300"][0, 0])
+              for r in (32, 64, 128, 160, 288, 400) for l in (1, 2)}
+    assert same == {4190} and len(parted) == 12
+    assert (FIXTURE["mosaic_probe4.conv_check__k300"] == 0).all()
+    assert [int(FIXTURE[f"mosaic_probe4.conv_check__p4path_k{k}"][0, 0]) for k in (1, 3)] == [
+        16, 16 + 256 + 4095]
+    # mosaic_probe6 keeps the low 8 bits of a table value
+    wide = FIXTURE["case_p6wide"]
+    assert wide.min() < 0 and wide.max() > 255
 
 
 def test_float_convert_saturates_and_maps_nan_to_zero():
@@ -171,7 +207,15 @@ def test_bound_counts_what_each_probe_reads():
     # they use and no table (the bound's bytes: reads, K and the output)
     for name, p in pb.PROBES.items():
         short = name.split(".")[1]
-        if p.lib != "probe3":
+        if p.lib == "probe4":
+            # a gather its table and 32 x 128 indices; dynslice_32 the rows
+            # its windows cover; the others 32 rows; taa_4096x128 nothing
+            rows = re.search(r"_r(\d+)_", short)
+            want = {"base": 424, "base_i16": 424, "el_orient": 424, "el_i16": 424,
+                    "dynslice_32": 200 - 32, "taa_4096x128": -32}.get(
+                short, int(rows.group(1)) if rows else 0)
+            assert p.reads == (want + 32) * 128, name
+        elif p.lib != "probe3":
             assert p.reads <= max(p.rows, 1) * 128, name
         elif short.startswith(("walk", "scal_only", "big_smem")):
             assert p.reads == p.table > 0, name
@@ -207,11 +251,13 @@ def test_unwritten_scratch_reads_as_the_interpreters_fill():
 
 def test_table_names_existing_jax_sites_and_cuda_entries():
     cu = {lib: (ROOT / "csnappy_tpu_torch" / "csrc" / f"{lib}.cu").read_text()
-          for lib in ("probe", "probe3")}
+          for lib in ("probe", "probe3", "probe4")}
     assert set(pb.SITES) == {p.call for p in pb.PROBES.values()}
-    assert len(pb.SITES) == 7
+    assert len(pb.SITES) == 9
     assert {p.lib for p in pb.PROBES.values()} == set(cu)
     factory = re.compile(r"def (_mk_gather|_mk_scatter|_mk_taa|_mk_gv2)\(")
+    kern4 = {"lane_gather_32x128": "lane_gather_kern", "conv_unrolled": "while_conv_kern",
+             "conv_check": "while_conv_kern", "dynslice_32": "dynslice_kern"}
     for name, p in pb.PROBES.items():
         module, short = name.split(".")
         for site in (p.site, p.call):
@@ -220,6 +266,13 @@ def test_table_names_existing_jax_sites_and_cuda_entries():
             text = (ROOT / path).read_text().splitlines()[int(line) - 1]
             if site == p.call:
                 assert "pl.pallas_call(" in text, (name, text)
+            elif module == "mosaic_probe4":
+                assert text.startswith(f"def {kern4.get(short, 'gather_kern')}("), (name, text)
+            elif module == "mosaic_probe6":
+                # its factory's def, and the JAX PROBES entry calls that factory
+                fac = re.match(r"def (mk_\w+)\(", text).group(1)
+                src = (ROOT / path).read_text()
+                assert re.search(rf'"{short}": \({fac}\(', src), name
             elif p.entry == "walk":
                 assert text.startswith("def walk_kern("), (name, text)
             elif re.match(rf"def (k_)?{short}\(", text) is None:
@@ -231,11 +284,29 @@ def test_table_names_existing_jax_sites_and_cuda_entries():
         if p.lib == "probe":
             assert f"int probe_{p.entry}_launch(" in cu["probe"] or \
                 f"PROBE_ENTRY({p.entry}," in cu["probe"], name
+        elif p.lib == "probe4":
+            rows = re.match(r"gather_r(\d+)_l(\d)$", short)
+            if p.fails:
+                assert p.entry == "" and p.plain is None, name
+                assert f"ENTRY({short}" not in cu["probe4"], name
+            elif rows:
+                r, limbs = rows.groups()
+                assert p.entry == short and re.search(
+                    rf"^GATHER_ENTRY\({r}, {limbs}, uint{8 * int(limbs)}_t\)", cu["probe4"], re.M), name
+                assert p.plain.args == (int(rows.group(1)), int(rows.group(2))), name
+            else:
+                # mosaic_probe6's four gathers compute one function: one entry
+                entry = "flat_gather" if module == "mosaic_probe6" else short
+                assert p.entry == entry and re.search(rf"^PROBE4_ENTRY\({entry},", cu["probe4"],
+                                                      re.M), name
+            assert (p.rows, p.index) == ((400, 0) if module == "mosaic_probe4" else (424, 32)), name
         else:
             assert p.entry == short and re.search(
                 rf"^(PROBE3|WALK|GATHER)_ENTRY\({short},", cu["probe3"], re.M), name
             assert p.table in (0, pb.N1D, pb.NBIG) and p.rows == pb.ROWS, name
-        assert p.k_lo <= p.k_hi and p.space in ("shared", "global", "registers")
+        assert p.k_lo <= p.k_hi and p.space in ("shared", "global", "registers", "")
+        timed = name in pb.TIMED + ("mosaic_probe5.smem_cap",)
+        assert (p.space == "") == bool(p.fails) == (not timed), name
         if p.entry == "walk":
             assert p.space == ("global" if p.rows * 512 > 232448 else "shared"), name
     # the k ranges and walk tables of the JAX tables; a factory-made
@@ -259,6 +330,62 @@ def test_table_names_existing_jax_sites_and_cuda_entries():
             t = re.search(rf'"{short}": \(_mk_taa\((\d+), (\d+), (\d)\)', src)
             if t:
                 assert p.plain.args == tuple(map(int, t.groups())), name
+    # mosaic_probe6.py's PROBES: the same names and k ranges; mosaic_probe4.py's
+    # main() labels, one probe each
+    jax6 = MAKER.probe_module("mosaic_probe6").PROBES
+    assert {n.split(".")[1] for n in pb.PROBES if n.startswith("mosaic_probe6.")} == set(jax6)
+    for short, (_, kr) in jax6.items():
+        p = pb.PROBES[f"mosaic_probe6.{short}"]
+        assert (p.k_lo, p.k_hi) == kr, short
+    assert [n.split(".")[1] for n in pb.PROBES if n.startswith("mosaic_probe4.")] == list(
+        MAKER.PROBE4_NAMES)
+    main4 = (ROOT / "tools" / "mosaic_probe4.py").read_text()
+    # five _time calls: the lane gather, the gathers by R and limbs, two conv, dynslice
+    assert len(re.findall(r"^\s+_time\(", main4, re.M)) == 5
+    assert "for R in (32, 64, 128, 160, 288, 400):" in main4 and "for limbs in (1, 2):" in main4
+
+
+def test_taa_4096x128_fails_to_trace_as_in_jax():
+    # the JAX probe raises at trace time (mosaic_probe6.py:138); the port
+    # raises the same ValueError before any launch, on either device
+    msg = str(FIXTURE["p6_taa_error"])
+    assert msg == pb.TAA6_ERROR
+    data, idx = pb.inputs("mosaic_probe6.base"), pb.second_input("mosaic_probe6.base")
+    with pytest.raises(ValueError, match=re.escape(msg)):
+        pb.probe("taa_4096x128", 3, data, idx, device="cpu")
+    with pytest.raises(ValueError, match=re.escape(msg)):
+        pb.measure("mosaic_probe6.taa_4096x128", device="cpu")
+    assert "mosaic_probe6.taa_4096x128" not in pb.TIMED
+
+
+def test_resolve_gathers_take_the_floor_modulus_past_the_wrap():
+    # on case_p4rand the 16-bit gathers' acc passes 2^31 before WRAP_K; from
+    # there (g + acc + i) is negative and jnp's % (the divisor's sign) keeps
+    # the index in the table, where C's truncating % would give a negative
+    # index, clipped to 0
+    d = torch.from_numpy(FIXTURE["case_p4rand"])
+    first = {}
+    for rows in (32, 64, 128, 160, 288, 400):
+        m = rows * 128
+        t = (d[:rows].reshape(-1) & 0xFFFF).tolist()
+        ix, acc = int(d[0, 0]) % m, 0
+        for i in range(pb.WRAP_K):
+            g = t[ix]
+            ix, acc = pb._i32(g + acc + i) % m, pb._i32(acc + g)
+            if acc < 0 and rows not in first:
+                first[rows] = i                  # the iteration whose sum wraps
+        got = int(pb.probe(f"gather_r{rows}_l2", pb.WRAP_K, d, device="cpu")[0, 0])
+        assert got == acc < 0, rows
+    assert (min(first.values()), max(first.values())) == (56_213, 77_894)
+    # the bound's reads of dynslice_32: the rows its 32-row windows cover on
+    # the tool's data by k_hi (12 of the 40 bases)
+    acc, rows = 0, set()
+    col = pb.inputs("dynslice_32")[:, 0].tolist()
+    for i in range(pb.PROBES["mosaic_probe4.dynslice_32"].k_hi):
+        base = (pb._i32(acc + i) % 40) * 8
+        rows |= set(range(base, base + 32))
+        acc = (acc + col[base]) % 251
+    assert pb.PROBES["mosaic_probe4.dynslice_32"].reads == len(rows) * 128 == 200 * 128
 
 
 def test_resolve_and_input_checks():
@@ -273,9 +400,9 @@ def test_resolve_and_input_checks():
     with pytest.raises(ValueError, match="needs its walk table"):
         pb.probe("walk_1d", 3, pb.inputs("walk_1d"), device="cpu")
     with pytest.raises(ValueError, match="walk table must be"):
-        pb.probe("walk_1d", 3, pb.inputs("walk_1d"), pb.walk_table("big_smem"), device="cpu")
+        pb.probe("walk_1d", 3, pb.inputs("walk_1d"), pb.second_input("big_smem"), device="cpu")
     with pytest.raises(ValueError, match="takes no walk table"):
-        pb.probe("inrow_round", 3, pb.inputs("inrow_round"), pb.walk_table("walk_1d"),
+        pb.probe("inrow_round", 3, pb.inputs("inrow_round"), pb.second_input("walk_1d"),
                  device="cpu")
 
 

@@ -88,6 +88,25 @@ def test_build_targets_carry_the_source_hash():
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
 
 
+def test_build_target_follows_local_headers(tmp_path, monkeypatch):
+    # a source's library name carries the hash of every local header it
+    # includes, through headers, so an edited header is never served stale
+    (tmp_path / "sub").mkdir()
+    src, top, inner = tmp_path / "k.cu", tmp_path / "top.cuh", tmp_path / "sub" / "inner.cuh"
+    src.write_text('#include <cstdint>\n#include "top.cuh"\n')
+    top.write_text('#pragma once\n#include "sub/inner.cuh"\n')
+    inner.write_text("// v1\n")
+    monkeypatch.setitem(_build.SOURCES, "k", src)
+    assert _build.local_headers(src) == [top.resolve(), inner.resolve()]
+    first = _build.target("k")
+    inner.write_text("// v2\n")
+    second = _build.target("k")
+    top.write_text('#pragma once\n#include "sub/inner.cuh"\n// edited\n')
+    assert len({first, second, _build.target("k")}) == 3
+    assert [h.name for h in _build.local_headers(_build.SOURCES["probe4"])] == ["kernel_lib.cuh"]
+    assert _build.local_headers(_build.SOURCES["decode_blocks"]) == []
+
+
 def test_build_dir_is_ignored_by_git():
     out = subprocess.run(
         ["git", "check-ignore", "-q", str(_build.target("csnappy_host"))],
@@ -152,7 +171,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import csnappy_tpu_torch, csnappy_tpu_torch.api, csnappy_tpu_torch.interop\n"
         "from csnappy_tpu_torch.ops import decode_fused, decode_jnp, decode_stream, decode_ws,"
-        " encode_fused, primitives\n"
+        " encode_fused, kernel_lib, primitives\n"
         "from csnappy_tpu_torch.runtime import container, native\n"
         "from csnappy_tpu_torch import cli\n"
         "from csnappy_tpu_torch.tools import benchtable, corpus, movebench, probe, timing,"

@@ -209,3 +209,104 @@ def test_probes_live():
             want = fn(jnp.full((1,), k, jnp.int32), jnp.asarray(d), *map(jnp.asarray, tbl))
             got = probe.probe(f"{mod_name}.{name}", k, d, *tbl, device="cpu")
             assert np.array_equal(got.numpy(), np.asarray(want)), (name, k)
+
+
+def _maker():
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_fixtures", root / "tools" / "make_torch_fixtures.py")
+    maker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(maker)
+    return maker
+
+
+def test_resolve_probes_live():
+    # every probe of tools/mosaic_probe4.py and mosaic_probe6.py in interpret
+    # mode at a seeded random K below 120 (the R = 400 gather takes ~10 ms an
+    # iteration to interpret), on a fresh seeded input in [0, 2^16) (and a
+    # fresh index), against the port's plain versions; taa_4096x128 raising
+    # in JAX as in the port
+    import jax.numpy as jnp
+
+    from csnappy_tpu_torch.tools import probe
+
+    maker = _maker()
+    rng = np.random.default_rng(int.from_bytes(b"probe4", "little"))
+    d4 = rng.integers(0, 2**16, (probe.R4, 128), dtype=np.int32)
+    d6 = rng.integers(-(2**31), 2**31, (probe.R6, 128), dtype=np.int64).astype(np.int32)
+    idx = rng.integers(0, probe.R6 * 128, (probe.RG6, 128), dtype=np.int32)
+    for name in maker.PROBE4_NAMES:
+        k = int(rng.integers(0, 120))
+        want = maker.probe4_call("mosaic_probe4", name)(jnp.full((4,), k, jnp.int32),
+                                                         jnp.asarray(d4))
+        got = probe.probe(f"mosaic_probe4.{name}", k, d4, device="cpu")
+        assert np.array_equal(got.numpy(), np.asarray(want)), (name, k)
+    for name in ("base", "base_i16", "el_orient", "el_i16"):
+        k = int(rng.integers(0, 120))
+        want = maker.probe4_call("mosaic_probe6", name)(jnp.full((1,), k, jnp.int32),
+                                                         jnp.asarray(d6), jnp.asarray(idx))
+        got = probe.probe(f"mosaic_probe6.{name}", k, d6, idx, device="cpu")
+        assert np.array_equal(got.numpy(), np.asarray(want)), (name, k)
+    with pytest.raises(ValueError, match="Incompatible shapes for broadcasting"):
+        maker.probe4_call("mosaic_probe6", "taa_4096x128")(
+            jnp.full((1,), 1, jnp.int32), jnp.asarray(d6), jnp.asarray(idx))
+    with pytest.raises(ValueError, match="Incompatible shapes for broadcasting"):
+        probe.probe("mosaic_probe6.taa_4096x128", 1, d6, idx, device="cpu")
+
+
+def test_kernel_lib_live():
+    # every helper of csnappy_tpu/ops/kernel_lib.py inside a pl.pallas_call in
+    # interpret mode, on fresh seeded tiles over all of int32 (indices and
+    # positions partly out of range), against the port's plain versions
+    import torch
+
+    from csnappy_tpu_torch.ops import kernel_lib
+
+    maker = _maker()
+    rng = np.random.default_rng(int.from_bytes(b"kernel_lib", "little"))
+
+    def ints(lo, hi, shape):
+        return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)
+
+    full = (-(2**31), 2**31)
+    rows = int(rng.integers(1, 5)) * 8
+    x, n = ints(*full, (rows, 128)), rows * 128
+    cases = [
+        ("stream_shift_down", {"x": x}, {"d": int(rng.integers(0, n)), "fill": -5}),
+        ("stream_shift_up", {"x": x}, {"d": int(rng.integers(1, n)), "fill": 9}),
+        ("stream_shift_up_mm", {"x": x}, {"d": int(rng.integers(1, 128)), "bits": 16}),
+        ("stream_shift_down_mm", {"x": x}, {"d": int(rng.integers(1, 128)), "bits": 24}),
+        ("lane_shift_down", {"x": x}, {"k": int(rng.integers(0, 300)), "bits": 8}),
+        ("lane_shift_up", {"x": x}, {"k": int(rng.integers(0, 300)), "bits": 31}),
+        ("row_shift_down", {"x": x}, {"k": int(rng.integers(0, rows + 3)), "fill": 1}),
+        ("row_shift_up", {"x": x}, {"k": int(rng.integers(0, rows + 3)), "fill": 2}),
+        ("scan2d", {"x": x}, {"op": "add"}),
+        ("scan2d", {"x": x}, {"op": "max"}),
+        ("scan2d_mm", {"x": ints(0, 1 << 20, (rows, 128))}, {"op": "add", "bits": 24}),
+        ("scan2d_mm", {"x": x}, {"op": "addsat", "bits": 31}),
+        ("scan2d_mm", {"x": ints(0, 1 << 22, (rows, 128))}, {"op": "min", "bits": 21}),
+        ("scan2d_tril", {"x": ints(0, 1 << 20, (rows, 128))}, {"bits": 24}),
+        ("fill_max_rows", {"x": x}, {"bits": 18, "rounds": int(rng.integers(0, 6))}),
+        ("flip2d", {"x": x}, {"bits": 16}),
+        ("gather_flat", {"table": x, "idx": ints(-100, n + 100, (1, 384))}, {"bits": 24}),
+        ("local_gather_rows", {"vals": x, "li": ints(-130, 260, (rows, 128))}, {}),
+        ("lane_gather", {"x": x, "lane_idx": ints(-260, 260, (rows, 128))}, {}),
+        ("gather_rows_multi", {"t0": x, "t1": ints(*full, (rows, 128)),
+                               "idx": ints(-100, n + 100, (rows, 128))},
+         {"bits": [8, 32], "r0": 0, "nrows": rows}),
+        ("scatter_rows_multi", {"pos": ints(-5, 16 * 128 + 5, (rows, 128)), "v0": x},
+         {"bits": [19], "r0": 0, "out_rows": 16, "nrows": rows}),
+        ("scatter_sum_tile", {"pos_row": ints(-5, 2100, (1, 128)), "val_row": x[:1],
+                              "mask_row": ints(0, 2, (1, 128))}, {"out_rows": 16, "bits": 24}),
+    ]
+    cases = [(f"live{i}", h, a, p) for i, (h, a, p) in enumerate(cases)]
+    want = maker.kernel_lib_outputs(cases)
+    for case, helper, arrays, params in cases:
+        got = kernel_lib.call(helper, {k: torch.from_numpy(v) for k, v in arrays.items()}, params,
+                              device="cpu")
+        assert len(got) == len(want[case])
+        for g, w in zip(got, want[case]):
+            assert np.array_equal(g.numpy(), w), (helper, params)

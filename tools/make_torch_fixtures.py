@@ -35,7 +35,16 @@ Writes ``tests/data/torch_ref/``:
   wide-gather probes of ``tools/mosaic_probe3.py``, ``mosaic_probe3b.py`` and
   ``mosaic_probe3c.py`` at K in ``PROBE3_KS`` on their ``main()``s' inputs
   (the walk tables beside ``data``), and on the constructed inputs of
-  ``PROBE3_CASES`` where the seed-0 data hides a mechanism.
+  ``PROBE3_CASES`` where the seed-0 data hides a mechanism; then the
+  resolve-phase probes of ``tools/mosaic_probe4.py`` and the flat gathers of
+  ``mosaic_probe6.py`` at K in ``PROBE4_KS`` on their ``main()``s' inputs
+  and on the constructed inputs of ``PROBE4_CASES``;
+* ``kernel_lib.npz`` — the helpers of ``csnappy_tpu/ops/kernel_lib.py``, each
+  run inside a ``pl.pallas_call`` in interpret mode (the harness ``_run`` of
+  ``tests/test_kernel_lib.py``, or a call of several outputs like its
+  :137), on every parametrised case of ``tests/test_kernel_lib.py`` and on
+  the constructed cases of :func:`build_kernel_lib_cases` (answers outside
+  the helpers' contracts, and the helpers no JAX test runs).
 
 The tests rebuild the inputs from the seed, check them against the stored
 copies (drift check), then hold the port against the stored outputs.
@@ -45,8 +54,9 @@ minutes; it is run by hand when the reference or the input set changes, never
 by the tests.  ``--far`` adds the 70000-byte-window COPY_4 vector
 (``far`` group, offset 66000 > 65535), which costs several minutes more.
 ``--group blocks``, ``streams``, ``container``, ``movebench``,
-``primitives`` or ``probes`` (seconds) writes one file only; the stream and container
-groups run one process per case, ``--procs`` at a time.
+``primitives``, ``probes`` or ``kernel_lib`` (seconds) writes one file
+only; the stream and container groups run one process per case, ``--procs``
+at a time.
 """
 from __future__ import annotations
 
@@ -274,7 +284,7 @@ def main() -> int:
     ap.add_argument("--far", action="store_true", help="add the far COPY_4 group")
     ap.add_argument("--group", default="all",
                     choices=("all", "blocks", "streams", "container", "movebench", "primitives",
-                             "probes"))
+                             "probes", "kernel_lib"))
     ap.add_argument("--procs", type=int, default=4, help="processes for the stream group")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -295,6 +305,8 @@ def main() -> int:
         write_primitives()
     if args.group in ("all", "probes"):
         write_probes()
+    if args.group in ("all", "kernel_lib"):
+        write_kernel_lib()
     print(f"wrote {OUT}", flush=True)
     return 0
 
@@ -716,6 +728,8 @@ SMEM_ROWS = (256, 512)
 PROBE3_KS = (0, 1, 3, 37, 300, 2100)  # floor(3 / 2) is odd: inrow_round's flip shows
 PROBE3_FILES = ("mosaic_probe3", "mosaic_probe3b", "mosaic_probe3c")
 # constructed inputs (``case_<case>``) for probes whose seed-0 data hides the mechanism
+PROBE4_KS = (0, 1, 3, 37, 300)
+PROBE4_FILES = ("mosaic_probe4", "mosaic_probe6")
 PROBE3_CASES = {"mosaic_probe3c.inrow_round": "inrow",
                 "mosaic_probe3b.scatter_oc256_e2048_l2": "collide",
                 "mosaic_probe3b.scatter_oc256_e2048_l4": "collide",
@@ -743,6 +757,7 @@ def build_probe_inputs() -> dict[str, np.ndarray]:
         out[f"walk_r{rows}"] = np.random.default_rng(0).integers(
             2, 9, size=(rows, 128)).astype(np.int32)
     out.update(build_probe3_inputs())
+    out.update(build_probe4_inputs())
     return out
 
 
@@ -837,6 +852,7 @@ def probe_outputs(inputs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
             got = fn(jnp.full((4,), n, jnp.int32), d)
             out[f"mosaic_probe5.walk_c{nchains}_r{rows}__k{n}"] = np.asarray(got)
     out.update(probe3_outputs(inputs))
+    out.update(probe4_outputs(inputs))
     return out
 
 
@@ -863,6 +879,95 @@ def probe3_outputs(inputs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     return out
 
 
+def build_probe4_inputs() -> dict[str, np.ndarray]:
+    """The inputs of mosaic_probe4.py and mosaic_probe6.py: ``p4_data``, the
+    (400, 128) ``arange % 251`` of mosaic_probe4.py:55 (unperturbed), and
+    ``p6_tab`` (424, 128) in [0, 256) then ``p6_idx`` (32, 128) in
+    [0, 54272) from one seed-0 generator (mosaic_probe6.py:195-197).  Then
+    the constructed inputs: ``case_p4rand``, (400, 128) in [0, 2^16) from
+    seed 0, on which table height and limbs change the gathers' answers
+    (the tool's own data is ``j % 251`` at every flat j, so every gather
+    answers alike, and a fixed point of pointer jumping); ``case_p4path``,
+    whose rows 0-31 hold ``x[j] = min(j + 1, 4095)``, so pointer jumping
+    doubles x[0] each round and converges after 12 rounds; ``case_p6wide``, a
+    table in [-2^31, 2^31), which shows mosaic_probe6's ``& 0xFF``."""
+    out = {"p4_data": np.arange(400 * 128, dtype=np.int32).reshape(400, 128) % 251}
+    rng = np.random.default_rng(0)
+    out["p6_tab"] = rng.integers(0, 256, (424, 128), dtype=np.int32)
+    out["p6_idx"] = rng.integers(0, 424 * 128, (32, 128), dtype=np.int32)
+    out["case_p4rand"] = np.random.default_rng(0).integers(0, 2**16, (400, 128), dtype=np.int32)
+    path = out["p4_data"].copy()
+    path[:32] = np.minimum(np.arange(1, 32 * 128 + 1), 4095).reshape(32, 128)
+    out["case_p4path"] = path
+    out["case_p6wide"] = np.random.default_rng(SEED + 6).integers(
+        -(2**31), 2**31, (424, 128), dtype=np.int64).astype(np.int32)
+    return out
+
+
+PROBE4_NAMES = (("lane_gather_32x128",)
+                + tuple(f"gather_r{r}_l{l}" for r in (32, 64, 128, 160, 288, 400) for l in (1, 2))
+                + ("conv_unrolled", "conv_check", "dynslice_32"))   # mosaic_probe4.main() :128-139
+# the constructed inputs each probe of mosaic_probe4.py and mosaic_probe6.py runs on
+PROBE4_CASES = {**{f"mosaic_probe4.{n}": ("p4rand",) for n in PROBE4_NAMES},
+                "mosaic_probe4.conv_unrolled": ("p4rand", "p4path"),
+                "mosaic_probe4.conv_check": ("p4rand", "p4path"),
+                **{f"mosaic_probe6.{n}": ("p6wide",) for n in ("base", "base_i16", "el_orient",
+                                                              "el_i16")}}
+
+
+def probe4_call(mod_name: str, name: str):
+    """The jitted ``pl.pallas_call`` of one probe of mosaic_probe4.py (its
+    kernel for the label of ``main()``) or mosaic_probe6.py (its ``PROBES``)."""
+    import jax
+
+    mod = probe_module(mod_name)
+    if mod_name == "mosaic_probe6":
+        return jax.jit(mod._call(mod.PROBES[name][0]))
+    if name == "lane_gather_32x128":
+        kern = mod.lane_gather_kern
+    elif name.startswith("gather_r"):
+        rows, limbs = name[len("gather_r"):].split("_l")
+        kern = functools.partial(mod.gather_kern, int(rows), int(limbs))
+    elif name.startswith("conv_"):
+        kern = functools.partial(mod.while_conv_kern, name == "conv_check")
+    else:
+        kern = mod.dynslice_kern
+    return jax.jit(mod._call(kern))
+
+
+def probe4_outputs(inputs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Each probe of mosaic_probe4.py and mosaic_probe6.py at K in
+    ``PROBE4_KS``, keyed ``<module>.<probe>__k<K>`` on the tool's input and
+    ``<module>.<probe>__<case>_k<K>`` on a constructed one; ``taa_4096x128``
+    fails to trace, and ``p6_taa_error`` keeps the first line of its error."""
+    import jax.numpy as jnp
+
+    out = {}
+    for mod_name, names in (("mosaic_probe4", PROBE4_NAMES),
+                            ("mosaic_probe6", ("base", "base_i16", "el_orient", "el_i16"))):
+        for name in names:
+            fn = probe4_call(mod_name, name)
+            full = f"{mod_name}.{name}"
+            first = "p4_data" if mod_name == "mosaic_probe4" else "p6_tab"
+            runs = [("", inputs[first])] + [(c + "_", inputs["case_" + c])
+                                             for c in PROBE4_CASES.get(full, ())]
+            for case, data in runs:
+                args = (jnp.asarray(data),) + ((jnp.asarray(inputs["p6_idx"]),)
+                                               if mod_name == "mosaic_probe6" else ())
+                for k in PROBE4_KS:
+                    kvec = jnp.full((4,) if mod_name == "mosaic_probe4" else (1,), k, jnp.int32)
+                    out[f"{full}__{case}k{k}"] = np.asarray(fn(kvec, *args))
+    try:
+        probe4_call("mosaic_probe6", "taa_4096x128")(
+            jnp.full((1,), 1, jnp.int32), jnp.asarray(inputs["p6_tab"]),
+            jnp.asarray(inputs["p6_idx"]))
+    except ValueError as e:
+        out["p6_taa_error"] = np.array(str(e).split("\n")[0])
+    else:
+        raise AssertionError("mosaic_probe6.taa_4096x128 traced: the port's entry is out of date")
+    return out
+
+
 def read_probes() -> dict[str, np.ndarray]:
     """The stored probes group, every array by its key."""
     with np.load(OUT / "probes.npz") as z:
@@ -878,6 +983,249 @@ def write_probes() -> None:
     a["smem_cap_ok"] = np.array([mp5.smem_cap(r) for r in SMEM_ROWS])
     np.savez_compressed(OUT / "probes.npz", **a)
     print(f"probes: {len(a)} arrays ({time.time() - t0:.0f} s)", flush=True)
+
+
+# --------------------------------------------------------------- kernel_lib
+
+
+def _test_kernel_lib():
+    """``tests/test_kernel_lib.py``, imported from its file: its ``_run`` is
+    the Pallas harness (row 15a) the fixtures go through."""
+    spec = importlib.util.spec_from_file_location("test_kernel_lib",
+                                                  ROOT / "tests" / "test_kernel_lib.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def build_kernel_lib_cases() -> list[tuple[str, str, dict, dict]]:
+    """The cases of the kernel_lib group as (case, helper, arrays, params):
+    the arrays in call order (for ``gather_rows_multi`` the tables, then the
+    index; for ``scatter_rows_multi`` the positions, then the value tiles),
+    the params the helper's static arguments.  First the 35 parametrised
+    cases of tests/test_kernel_lib.py with its own seeds and shapes, then a
+    constructed case for each answer outside a helper's contract and cases
+    of the helpers that no JAX test runs."""
+    cases = []
+    for d in (0, 1, 7, 127, 128, 129, 300, 1023):                     # :25
+        x = np.arange(8 * 128, dtype=np.int32).reshape(8, 128) * 3 + 1
+        cases.append((f"ssd_d{d}", "stream_shift_down", {"x": x}, {"d": d, "fill": -7}))
+    for d in (1, 127, 128, 200, 1023):                                # :39
+        x = np.arange(8 * 128, dtype=np.int32).reshape(8, 128) * 5 + 2
+        cases.append((f"ssu_d{d}", "stream_shift_up", {"x": x}, {"d": d, "fill": -3}))
+    for rows in (8, 16):                                              # :52-53
+        for op in ("max", "add"):
+            x = np.random.default_rng(0).integers(-1000, 1000, (rows, 128)).astype(np.int32)
+            cases.append((f"scan2d_{op}_r{rows}", "scan2d", {"x": x}, {"op": op}))
+    for bits in (8, 16, 24):                                          # :66
+        r = np.random.default_rng(1)
+        tbl = r.integers(0, 1 << bits, (16, 128)).astype(np.int32)
+        idx = r.integers(0, 16 * 128, (1, 256)).astype(np.int32)
+        cases.append((f"gflat_b{bits}", "gather_flat", {"table": tbl, "idx": idx}, {"bits": bits}))
+    r = np.random.default_rng(2)                                      # :79
+    v = r.integers(-(2**31), 2**31 - 1, (16, 128)).astype(np.int32)
+    li = r.integers(0, 128, (16, 128)).astype(np.int32)
+    cases.append(("lgr", "local_gather_rows", {"vals": v, "li": li}, {}))
+    for d in (1, 2, 4, 5):                                            # :91
+        x = np.arange(16 * 128, dtype=np.int32).reshape(16, 128) * 7 + 3
+        cases.append((f"ssumm_d{d}", "stream_shift_up_mm", {"x": x}, {"d": d}))
+    for rows in (8, 24):                                              # :104-105
+        for op, bits in (("max", 31), ("add", 24)):
+            hi = (1 << 30) if op == "max" else 1000
+            x = np.random.default_rng(4).integers(0, hi, (rows, 128)).astype(np.int32)
+            cases.append((f"scanmm_{op}_b{bits}_r{rows}", "scan2d_mm", {"x": x},
+                          {"op": op, "bits": bits}))
+    for bits in (8, 19):                                              # :119
+        r = np.random.default_rng(5)
+        tbl = r.integers(0, 1 << bits, (24, 128)).astype(np.int32)
+        tbl2 = r.integers(0, 1 << 16, (24, 128)).astype(np.int32)
+        idx = r.integers(0, 24 * 128, (8, 128)).astype(np.int32)
+        cases.append((f"grm_b{bits}", "gather_rows_multi", {"t0": tbl, "t1": tbl2, "idx": idx},
+                      {"bits": [bits, 16], "r0": 0, "nrows": 8}))
+    for bits in (16, 31):                                             # :148
+        r = np.random.default_rng(6)
+        pos = r.permutation(16 * 128)[: 8 * 128].astype(np.int32).reshape(8, 128)
+        val = r.integers(0, 1 << bits, (8, 128)).astype(np.int32)
+        mask = r.random((8, 128)) < 0.7
+        pos_m = np.where(mask, pos, -1).astype(np.int32)
+        cases.append((f"srm_b{bits}", "scatter_rows_multi", {"pos": pos_m, "v0": val},
+                      {"bits": [bits], "r0": 0, "out_rows": 16, "nrows": 8}))
+    for bits in (16, 31):                                             # :168
+        r = np.random.default_rng(3)
+        pos = r.permutation(16 * 128)[:128].astype(np.int32).reshape(1, 128)
+        val = r.integers(0, 1 << bits, (1, 128)).astype(np.int32)
+        mask = (r.random((1, 128)) < 0.8).astype(np.int32)
+        cases.append((f"sst_b{bits}", "scatter_sum_tile",
+                      {"pos_row": pos, "val_row": val, "mask_row": mask},
+                      {"out_rows": 16, "bits": bits}))
+    return cases + _kernel_lib_constructed()
+
+
+def _kernel_lib_constructed() -> list[tuple[str, str, dict, dict]]:
+    """Answers outside the contracts (the table of the port's decision in
+    csnappy_tpu_torch/ops/kernel_lib.py), and the helpers no JAX test runs."""
+    rng = np.random.default_rng(SEED + 7)
+
+    def ints(lo, hi, shape):
+        return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)
+
+    full = (-(1 << 31), 1 << 31)
+    seq = np.arange(8 * 128, dtype=np.int32).reshape(8, 128) * 3 + 1
+    # gather_flat: idx 2048 and -1 on a 2,048-entry table give 0; wide values
+    gidx = ints(-3000, 5000, (1, 512))
+    gidx[0, :4] = (2048, -1, 2047, -2049)
+    # gather_rows_multi clips: 2048 -> T[2047], -1 and -129 -> T[0]
+    ridx = ints(-200, 16 * 128 + 200, (16, 128))
+    ridx[3, :3] = (2048, -1, -129)
+    # scatter_rows_multi: 1,024 x 3 at one position sum; 0x1F0001 at bits 16
+    # keeps 21 bits; out-of-range positions scatter nowhere
+    dpos = np.full((8, 128), 77, np.int32)
+    dpos[5, :10] = (-5, 2048, 4000, 1, 2, 3, 4, 5, 6, 7)
+    wide = np.full((8, 128), 0x1F0001, np.int32)
+    wide[6] = ints(*full, (128,))
+    # scatter_sum_tile: 0x80 and 0x180 at one position give 0x100
+    spos = ints(6, 40, (1, 128))              # collisions, but none at 5 beside the two
+    spos[0, :2] = 5
+    sval = ints(0, 1 << 16, (1, 128))
+    sval[0, :2] = (0x80, 0x180)
+    smask = (ints(0, 5, (1, 128)) > 0).astype(np.int32)
+    smask[0, :2] = 1
+    # scan2d_tril: rows 0 and 3 total 2^24 + 2^20 at bits 24 (their totals' bit 24 drops)
+    tril = ints(0, 1 << 17, (8, 128))
+    tril[[0, 3]] = (1 << 24 | 1 << 20) // 128
+    # fill_max_rows: sparse fills a few rows apart
+    sparse = np.where(ints(0, 40, (16, 128)) == 0, ints(0, 1 << 18, (16, 128)), 0).astype(np.int32)
+    return [
+        ("ssd_d1500", "stream_shift_down", {"x": seq}, {"d": 1500, "fill": -7}),
+        ("scan2d_wrap", "scan2d", {"x": np.full((8, 128), 300_000_000, np.int32)}, {"op": "add"}),
+        ("scan2d_negmax", "scan2d", {"x": ints(-(1 << 31), -(1 << 31) + 5, (8, 128))},
+         {"op": "max"}),
+        ("gflat_oob_b16", "gather_flat", {"table": ints(*full, (16, 128)), "idx": gidx},
+         {"bits": 16}),
+        ("gflat_oob_b32", "gather_flat", {"table": ints(*full, (16, 128)), "idx": gidx},
+         {"bits": 32}),
+        ("lgr_oob", "local_gather_rows", {"vals": ints(*full, (8, 128)),
+                                          "li": ints(-200, 300, (8, 128))}, {}),
+        ("ssumm_wide_b16", "stream_shift_up_mm",
+         {"x": np.full((8, 128), 0x12345678, np.int32)}, {"d": 3, "bits": 16}),
+        ("ssumm_neg_b31", "stream_shift_up_mm", {"x": ints(*full, (8, 128))}, {"d": 127}),
+        ("scanmm_bite", "scan2d_mm", {"x": np.full((8, 128), 200_000, np.int32)},
+         {"op": "add", "bits": 24}),
+        ("scanmm_addsat", "scan2d_mm", {"x": ints(-(1 << 22), 1 << 22, (8, 128))},
+         {"op": "addsat", "bits": 24}),
+        ("scanmm_min_b20", "scan2d_mm", {"x": ints(0, 1 << 21, (16, 128))},
+         {"op": "min", "bits": 20}),
+        ("scanmm_max_b16", "scan2d_mm", {"x": ints(*full, (8, 128))}, {"op": "max", "bits": 16}),
+        ("grm_clip", "gather_rows_multi",
+         {"t0": ints(*full, (16, 128)), "t1": ints(*full, (16, 128)),
+          "t2": ints(*full, (16, 128)), "idx": ridx},
+         {"bits": [8, 16, 32], "r0": 3, "nrows": 8}),
+        ("srm_dup", "scatter_rows_multi", {"pos": dpos, "v0": np.full((8, 128), 3, np.int32),
+                                           "v1": wide},
+         {"bits": [31, 16], "r0": 0, "out_rows": 16, "nrows": 8}),
+        ("sst_or", "scatter_sum_tile", {"pos_row": spos, "val_row": sval, "mask_row": smask},
+         {"out_rows": 16, "bits": 16}),
+        ("sst_neg_b31", "scatter_sum_tile",
+         {"pos_row": spos, "val_row": ints(*full, (1, 128)), "mask_row": smask},
+         {"out_rows": 16, "bits": 31}),
+        ("lg_take", "lane_gather",
+         {"x": ints(*full, (8, 128)), "lane_idx": ints(-200, 300, (8, 128))}, {}),
+        ("ssdmm_b16", "stream_shift_down_mm", {"x": ints(*full, (8, 128))}, {"d": 5, "bits": 16}),
+        ("lsd_k3_b16", "lane_shift_down", {"x": ints(*full, (8, 128))}, {"k": 3, "bits": 16}),
+        ("lsd_k0", "lane_shift_down", {"x": ints(*full, (8, 128))}, {"k": 0, "bits": 8}),
+        ("lsu_k130_b8", "lane_shift_up", {"x": ints(*full, (8, 128))}, {"k": 130, "bits": 8}),
+        ("lsu_k1", "lane_shift_up", {"x": ints(*full, (8, 128))}, {"k": 1}),
+        ("rsd_k3", "row_shift_down", {"x": seq}, {"k": 3, "fill": -9}),
+        ("rsd_k20", "row_shift_down", {"x": seq}, {"k": 20, "fill": -9}),
+        ("rsu_k2", "row_shift_up", {"x": seq}, {"k": 2, "fill": 11}),
+        ("tril_b24", "scan2d_tril", {"x": tril}, {"bits": 24}),
+        ("tril_b31", "scan2d_tril", {"x": ints(0, 1 << 20, (24, 128))}, {"bits": 31}),
+        ("fmr_b18_r2", "fill_max_rows", {"x": sparse}, {"bits": 18, "rounds": 2}),
+        ("fmr_b31_r5", "fill_max_rows", {"x": sparse}, {"bits": 31, "rounds": 5}),
+        ("flip_b16", "flip2d", {"x": ints(*full, (8, 128))}, {"bits": 16}),
+        ("flip_b31", "flip2d", {"x": ints(*full, (24, 128))}, {"bits": 31}),
+    ]
+
+
+def kernel_lib_outputs(cases) -> dict[str, list[np.ndarray]]:
+    """Each case's outputs from the JAX helper inside a ``pl.pallas_call``
+    in interpret mode: ``test_kernel_lib._run`` for one output, a call of
+    several VMEM outputs (as tests/test_kernel_lib.py:137) for more."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from csnappy_tpu.ops import kernel_lib as kl
+
+    run = _test_kernel_lib()._run
+    out = {}
+    for case, helper, arrays, params in cases:
+        ins = [jnp.asarray(a) for a in arrays.values()]
+        shape = next(iter(arrays.values())).shape
+        if helper in ("gather_rows_multi", "scatter_rows_multi", "fill_max_rows"):
+            bits = params.get("bits")
+            if helper == "gather_rows_multi":
+                nout, shape = len(bits), (params["nrows"], 128)
+
+                def body(*refs, bits=bits, p=params):
+                    tabs, idx_ref, outs = refs[: len(bits)], refs[len(bits)], refs[len(bits) + 1:]
+                    got = kl.gather_rows_multi([(t[...], b) for t, b in zip(tabs, bits)], idx_ref,
+                                               p["r0"], nrows=p["nrows"])
+                    for o, g in zip(outs, got):
+                        o[...] = g
+            elif helper == "scatter_rows_multi":
+                nout, shape = len(bits), (params["out_rows"], 128)
+
+                def body(*refs, bits=bits, p=params):
+                    pos_ref, vrefs, outs = refs[0], refs[1 : 1 + len(bits)], refs[1 + len(bits):]
+                    got = kl.scatter_rows_multi(pos_ref, list(zip(vrefs, bits)), p["r0"],
+                                                p["out_rows"], nrows=p["nrows"])
+                    for o, g in zip(outs, got):
+                        o[...] = g
+            else:
+                nout = 3
+
+                def body(x_ref, *outs, p=params):
+                    for o, g in zip(outs, kl.fill_max_rows(x_ref[...], p["bits"], p["rounds"])):
+                        o[...] = g
+            got = pl.pallas_call(
+                body, out_shape=(jax.ShapeDtypeStruct(shape, jnp.int32),) * nout,
+                in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * len(ins),
+                out_specs=(pl.BlockSpec(memory_space=pltpu.VMEM),) * nout, interpret=True)(*ins)
+            out[case] = [np.asarray(g) for g in got]
+            continue
+        if helper == "scatter_sum_tile":
+            shape = (params["out_rows"], 128)
+
+            def body(p_ref, v_ref, m_ref, o_ref, p=params):
+                o_ref[...] = kl.scatter_sum_tile(p_ref[...], v_ref[...], m_ref[...] > 0,
+                                                 p["out_rows"], p["bits"])
+        else:
+            if helper in ("gather_flat", "local_gather_rows", "lane_gather"):
+                shape = list(arrays.values())[1].shape
+
+            def body(*refs, fn=getattr(kl, helper), p=params):
+                *in_refs, o_ref = refs
+                o_ref[...] = fn(*[r[...] for r in in_refs], **p)
+        out[case] = [np.asarray(run(body, shape, *ins))]
+    return out
+
+
+def write_kernel_lib() -> None:
+    import json
+
+    t0 = time.time()
+    cases = build_kernel_lib_cases()
+    outs = kernel_lib_outputs(cases)
+    a = {"cases": np.array([c[0] for c in cases]), "helpers": np.array([c[1] for c in cases]),
+         "args": np.array([",".join(c[2]) for c in cases]),
+         "params": np.array([json.dumps(c[3]) for c in cases])}
+    for case, _, arrays, _ in cases:
+        a.update({f"{case}__{k}": v for k, v in arrays.items()})
+        a.update({f"{case}__out{k}": v for k, v in enumerate(outs[case])})
+    np.savez_compressed(OUT / "kernel_lib.npz", **a)
+    print(f"kernel_lib: {len(cases)} cases ({time.time() - t0:.0f} s)", flush=True)
 
 
 if __name__ == "__main__":
