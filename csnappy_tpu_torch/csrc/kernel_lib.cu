@@ -10,15 +10,28 @@
 // result; the 19 helpers share these four entries.  The parameters that make a
 // helper of a device function (the segment and offset of a shift, the
 // masks, fill and rounds of a scan, the gather mode, the limb count of a
-// scatter) are computed by csnappy_tpu_torch/ops/kernel_lib.py.
+// scatter, a scatter block's slice) are computed by
+// csnappy_tpu_torch/ops/kernel_lib.py.
 //
-// What bounds them on this card: the launch.  A tile is at most the
-// 232,448 bytes of a block's shared memory and a few thousand operations; one block of
-// 1024 threads does the work in microseconds, against a launch cost of the
-// same order.  The design is therefore the plain one: one block, every
-// operand staged into shared memory once with coalesced loads, results
-// written straight to global memory.
+// What bounds them on this card: the launch.  A tile is a few thousand
+// operations; one block of 1024 threads does the work in microseconds,
+// against a launch cost of the same order.  The shift, scan and gather are
+// therefore the plain design: one block, every operand staged into shared
+// memory once with coalesced loads (at most the 232,448 bytes a block
+// has), results written straight to global memory.  The scatter is not
+// bound by a block: the JAX fused kernels scatter into 2-3 histograms of
+// 32,768-38,912 entries (csnappy_tpu/ops/decode_fused.py:470,
+// decode_stream.py:315, encode_fused.py:375), more than one block holds.
+// Its grid is (slices, tables): a block owns one slice of one table's
+// output positions, reads every position (a few thousand words, from L2),
+// adds those in its slice into shared memory and writes its slice once.
+// No global atomic, no memset launch, one launch a call.
+//
+// The launch path is thin: cudaFuncSetAttribute runs at most once per
+// kernel and device, and only for a block above the default 48 KB of
+// dynamic shared memory (a scatter slice stays below it).
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -31,6 +44,7 @@ using namespace kernel_lib;
 constexpr int kBlock = 1024;
 constexpr int kMaxTables = 8;                  // decode_fused.py:387 gathers from eight
 constexpr int kSmemMax = 232448;               // a block's shared memory on the H100 (measured)
+constexpr int kSmemDefault = 48 * 1024;        // dynamic shared memory a launch takes unasked
 
 __global__ void __launch_bounds__(kBlock)
 shift_harness(const int32_t* __restrict__ x, int n, int span, int off, int32_t fill,
@@ -108,42 +122,74 @@ gather_harness(Tables t, int ntab, int n, const int32_t* __restrict__ idx, int n
   }
 }
 
-// H_j[pos[e]] += val_j[e] & vmask_j for the ntab value tables (positions
-// where mask[e] == 0 scatter nowhere), into shared histograms of n_out
-// entries (limbs of them each when limbs > 0), then out_j.
+
+// The value tiles of a scatter and their masks.
+struct Values {
+  const int32_t* val[kMaxTables];
+  uint32_t vmask[kMaxTables];
+};
+
+// Block (x, j): H[pos[e] - lo] += val_j[e] & vmask_j for the positions of
+// table j's slice [lo, lo + n), lo = x * slice, whose mask (none, or
+// mask_bytes 1 or 4 a position) is nonzero, into a shared histogram of n
+// entries (limbs of them when limbs > 0); then out_j[lo, lo + n).  A
+// position outside [0, n_out) lies in no slice: it scatters nowhere.
 __global__ void __launch_bounds__(kBlock)
-scatter_harness(Tables t, int ntab, const int32_t* __restrict__ pos,
-                const int32_t* __restrict__ mask, int npos, int limbs, int n_out) {
+scatter_harness(Values v, const int32_t* __restrict__ pos, const void* __restrict__ mask,
+                int mask_bytes, int npos, int limbs, int n_out, int slice,
+                int32_t* __restrict__ out) {
   extern __shared__ __align__(16) int32_t hist[];
-  const int per = n_out * (limbs > 0 ? limbs : 1);
-  for (int f = threadIdx.x; f < ntab * per; f += kBlock) hist[f] = 0;
+  const int j = blockIdx.y, lo = blockIdx.x * slice;
+  const int n = min(slice, n_out - lo);
+  for (int f = threadIdx.x; f < n * (limbs > 0 ? limbs : 1); f += kBlock) hist[f] = 0;
   __syncthreads();
+  const int32_t* __restrict__ val = nullptr;
+  uint32_t vmask = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxTables; ++k)            // a select, not a copy of v to the stack
+    if (k == j) {
+      val = v.val[k];
+      vmask = v.vmask[k];
+    }
+#pragma unroll 4
   for (int e = threadIdx.x; e < npos; e += kBlock) {
-    if (mask != nullptr && mask[e] == 0) continue;
-    for (int j = 0; j < ntab; ++j)
-      scatter(hist + j * per, n_out, limbs, pos[e],
-              static_cast<uint32_t>(t.tab[j][e]) & t.vmask[j]);
+    const int64_t p = static_cast<int64_t>(pos[e]) - lo;
+    if (p < 0 || p >= n) continue;
+    if (mask != nullptr && (mask_bytes == 1 ? static_cast<const uint8_t*>(mask)[e]
+                                            : static_cast<const int32_t*>(mask)[e]) == 0)
+      continue;
+    scatter(hist, n, limbs, static_cast<int32_t>(p), static_cast<uint32_t>(val[e]) & vmask);
   }
   __syncthreads();
-  for (int j = 0; j < ntab; ++j) scatter_finish(hist + j * per, n_out, limbs, t.out[j]);
+  scatter_finish(hist, n, limbs, out + static_cast<size_t>(j) * n_out + lo);
 }
 
-// Launch one block of kBlock threads with `smem` bytes of dynamic shared
-// memory; returns the first CUDA error (cleared), or 0.
-template <typename Kernel, typename... Args>
-int run(Kernel kernel, size_t smem, void* stream, Args... args) {
+// Launch `kernel` on `grid` blocks of kBlock threads with `smem` bytes of
+// dynamic shared memory; returns the first CUDA error (cleared), or 0.  Above
+// the default 48 KB, the kernel's limit is raised to a block's maximum once
+// per device (a bit a device), not on every launch.
+template <auto kernel, typename... Args>
+int run(dim3 grid, size_t smem, void* stream, Args... args) {
   if (smem > static_cast<size_t>(kSmemMax)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(e);
+  if (smem > static_cast<size_t>(kSmemDefault)) {
+    static std::atomic<uint32_t> raised{0};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    const uint32_t bit = 1u << (dev & 31);
+    if (e == cudaSuccess && !(raised.load(std::memory_order_relaxed) & bit)) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+      if (e == cudaSuccess) raised.fetch_or(bit, std::memory_order_relaxed);
+    }
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return static_cast<int>(e);
+    }
   }
-  kernel<<<1, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tables (or value tables), their masks and outputs, from host arrays of ntab entries.
+// The tables, their masks and outputs, from host arrays of ntab entries.
 Tables tables(const void* const* tab, const unsigned* vmask, void* const* out, int ntab) {
   Tables t{};
   for (int j = 0; j < ntab; ++j) {
@@ -168,9 +214,9 @@ extern "C" {
 int kernel_lib_shift_launch(const void* x, int n, int span, int off, int fill,
                             unsigned vmask, void* out, void* stream) {
   if (n <= 0 || span <= 0 || n % span) return static_cast<int>(cudaErrorInvalidValue);
-  return run(shift_harness, static_cast<size_t>(n) * 4, stream,
-             static_cast<const int32_t*>(x), n, span, off, static_cast<int32_t>(fill), vmask,
-             static_cast<int32_t*>(out));
+  return run<shift_harness>(dim3(1), static_cast<size_t>(n) * 4, stream,
+                            static_cast<const int32_t*>(x), n, span, off,
+                            static_cast<int32_t>(fill), vmask, static_cast<int32_t*>(out));
 }
 
 int kernel_lib_scan_launch(const void* x, int rows, int op, int rounds,
@@ -181,9 +227,9 @@ int kernel_lib_scan_launch(const void* x, int rows, int op, int rounds,
   const ScanArgs a{rows, op, rounds != 0, in_mask, lane_mask, tot_mask,
                    static_cast<int32_t>(fill), row_rounds};
   const size_t smem = (static_cast<size_t>(rows) * L * (rounds ? 2 : 1) + 2 * rows) * 4;
-  return run(scan_harness, smem, stream, static_cast<const int32_t*>(x), a,
-             static_cast<int32_t*>(out), static_cast<int32_t*>(s_out),
-             static_cast<int32_t*>(t_out));
+  return run<scan_harness>(dim3(1), smem, stream, static_cast<const int32_t*>(x), a,
+                           static_cast<int32_t*>(out), static_cast<int32_t*>(s_out),
+                           static_cast<int32_t*>(t_out));
 }
 
 int kernel_lib_gather_launch(const void* const* tab, const unsigned* vmask,
@@ -195,20 +241,31 @@ int kernel_lib_gather_launch(const void* const* tab, const unsigned* vmask,
   const Tables t = tables(tab, vmask, out, ntab);
   size_t smem = 0;
   for (int j = 0; j < ntab; ++j) smem += table_slot(n, t.vmask[j]);
-  return run(gather_harness, smem, stream, t, ntab, n, static_cast<const int32_t*>(idx),
-             nidx, width, mode);
+  return run<gather_harness>(dim3(1), smem, stream, t, ntab, n,
+                             static_cast<const int32_t*>(idx), nidx, width, mode);
 }
 
-int kernel_lib_scatter_launch(const void* pos, const void* mask, int npos,
-                              const void* const* val, const unsigned* vmask,
-                              void* const* out, int ntab, int limbs, int n_out,
-                              void* stream) {
-  if (ntab < 1 || ntab > kMaxTables || limbs < 0 || limbs > 4 || n_out <= 0)
+// The ntab outputs are one array of ntab x n_out words; a block owns `slice`
+// output positions of one table (ops/kernel_lib.py scatter_plan), its
+// histograms within the default 48 KB of shared memory.
+int kernel_lib_scatter_launch(const void* pos, const void* mask, int mask_bytes, int npos,
+                              const void* const* val, const unsigned* vmask, int ntab,
+                              int limbs, int n_out, int slice, void* out, void* stream) {
+  if (ntab < 1 || ntab > kMaxTables || limbs < 0 || limbs > 4 || n_out <= 0 || npos < 0 ||
+      slice <= 0 || (mask != nullptr && mask_bytes != 1 && mask_bytes != 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(ntab) * n_out * (limbs > 0 ? limbs : 1) * 4;
-  return run(scatter_harness, smem, stream, tables(val, vmask, out, ntab), ntab,
-             static_cast<const int32_t*>(pos), static_cast<const int32_t*>(mask), npos,
-             limbs, n_out);
+  const size_t smem =
+      static_cast<size_t>(slice < n_out ? slice : n_out) * (limbs > 0 ? limbs : 1) * 4;
+  if (smem > static_cast<size_t>(kSmemDefault)) return static_cast<int>(cudaErrorInvalidValue);
+  Values v{};
+  for (int j = 0; j < ntab; ++j) {
+    v.val[j] = static_cast<const int32_t*>(val[j]);
+    v.vmask[j] = vmask[j];
+  }
+  const dim3 grid((n_out - 1) / slice + 1, ntab);
+  return run<scatter_harness>(grid, smem, stream, v, static_cast<const int32_t*>(pos), mask,
+                              mask_bytes, npos, limbs, n_out, slice,
+                              static_cast<int32_t*>(out));
 }
 
 const char* kernel_lib_error_string(int code) {

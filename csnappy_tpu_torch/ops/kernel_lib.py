@@ -36,10 +36,15 @@ are TPU encodings (iotas, limbs, one-hot and permutation matrices) and
 have no counterpart.
 
 Each helper takes int32 tensors or arrays and a ``device`` (None = the
-card): on the card it launches its harness on torch's current stream and
-counts the launch in ``launches[helper]``; on the CPU it runs the plain
-version; a CUDA tensor with ``device="cpu"`` raises.  On the card a tile
-must fit a block's shared memory (``SMEM_MAX`` bytes).
+card, on the device its CUDA operands lie on): on the card it launches its
+harness on torch's current stream and counts the launch in
+``launches[helper]``; on the CPU it runs the plain version; a CUDA tensor
+with ``device="cpu"`` raises.  On the card the shifts, scans and gathers
+stage a tile in one block's shared memory, so it must fit (``SMEM_MAX``
+bytes).  The two scatters take any ``out_rows`` and rows, 1 to 8 value
+tiles and limbs 0-4, while int32 indexing holds: their blocks each own a
+slice of one table's output (``scatter_plan``).  ``scatter_sum_tile`` takes
+its mask as bool, uint8, int8 or int32 without a conversion.
 """
 from __future__ import annotations
 
@@ -53,7 +58,7 @@ import torch
 
 from ..config import refuse_card_tensors, resolve_device
 from . import _build
-from .primitives import as_int32
+from .primitives import _stream, as_int32
 
 L = 128
 NEG = -(1 << 31)                # kernel_lib.NEG
@@ -61,6 +66,7 @@ SAT = 1 << 23                   # kernel_lib.SAT, the saturating add's ceiling
 BIGV = 1 << 20                  # kernel_lib.BIGV, the min scan's fill
 FULL = 0xFFFFFFFF
 SMEM_MAX = 232448               # shared memory of a block on the H100, as the capacity probe measures it
+SCATTER_SLICE = 1024            # output positions a scatter block owns: at 4 limbs 16 KB of shared memory
 ALL_ROUNDS = 30                 # row rounds: every one while 2^r < R
 OPS = {"max": 0, "min": 1, "add": 2, "addsat": 3}
 FILLS = {"max": NEG, "min": BIGV, "add": 0, "addsat": 0}
@@ -92,8 +98,16 @@ def _tile(x, dev: torch.device, what: str) -> torch.Tensor:
 
 
 def _operands(device, *xs) -> torch.device:
+    """The call's device, with its index: ``device``; for None, the card the
+    first CUDA operand lies on, else the current card (raising without one)."""
+    if device is None:
+        for x in xs:
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                return x.device
     dev = resolve_device(device)
     refuse_card_tensors(dev, *xs)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -185,10 +199,6 @@ def _scatter_plain(pos: torch.Tensor, vals: list[torch.Tensor], vmasks: list[int
 launches: dict[str, int] = {}
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _fits(helper: str, nbytes: int) -> None:
     if nbytes > SMEM_MAX:
         raise ValueError(f"{helper}: needs {nbytes} B of shared memory, more than a block's "
@@ -203,20 +213,29 @@ def _entry(kind: str):
         "shift": [vp, i, i, i, i, u, vp, vp],
         "scan": [vp, i, i, i, u, u, u, i, i, vp, vp, vp, vp],
         "gather": [vp, vp, vp, i, i, vp, i, i, i, vp],
-        "scatter": [vp, vp, i, vp, vp, vp, i, i, i, vp],
+        "scatter": [vp, vp, i, i, vp, vp, i, i, i, i, vp, vp],
     }[kind]
     return launch, check
 
 
 def _run(helper: str, dev: torch.device, *args) -> None:
     launch, check = _entry(HELPERS[helper].kind)
-    with torch.cuda.device(dev):
-        check(launch(*args, _stream(dev)))
+    if dev.index == torch.cuda.current_device():
+        rc = launch(*args, _stream(dev.index))
+    else:                                           # operands on another card: launch there
+        with torch.cuda.device(dev):
+            rc = launch(*args, _stream(dev.index))
+    check(rc)
     launches[helper] += 1
 
 
-def _arrays(ptrs: list[int], ctype) -> ctypes.Array:
-    return (ctype * len(ptrs))(*ptrs)
+_PTRS = ctypes.c_void_p * 8                         # the pointer slots of up to 8 tables
+
+
+@functools.cache
+def _uints(values: tuple[int, ...]) -> ctypes.Array:
+    """A C array of ``values`` (tables' masks), made once: the launch only reads it."""
+    return (ctypes.c_uint * len(values))(*values)
 
 
 def _shift(helper: str, x, device, params: Callable[[int], tuple[int, int, int, int]]):
@@ -259,25 +278,52 @@ def _gather(helper: str, tables: list[torch.Tensor], vmasks: list[int], idx: tor
     _fits(helper, sum((n * (1 if m == 0xFF else 2 if m == 0xFFFF else 4) + 15) // 16 * 16
                       for m in vmasks))
     outs = [torch.empty(like.shape, dtype=torch.int32, device=dev) for _ in tables]
-    _run(helper, dev, _arrays([t.data_ptr() for t in tables], ctypes.c_void_p),
-         _arrays(vmasks, ctypes.c_uint), _arrays([o.data_ptr() for o in outs], ctypes.c_void_p),
-         len(tables), n, None if idx is None else idx.data_ptr(), like.numel(),
-         like.shape[-1], GATHER_MODES[mode])
+    _run(helper, dev, _PTRS(*(t.data_ptr() for t in tables)), _uints(tuple(vmasks)),
+         _PTRS(*(o.data_ptr() for o in outs)), len(tables), n,
+         None if idx is None else idx.data_ptr(), like.numel(), like.shape[-1],
+         GATHER_MODES[mode])
     return outs
 
 
-def _scatter(helper: str, pos: torch.Tensor, mask: torch.Tensor | None, vals: list[torch.Tensor],
-             vmasks: list[int], n_out: int, limbs: int, dev: torch.device) -> list[torch.Tensor]:
-    if dev.type == "cpu":
-        if mask is not None:
-            pos = torch.where(mask != 0, pos, n_out)
-        return _scatter_plain(pos, vals, vmasks, n_out, limbs)
-    _fits(helper, 4 * len(vals) * n_out * max(limbs, 1))
-    outs = [torch.empty((n_out // L, L), dtype=torch.int32, device=dev) for _ in vals]
-    _run(helper, dev, pos.data_ptr(), None if mask is None else mask.data_ptr(), pos.numel(),
-         _arrays([v.data_ptr() for v in vals], ctypes.c_void_p), _arrays(vmasks, ctypes.c_uint),
-         _arrays([o.data_ptr() for o in outs], ctypes.c_void_p), len(vals), limbs, n_out)
-    return outs
+class ScatterPlan(NamedTuple):
+    """The blocks of a scatter: block (x, j) owns output positions
+    [x * slice, min((x + 1) * slice, n_out)) of table j."""
+    slice: int                  # output positions a block owns (the last of a table may own fewer)
+    grid: tuple[int, int]       # (slices, tables)
+    smem: int                   # bytes of shared memory a block takes: slice * max(limbs, 1) int32
+
+
+@functools.cache
+def scatter_plan(ntab: int, n_out: int, limbs: int) -> ScatterPlan:
+    """The blocks of a scatter into ``ntab`` tables of ``n_out`` positions
+    (limbs 0: sums; else one histogram a limb); a block's histograms stay
+    within the 48 KB of shared memory a launch takes unasked."""
+    if not 1 <= ntab <= 8:
+        raise ValueError(f"scatter: 1 to 8 value tiles, got {ntab}")
+    if not 0 <= limbs <= 4:
+        raise ValueError(f"scatter: limbs must be in 0..4, got {limbs}")
+    if not 1 <= n_out < 1 << 31:
+        raise ValueError(f"scatter: {n_out} output positions, outside int32 indexing")
+    s = min(SCATTER_SLICE, n_out)
+    return ScatterPlan(s, (-(-n_out // s), ntab), 4 * s * max(limbs, 1))
+
+
+def _scatter(helper: str, pos: torch.Tensor, off: int, npos: int, mask: torch.Tensor | None,
+             vals: list[torch.Tensor], vmasks: tuple[int, ...], n_out: int,
+             limbs: int) -> torch.Tensor:
+    """The scatter kernel on card tensors: ``npos`` positions of ``pos`` and
+    values of ``vals`` from byte ``off`` on, where ``mask`` (None: everywhere)
+    is set; returns one (n_out / 128, 128) histogram, or for several value
+    tiles one (tiles, n_out / 128, 128) tensor."""
+    if npos >= 1 << 31:
+        raise ValueError(f"{helper}: {npos} positions, outside int32 indexing")
+    plan = scatter_plan(len(vals), n_out, limbs)
+    out = pos.new_empty((n_out // L, L) if len(vals) == 1 else (len(vals), n_out // L, L))
+    _run(helper, pos.device, pos.data_ptr() + off, None if mask is None else mask.data_ptr(),
+         0 if mask is None else mask.element_size(), npos,
+         _PTRS(*(v.data_ptr() + off for v in vals)), _uints(vmasks), len(vals), limbs, n_out,
+         plan.slice, out.data_ptr())
+    return out
 
 
 # ------------------------------------------------------------------- shifts
@@ -479,18 +525,42 @@ def scatter_rows_multi(pos, vals_bits, r0: int, out_rows: int, nrows: int = 8,
     vals_bits = list(vals_bits)
     if not 1 <= len(vals_bits) <= 8:
         raise ValueError(f"scatter_rows_multi: 1 to 8 value tiles, got {len(vals_bits)}")
-    masks = [bits_mask(b, 7) for _, b in vals_bits]
-    dev = _operands(device, pos, *(v for v, _ in vals_bits))
+    masks = _masks7(tuple([b for _, b in vals_bits]))
+    vals = [v for v, _ in vals_bits]
+    dev = _operands(device, pos, *vals)
     pos = _tile(pos, dev, "pos")
-    vals = [_tile(v, dev, "vals") for v, _ in vals_bits]
-    if any(v.shape != pos.shape for v in vals):
+    vals = [_tile(v, dev, "vals") for v in vals]
+    shape = pos.shape
+    if any([v.shape != shape for v in vals]):
         raise ValueError("scatter_rows_multi: value tiles must have pos's shape")
-    if r0 < 0 or nrows < 1 or r0 + nrows > pos.shape[0] or out_rows < 1:
+    if r0 < 0 or nrows < 1 or r0 + nrows > shape[0] or out_rows < 1:
         raise ValueError(f"scatter_rows_multi: rows {r0}..{r0 + nrows - 1} outside pos's "
-                         f"{pos.shape[0]}, or out_rows {out_rows} < 1")
-    sl = slice(r0, r0 + nrows)
-    return _scatter("scatter_rows_multi", pos[sl].contiguous(), None,
-                    [v[sl].contiguous() for v in vals], masks, out_rows * L, 0, dev)
+                         f"{shape[0]}, or out_rows {out_rows} < 1")
+    if dev.type == "cpu":
+        sl = slice(r0, r0 + nrows)
+        return _scatter_plain(pos[sl], [v[sl] for v in vals], list(masks), out_rows * L, 0)
+    out = _scatter("scatter_rows_multi", pos, 4 * L * r0, nrows * L, None, vals, masks,
+                   out_rows * L, 0)                 # from row r0 of contiguous tiles
+    return [out] if out.ndim == 2 else list(out.unbind(0))
+
+
+@functools.cache
+def _masks7(bits: tuple[int, ...]) -> tuple[int, ...]:
+    return tuple(bits_mask(b, 7) for b in bits)
+
+
+_MASK_BYTES = {torch.bool: 1, torch.uint8: 1, torch.int8: 1, torch.int32: 4}
+
+
+def _mask(mask_row, dev: torch.device) -> torch.Tensor:
+    """``scatter_sum_tile``'s mask on ``dev``: bool, uint8, int8 or int32 as
+    it comes (nonzero = set), any other dtype as int32."""
+    t = torch.as_tensor(mask_row)
+    if t.dtype not in _MASK_BYTES:
+        t = t.to(torch.int32)
+    if t.device != dev or not t.is_contiguous():
+        t = t.to(dev).contiguous()
+    return t
 
 
 def scatter_sum_tile(pos_row, val_row, mask_row, out_rows: int, bits: int,
@@ -502,10 +572,13 @@ def scatter_sum_tile(pos_row, val_row, mask_row, out_rows: int, bits: int,
     limbs = bits_mask(bits).bit_length() // 8
     dev = _operands(device, pos_row, val_row, mask_row)
     pos, val = as_int32(pos_row, dev, "pos_row"), as_int32(val_row, dev, "val_row")
-    mask = torch.as_tensor(mask_row).to(dev).to(torch.int32).contiguous()
+    mask = _mask(mask_row, dev)
     if not pos.shape == val.shape == mask.shape or out_rows < 1:
         raise ValueError("scatter_sum_tile: pos, val and mask must have one shape, out_rows >= 1")
-    return _scatter("scatter_sum_tile", pos, mask, [val], [FULL], out_rows * L, limbs, dev)[0]
+    n_out = out_rows * L
+    if dev.type == "cpu":
+        return _scatter_plain(torch.where(mask != 0, pos, n_out), [val], [FULL], n_out, limbs)[0]
+    return _scatter("scatter_sum_tile", pos, 0, pos.numel(), mask, [val], (FULL,), n_out, limbs)
 
 
 def call(name: str, arrays: dict, params: dict, device=None) -> list[torch.Tensor]:

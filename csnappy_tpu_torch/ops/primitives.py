@@ -69,7 +69,11 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
 
 def as_int32(x, dev: torch.device, what: str) -> torch.Tensor:
     """``x`` (a tensor or array) as a contiguous int32 tensor on ``dev``; any
-    other dtype raises."""
+    other dtype raises.  A tensor that is one already is taken as it is,
+    with no torch call."""
+    if (isinstance(x, torch.Tensor) and x.dtype == torch.int32 and x.device == dev
+            and x.is_contiguous()):
+        return x
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
     if t.dtype != torch.int32:
         raise TypeError(f"{what} must be int32, got {t.dtype}")
@@ -84,8 +88,11 @@ def _lanes(what: str, *xs: torch.Tensor) -> None:
         raise ValueError(f"{what}: operands differ in shape: {[tuple(x.shape) for x in xs]}")
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _stream(index: int | None) -> int:
+    """The handle of torch's current stream on card ``index`` (None: the
+    current card), with no Stream object built."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device() if index is None
+                                              else index)
 
 
 # ------------------------------------------------------------ plain versions
@@ -144,7 +151,7 @@ def launch_lane_gather(tbl: torch.Tensor, width: int, idx: torch.Tensor, groups:
     launch, check = _kernels()["lane_gather"]
     with torch.cuda.device(dev):
         check(launch(tbl.data_ptr(), width, idx.data_ptr(), out.data_ptr(), groups,
-                     idx.numel() // groups, mask, _stream(dev)))
+                     idx.numel() // groups, mask, _stream(dev.index)))
     return out
 
 
@@ -188,7 +195,7 @@ def local_scatter_or(mask, tgt, device=None) -> torch.Tensor:
     launch, check = _kernels()["scatter_or"]
     with torch.cuda.device(dev):
         check(launch(mask.data_ptr(), tgt.data_ptr(), out.data_ptr(), mask.numel() // L,
-                     _stream(dev)))
+                     _stream(dev.index)))
     local_scatter_or.launches += 1
     return out
 
@@ -217,7 +224,7 @@ def compose_round(F, S, E, chunk_end, device=None):
     launch, check = _kernels()["compose_round"]
     with torch.cuda.device(dev):
         check(launch(F.data_ptr(), S.data_ptr(), E.data_ptr(), ce.data_ptr(),
-                     *(o.data_ptr() for o in outs), F.numel() // L, _stream(dev)))
+                     *(o.data_ptr() for o in outs), F.numel() // L, _stream(dev.index)))
     compose_round.launches += 1
     return outs
 
@@ -246,7 +253,7 @@ def row_gather(table2d, rows, limbs: int = 3, device=None) -> torch.Tensor:
     launch, check = _kernels()["row_gather"]
     with torch.cuda.device(dev):
         check(launch(table2d.data_ptr(), table2d.shape[0], rows.data_ptr(), out.data_ptr(),
-                     rows.numel(), mask, _stream(dev)))
+                     rows.numel(), mask, _stream(dev.index)))
     row_gather.launches += 1
     return out
 

@@ -662,7 +662,8 @@ def test_kernel_lib_kernel_equals_fixture(card, kl_cases, helper):
 
 def test_kernel_lib_kernels_on_wide_tiles(card):
     # tiles larger than the JAX tests', random over all of int32, against the
-    # plain versions; a tile past a block's shared memory raises
+    # plain versions; the scatters at the JAX fused kernels' shapes and past
+    # one block's shared memory; a scan tile past it raises
     rng = np.random.default_rng(11)
 
     def ints(lo, hi, shape):
@@ -701,6 +702,30 @@ def test_kernel_lib_kernels_on_wide_tiles(card):
                                 nrows=60)
     want = kl.scatter_rows_multi(pos, [(vals, 31), (vals, 9)], 3, 40, nrows=60, device="cpu")
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    # decode_fused.py:470, decode_stream.py:315, encode_fused.py:375: rows
+    # 16..31 of a 64-row tile into 2-3 tables of 256 or 304 rows, duplicates
+    # and out-of-range positions included
+    for out_rows, bits in ((256, [31, 18]), (256, [31, 31, 31]), (304, [31, 31, 31]),
+                           (1000, [7, 14, 21, 28, 32, 1, 2, 3])):
+        pos = ints(-200, out_rows * 128 + 200, (64, 128))
+        vals = [ints(-(2**31), 2**31, (64, 128)) for _ in bits]
+        got = kl.scatter_rows_multi(torch.from_numpy(pos).to(card),
+                                    [(torch.from_numpy(v).to(card), b) for v, b in zip(vals, bits)],
+                                    16, out_rows, nrows=16)
+        want = kl.scatter_rows_multi(pos, list(zip(vals, bits)), 16, out_rows, nrows=16,
+                                     device="cpu")
+        assert len(got) == len(bits) and all(g.shape == (out_rows, 128) for g in got)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), (out_rows, bits)
+    # scatter_sum_tile at 4 limbs into 256 rows (4 x 32,768 histogram words),
+    # its mask as bool, uint8 and int32
+    pos, val = ints(-9, 256 * 128 + 9, (1, 5000)), ints(-(2**31), 2**31, (1, 5000))
+    pos[0, :300] = pos[0, 300:600]
+    mask = ints(0, 2, (1, 5000)).astype(bool)
+    want = kl.scatter_sum_tile(pos, val, mask, 256, 32, device="cpu")
+    for m in (mask, mask.astype(np.uint8), mask.astype(np.int32)):
+        got = kl.scatter_sum_tile(torch.from_numpy(pos).to(card), torch.from_numpy(val).to(card),
+                                  torch.from_numpy(m).to(card), 256, 32)
+        assert got.is_cuda and torch.equal(got.cpu(), want), m.dtype
     with pytest.raises(ValueError, match="shared memory"):
         kl.scan2d_mm(torch.zeros((300, 128), dtype=torch.int32, device=card))
 

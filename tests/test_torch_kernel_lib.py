@@ -9,12 +9,15 @@
   ``tests/test_kernel_lib.py`` and the constructed ones, answers outside the
   helpers' contracts and the helpers no JAX test runs; 0 differing elements;
 * those answers outside the contracts, one by one;
-* the ``HELPERS`` table against the JAX functions and tests it names.
+* the ``HELPERS`` table against the JAX functions and tests it names;
+* the scatter's block plan (``scatter_plan``) at the JAX fused kernels'
+  shapes and at the tests' own, and the scatters' refusals.
 
 The kernels of ``csrc/kernel_lib.cu`` are held against these plain versions
 on the card (``test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import ast
+import hashlib
 import importlib.util
 import inspect
 import pathlib
@@ -328,3 +331,100 @@ def test_table_names_the_jax_helpers_and_tests():
     for name, h in kl.HELPERS.items():
         ours = list(inspect.signature(h.wrapper).parameters)
         assert ours == [renamed.get(a, a) for a in jax_args[name]] + ["device"], name
+
+
+# ------------------------------------------------------- the scatter's blocks
+
+# (tables, output positions, limbs): the JAX fused kernels' scatters
+# (decode_fused.py:470, decode_stream.py:315, encode_fused.py:375), the JAX
+# tests' tiles, scatter_sum_tile at 1-4 limbs, and edges of a slice
+PLAN_SHAPES = [(2, 256 * 128, 0), (3, 256 * 128, 0), (3, 304 * 128, 0), (1, 16 * 128, 0),
+               (2, 16 * 128, 0), (1, 16 * 128, 2), (1, 16 * 128, 4), (1, 20 * 128, 4),
+               (1, 256 * 128, 4), (1, 128, 3), (8, 40 * 128, 1), (8, 1000 * 128, 4)]
+# the shared memory kernel_lib_scatter_launch gives a block at most: what a
+# launch takes unasked (csrc/kernel_lib.cu's kSmemDefault)
+SCATTER_SMEM = eval(re.search(r"kSmemDefault = ([0-9 *]+);",
+                              (ROOT / "csnappy_tpu_torch/csrc/kernel_lib.cu").read_text())[1])
+
+
+@pytest.mark.parametrize("ntab,n_out,limbs", PLAN_SHAPES)
+def test_scatter_plan_covers_every_output_once(ntab, n_out, limbs):
+    plan = kl.scatter_plan(ntab, n_out, limbs)
+    slices, tables = plan.grid
+    assert tables == ntab and plan.slice > 0
+    # block (x, j) owns [x * slice, min((x + 1) * slice, n_out)) of table j,
+    # as the kernel computes it
+    for j in range(tables):
+        owned = np.zeros(n_out, np.int64)
+        for x in range(slices):
+            lo = x * plan.slice
+            n = min(plan.slice, n_out - lo)
+            assert n > 0, (j, x)
+            owned[lo : lo + n] += 1
+        assert (owned == 1).all(), j
+    assert plan.smem == 4 * plan.slice * max(limbs, 1) <= SCATTER_SMEM == 48 * 1024
+
+
+def test_scatter_plan_refuses_what_the_kernel_does_not_take():
+    for ntab, n_out, limbs in ((0, 128, 0), (9, 128, 0), (1, 128, 5), (1, 128, -1),
+                               (1, 0, 0), (1, 1 << 31, 0)):
+        with pytest.raises(ValueError):
+            kl.scatter_plan(ntab, n_out, limbs)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself as on the card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_scatters_refuse_their_bad_arguments():
+    x = np.zeros((8, 128), np.int32)
+    with pytest.raises(ValueError, match="1 to 8"):
+        kl.scatter_rows_multi(x, [(x, 8)] * 9, 0, 16, device="cpu")
+    with pytest.raises(ValueError, match="bits"):               # five 8-bit limbs
+        kl.scatter_sum_tile(x[:1], x[:1], x[:1], 8, 33, device="cpu")
+    with pytest.raises(ValueError, match="outside"):
+        kl.scatter_rows_multi(x, [(x, 8)], 4, 16, nrows=8, device="cpu")
+    card = torch.from_numpy(x).as_subclass(_OnCard)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kl.scatter_sum_tile(card[:1], card[:1], card[:1], 8, 16, device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kl.scatter_rows_multi(card, [(card, 31), (card, 18)], 0, 256, device="cpu")
+
+
+def test_scatter_sum_tile_takes_its_mask_in_any_dtype():
+    _, _, arrays, params, outs = BY_CASE["sst_or"]
+    pos, val, mask = arrays.values()
+    for m in (mask != 0, (mask != 0).astype(np.uint8), (mask != 0).astype(np.int8),
+              mask.astype(np.int64), torch.from_numpy(mask != 0)):
+        got = kl.scatter_sum_tile(pos, val, m, **params, device="cpu")
+        assert np.array_equal(got.numpy(), outs[0])
+    # another dtype becomes int32 first, as before: 0.5 truncates to 0, unset
+    half = np.where(mask != 0, 1.0, 0.5)
+    got = kl.scatter_sum_tile(pos, val, half, **params, device="cpu")
+    assert np.array_equal(got.numpy(), outs[0])
+
+
+def _case_digest(z, cases) -> str:
+    h = hashlib.sha256()
+    for case, helper, args, params in cases:
+        case = str(case)
+        h.update(f"{case}|{helper}|{args}|{params}".encode())
+        for k in sorted(k for k in z.files if k.startswith(case + "__")):
+            a = z[k]
+            h.update(k.encode() + str(a.dtype).encode() + str(a.shape).encode() + a.tobytes())
+    return h.hexdigest()
+
+
+def test_earlier_fixture_cases_are_byte_identical():
+    # the 66 cases written before the main-path scatter cases, names,
+    # parameters, inputs and JAX answers, exactly as they were first stored
+    with np.load(ROOT / "tests" / "data" / "torch_ref" / "kernel_lib.npz") as z:
+        cases = list(zip(z["cases"], z["helpers"], z["args"], z["params"]))
+        assert _case_digest(z, cases[:66]) == (
+            "df4596b48102d3a766da0212d4f3be5c999120aa94c520b7b0aa39347787bde7")
+        assert [str(c[0]) for c in cases[66:]] == [
+            "srm_dec_co256", "srm_stream_co256_t3", "srm_enc_ocr304_t3", "srm_co256_dup"]

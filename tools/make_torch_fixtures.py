@@ -44,7 +44,8 @@ Writes ``tests/data/torch_ref/``:
   ``tests/test_kernel_lib.py``, or a call of several outputs like its
   :137), on every parametrised case of ``tests/test_kernel_lib.py`` and on
   the constructed cases of :func:`build_kernel_lib_cases` (answers outside
-  the helpers' contracts, and the helpers no JAX test runs).
+  the helpers' contracts, the helpers no JAX test runs, and
+  ``scatter_rows_multi`` at the shapes the JAX fused kernels give it).
 
 The tests rebuild the inputs from the seed, check them against the stored
 copies (drift check), then hold the port against the stored outputs.
@@ -1058,7 +1059,7 @@ def build_kernel_lib_cases() -> list[tuple[str, str, dict, dict]]:
         cases.append((f"sst_b{bits}", "scatter_sum_tile",
                       {"pos_row": pos, "val_row": val, "mask_row": mask},
                       {"out_rows": 16, "bits": bits}))
-    return cases + _kernel_lib_constructed()
+    return cases + _kernel_lib_constructed() + _kernel_lib_main_path()
 
 
 def _kernel_lib_constructed() -> list[tuple[str, str, dict, dict]]:
@@ -1144,6 +1145,44 @@ def _kernel_lib_constructed() -> list[tuple[str, str, dict, dict]]:
         ("fmr_b31_r5", "fill_max_rows", {"x": sparse}, {"bits": 31, "rounds": 5}),
         ("flip_b16", "flip2d", {"x": ints(*full, (8, 128))}, {"bits": 16}),
         ("flip_b31", "flip2d", {"x": ints(*full, (24, 128))}, {"bits": 31}),
+    ]
+
+
+def _kernel_lib_main_path() -> list[tuple[str, str, dict, dict]]:
+    """``scatter_rows_multi`` at the shapes the JAX fused kernels call it
+    with: 16 rows of a 64-row position tile into 256 or 304 output rows
+    (csnappy_tpu/ops/decode_fused.py:470, decode_stream.py:315,
+    encode_fused.py:375), unique positions masked by the -1 sentinel as the
+    callers mask; then duplicates, out-of-range positions and wide values."""
+    rng = np.random.default_rng(SEED + 9)
+
+    def ints(lo, hi, shape):
+        return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)
+
+    def unique(out_rows):
+        pos = rng.permutation(out_rows * 128)[: 64 * 128].astype(np.int32).reshape(64, 128)
+        return np.where(rng.random((64, 128)) < 0.3, -1, pos).astype(np.int32)
+
+    def rows(out_rows, bits):
+        return {"r0": 16, "out_rows": out_rows, "nrows": 16, "bits": bits}
+
+    dup = ints(-300, 256 * 128 + 300, (64, 128))
+    dup[16:32:3] = dup[17]                                # whole rows repeated
+    dup[20, :40] = -1
+    return [
+        ("srm_dec_co256", "scatter_rows_multi",
+         {"pos": unique(256), "v0": ints(0, 1 << 31, (64, 128)), "v1": ints(0, 1 << 18, (64, 128))},
+         rows(256, [31, 18])),
+        ("srm_stream_co256_t3", "scatter_rows_multi",
+         {"pos": unique(256), **{f"v{k}": ints(0, 1 << 31, (64, 128)) for k in range(3)}},
+         rows(256, [31, 31, 31])),
+        ("srm_enc_ocr304_t3", "scatter_rows_multi",
+         {"pos": unique(304), **{f"v{k}": ints(0, 1 << 31, (64, 128)) for k in range(3)}},
+         rows(304, [31, 31, 31])),
+        ("srm_co256_dup", "scatter_rows_multi",
+         {"pos": dup, "v0": ints(-(1 << 31), 1 << 31, (64, 128)),
+          "v1": ints(-(1 << 31), 1 << 31, (64, 128))},
+         rows(256, [31, 18])),
     ]
 
 
