@@ -121,11 +121,18 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              (``kernel_lib.traffic``: what the helper reads on that case); one
              ``kernels`` row for each of the two ``pl.pallas_call`` sites with
              its helpers as a sub-list; ``scatter_rows_multi`` at the JAX
-             fused kernels' three shapes (the fixture's ``srm_dec_co256``,
-             ``srm_stream_co256_t3``, ``srm_enc_ocr304_t3``) timed the same way
-             beside one ``index_add_`` over the stacked tables, with each
-             case's launches in the main-path run; and the host split of one
-             call of each scatter, step by step;
+             fused kernels' three shapes (``MAIN_SCATTERS``: the fixture's
+             ``srm_dec_co256``, ``srm_stream_co256_t3``, ``srm_enc_ocr304_t3``)
+             timed the same way beside one ``index_add_`` over the stacked
+             tables, and ``gather_rows_multi`` at its three (``MAIN_GATHERS``:
+             ``grm_dec_ci256_t8``, ``grm_stream_r1664_t2``,
+             ``grm_stream_r1664_t1``, then ``grm_r1664_clip`` with clipped
+             indices) beside one ``index_select`` over the stacked tables,
+             each case with its launches in the main-path run (asserted 1),
+             its kernel alone and bound, and the harness's ``ptxas -v`` lines
+             (``gather_harness``'s stack frame asserted 0 bytes); and the
+             host split of one call of each scatter, of ``gather_rows_multi``
+             on ``grm_dec_ci256_t8`` and of ``lane_gather``, step by step;
 14. the ``kernels`` JSON line, the card's name and power limit, and the
    result line.
 
@@ -881,12 +888,7 @@ def _kernel_lib(torch, np, dev, card: str) -> list:
                              if helper == "gather_flat" else
                              ("torch.gather(x, 1, idx)", lambda: torch.gather(tbl, 1, ix64)))
         if helper == "gather_rows_multi":
-            *tbls, ix = a.values()
-            stacked = torch.stack([t.reshape(-1) for t in tbls])     # set-up, not timed
-            rows = ix[params["r0"] : params["r0"] + params["nrows"]].reshape(-1)
-            ix64 = rows.long().clamp(0, stacked.shape[1] - 1)
-            calls[helper] = ("torch.index_select(stacked tables, 1, idx)",
-                             lambda: torch.index_select(stacked, 1, ix64))
+            calls[helper] = _index_select(torch, a, params)
         if helper == "scatter_rows_multi":
             calls[helper] = _index_add(torch, kl, a, params)
         if helper == "scatter_sum_tile":
@@ -953,11 +955,15 @@ def _kernel_lib(torch, np, dev, card: str) -> list:
           f"{statistics.median(tile_ms):.4f} ms ({min(tile_ms):.4f}-{max(tile_ms):.4f})",
           flush=True)
     by_case = {c[0]: c for c in cases}
-    shapes = _scatter_shapes(torch, kl, {c: by_case[c] for c in MAIN_SCATTERS}, on_card,
-                             case_launches, card)
+    shapes = {helper: _main_shapes(torch, kl, helper, {c: by_case[c] for c in main}, on_card,
+                                   case_launches, card)
+              for helper, main in (("scatter_rows_multi", MAIN_SCATTERS),
+                                   ("gather_rows_multi", MAIN_GATHERS))}
     split = {helper: _host_split(torch, kl, helper, on_card[case], by_case[case][3])
              for helper, case in (("scatter_rows_multi", MAIN_SCATTERS[0]),
-                                  ("scatter_sum_tile", first["scatter_sum_tile"][0]))}
+                                  ("scatter_sum_tile", first["scatter_sum_tile"][0]),
+                                  ("gather_rows_multi", MAIN_GATHERS[0]),
+                                  ("lane_gather", first["lane_gather"][0]))}
     rows = []
     for row, name, replaces in (
             ("15a", "kernel_lib:test_kernel_lib._run", "tests/test_kernel_lib.py:16"),
@@ -974,14 +980,21 @@ def _kernel_lib(torch, np, dev, card: str) -> list:
                      "bound_ms": sum(r["bound_ms"] for r in sub),
                      "bound_by": max(sub, key=lambda r: r["bound_ms"])["bound_by"],
                      "library_ms": library_ms, "helpers": sub})
-    rows[0].update(scatter_main_shapes=shapes, scatter_host_split=split)
+    rows[0].update(scatter_main_shapes=shapes["scatter_rows_multi"],
+                   scatter_host_split={h: split[h] for h in ("scatter_rows_multi",
+                                                             "scatter_sum_tile")})
+    rows[1].update(gather_main_shapes=shapes["gather_rows_multi"],
+                   gather_host_split={h: split[h] for h in ("gather_rows_multi", "lane_gather")})
     print(f"[kernel_lib] card {card}", flush=True)
     return rows
 
 
 # scatter_rows_multi at the shapes of csnappy_tpu/ops/decode_fused.py:470,
-# decode_stream.py:315 and encode_fused.py:375 (fixture cases of kernel_lib.npz)
+# decode_stream.py:315 and encode_fused.py:375, gather_rows_multi at those of
+# decode_fused.py:387, decode_stream.py:255 and :270, then with clipped
+# indices (fixture cases of kernel_lib.npz)
 MAIN_SCATTERS = ("srm_dec_co256", "srm_stream_co256_t3", "srm_enc_ocr304_t3")
+MAIN_GATHERS = ("grm_dec_ci256_t8", "grm_stream_r1664_t2", "grm_stream_r1664_t1", "grm_r1664_clip")
 
 
 def _index_add(torch, kl, a, params):
@@ -1015,59 +1028,100 @@ def _tile_index_add(torch, pos, val, n_out: int, mask=None):
             lambda: h.index_add_(0, p_ok, v_ok))
 
 
-def _scatter_shapes(torch, kl, cases, on_card, case_launches: dict, card: str) -> list:
-    """``scatter_rows_multi`` on each case, and one ``index_add_`` of the same
-    function, timed in ``KL_ROUNDS`` interleaved rounds; the kernel alone,
-    the bound (``kernel_lib.traffic``) and each case's launches in the
-    main-path run (``case_launches``, one a case)."""
+def _index_select(torch, a, params):
+    """One ``index_select`` computing ``gather_rows_multi`` inside its
+    contract: the stacked tables at rows r0..r0+nrows-1 of the index, clipped
+    to the table, prepared outside the timed call."""
+    *tbls, ix = a.values()
+    stacked = torch.stack([t.reshape(-1) for t in tbls])
+    rows = ix[params["r0"] : params["r0"] + params["nrows"]].reshape(-1)
+    ix64 = rows.long().clamp(0, stacked.shape[1] - 1)
+    return ("torch.index_select(stacked tables, 1, idx)",
+            lambda: torch.index_select(stacked, 1, ix64))
+
+
+def _ptxas(kernel: str) -> tuple[str, str]:
+    """The stack-frame and register lines ``ptxas -v`` printed for ``kernel``
+    in the last build of ``csrc/kernel_lib.cu``."""
     from csnappy_tpu_torch.ops import _build
+
+    log = _build.log_path("kernel_lib").read_text().splitlines()
+    at = next(i for i, line in enumerate(log) if kernel in line)
+    frame = next(line.strip() for line in log[at:] if "stack frame" in line)
+    used = next(line.split(":", 1)[1].strip() for line in log[at:] if "Used" in line)
+    return frame, used
+
+
+def _main_shapes(torch, kl, helper: str, cases, on_card, case_launches: dict, card: str) -> list:
+    """``scatter_rows_multi`` or ``gather_rows_multi`` on each case at the
+    JAX fused kernels' shapes, and one PyTorch call of the same function
+    (``_index_add``, ``_index_select``), timed in ``KL_ROUNDS`` interleaved
+    rounds; the kernel alone, the bound (``kernel_lib.traffic``), each case's
+    launches in the main-path run (``case_launches``, one a case) and the
+    harness's ``ptxas -v`` lines (the gather's stack frame must be 0 bytes)."""
     from csnappy_tpu_torch.tools.timing import (HBM_BYTES_PER_S, OPS_PER_S, device_profile,
                                                 time_ms)
 
-    log = _build.log_path("kernel_lib").read_text().splitlines()
-    at = next(i for i, line in enumerate(log) if "scatter_harness" in line)
-    used = next(line.split(":", 1)[1].strip() for line in log[at:] if "Used" in line)
-    print(f"[kernel_lib] scatter_harness (ptxas -v): {used}; dynamic shared memory a block "
-          f"{kl.SCATTER_SLICE} positions x limbs x 4 B (scatter_plan), 1024 threads", flush=True)
-    libs = {case: _index_add(torch, kl, on_card[case], c[3]) for case, c in cases.items()}
+    scatter = helper == "scatter_rows_multi"
+    harness = "scatter_harness" if scatter else "gather_harness"
+    frame, used = _ptxas(harness)
+    if not scatter:
+        assert frame.startswith("0 bytes stack frame"), frame
+    print(f"[kernel_lib] {harness} (ptxas -v): {frame}; {used}; "
+          + (f"dynamic shared memory a block {kl.SCATTER_SLICE} positions x limbs x 4 B "
+             f"(scatter_plan), 1024 threads" if scatter else
+             "no shared memory, a block row a table, one thread an index, the tables read in "
+             "place"), flush=True)
+    libs = {case: _index_add(torch, kl, on_card[case], c[3]) if scatter
+            else _index_select(torch, on_card[case], c[3]) for case, c in cases.items()}
     call_ms = {case: [] for case in cases}
     lib_ms = {case: [] for case in cases}
     for _ in range(KL_ROUNDS):
-        for case, (_, helper, _, params, _) in cases.items():
+        for case, (_, _, _, params, _) in cases.items():
             call_ms[case].append(time_ms(lambda: kl.call(helper, on_card[case], params)))
             lib_ms[case].append(time_ms(libs[case][1]))
     out = []
-    for case, (_, helper, arrays, params, _) in cases.items():
+    for case, (_, _, arrays, params, _) in cases.items():
         assert case_launches[case] == 1, (case, case_launches[case])
         device_ms = device_profile(lambda: kl.call(helper, on_card[case], params))["device_ms"]
         nbytes, nops = kl.traffic(helper, arrays, params)
         bound = max(nbytes / HBM_BYTES_PER_S, nops / OPS_PER_S) * 1e3
         ms, lms = statistics.median(call_ms[case]), statistics.median(lib_ms[case])
         tables = len(params["bits"])
-        plan = kl.scatter_plan(tables, 128 * params["out_rows"], 0)
-        out.append({"case": case, "tables": tables, "out_rows": params["out_rows"],
-                    "grid": plan.grid, "smem": plan.smem,
-                    "nrows": params["nrows"], "ms": ms, "ms_rounds": call_ms[case],
-                    "device_ms": device_ms or None, "bound_ms": bound, "bound_bytes": nbytes,
-                    "bound_ops": nops, "library": libs[case][0], "library_ms": lms,
-                    "library_ms_rounds": lib_ms[case], "launches": case_launches[case]})
-        print(f"[kernel_lib] scatter_rows_multi on {case} ({tables} tables x {params['out_rows']} "
-              f"rows, rows {params['r0']}..{params['r0'] + params['nrows'] - 1} of a "
-              f"{arrays['pos'].shape[0]}-row tile): {ms:.4f} ms a call (median of {KL_ROUNDS} "
-              f"rounds, {min(call_ms[case]):.4f}-{max(call_ms[case]):.4f}), kernel alone "
-              f"{_or_not_measured(device_ms or None)}, bound {bound:.7f} ms ({nbytes} B), "
+        rec = {"case": case, "tables": tables, "nrows": params["nrows"], "ms": ms,
+               "ms_rounds": call_ms[case], "device_ms": device_ms or None, "bound_ms": bound,
+               "bound_bytes": nbytes, "bound_ops": nops, "library": libs[case][0],
+               "library_ms": lms, "library_ms_rounds": lib_ms[case],
+               "launches": case_launches[case], "ptxas": f"{frame}; {used}"}
+        if scatter:
+            plan = kl.scatter_plan(tables, 128 * params["out_rows"], 0)
+            rec.update(out_rows=params["out_rows"], grid=plan.grid, smem=plan.smem)
+            what = (f"{tables} tables x {params['out_rows']} rows, rows {params['r0']}.."
+                    f"{params['r0'] + params['nrows'] - 1} of a {arrays['pos'].shape[0]}-row tile")
+            layout = f"{plan.grid[0]} x {plan.grid[1]} blocks, {plan.smem} B of shared memory each"
+        else:
+            rows_in = arrays["t0"].shape[0]
+            rec.update(table_rows=rows_in)
+            what = (f"{tables} tables of ({rows_in}, 128), rows {params['r0']}.."
+                    f"{params['r0'] + params['nrows'] - 1} of a {arrays['idx'].shape[0]}-row "
+                    f"index tile")
+            layout = f"{tables} block row(s) of {128 * params['nrows']} threads"
+        out.append(rec)
+        print(f"[kernel_lib] {helper} on {case} ({what}): {ms:.4f} ms a call (median of "
+              f"{KL_ROUNDS} rounds, {min(call_ms[case]):.4f}-{max(call_ms[case]):.4f}), kernel "
+              f"alone {_or_not_measured(device_ms or None)}, bound {bound:.7f} ms ({nbytes} B), "
               f"{libs[case][0]} {lms:.4f} ms ({min(lib_ms[case]):.4f}-{max(lib_ms[case]):.4f}), "
               f"{ms / lms:.2f}x; {case_launches[case]} launch(es) in the main-path run, "
-              f"{plan.grid[0]} x {plan.grid[1]} blocks, "
-              f"{plan.smem} B of shared memory each; card {card}", flush=True)
+              f"{layout}; card {card}", flush=True)
     return out
 
 
 def _host_split(torch, kl, helper: str, a: dict, params: dict, n: int = 1000) -> dict:
-    """Microseconds of each host step of one call of a scatter helper on the
-    card on the arrays ``a``, as the wrapper takes it: each step alone ``n``
-    times on ``time.perf_counter_ns`` after a synchronise, then the whole
-    call.  ``scatter_sum_tile`` gets the JAX signature's bool mask."""
+    """Microseconds of each host step of one call of ``helper`` (a scatter,
+    ``gather_rows_multi`` or ``lane_gather``) on the card on the arrays
+    ``a``, as the wrapper takes it: each step alone ``n`` times on
+    ``time.perf_counter_ns`` after a synchronise, then the whole call.
+    ``scatter_sum_tile`` gets the JAX signature's bool mask."""
     from csnappy_tpu_torch.ops.primitives import _stream, as_int32
 
     def us(fn) -> float:
@@ -1084,13 +1138,13 @@ def _host_split(torch, kl, helper: str, a: dict, params: dict, n: int = 1000) ->
         pos, *vals = a.values()
         bits, r0, nrows, out_rows = params["bits"], params["r0"], params["nrows"], params["out_rows"]
         ops, limbs, off = (pos, *vals), 0, 4 * 128 * r0
-        masks = kl._masks7(tuple(bits))
+        masks = kl._masks(tuple(bits), 7)
         mask_ptr, mask_bytes, npos = None, 0, nrows * 128
-        steps["operand checks"] = lambda: (kl._operands(None, *ops), kl._masks7(tuple(bits)))
+        steps["operand checks"] = lambda: (kl._operands(None, *ops), kl._masks(tuple(bits), 7))
         steps["conversions"] = lambda: [kl._tile(x, dev, "x") for x in ops]
         steps["row offset"] = lambda: [x.data_ptr() + off for x in ops]
         call = lambda: kl.scatter_rows_multi(pos, list(zip(vals, bits)), r0, out_rows, nrows)
-    else:
+    elif helper == "scatter_sum_tile":
         pos, val = a["pos_row"], a["val_row"]
         mask = a["mask_row"] != 0
         vals, out_rows, off = [val], params["out_rows"], 0
@@ -1100,29 +1154,60 @@ def _host_split(torch, kl, helper: str, a: dict, params: dict, n: int = 1000) ->
         steps["conversions"] = lambda: (as_int32(pos, dev, "x"), as_int32(val, dev, "x"),
                                         kl._mask(mask, dev))
         call = lambda: kl.scatter_sum_tile(pos, val, mask, out_rows, params["bits"])
-    ntab, n_out = len(vals), out_rows * 128
-    shape = (n_out // 128, 128) if ntab == 1 else (ntab, n_out // 128, 128)
+    elif helper == "gather_rows_multi":
+        *tables, idx = a.values()
+        bits, r0, nrows = params["bits"], params["r0"], params["nrows"]
+        ops, off, masks = (idx, *tables), 4 * 128 * r0, kl._masks(tuple(bits))
+        steps["operand checks"] = lambda: (kl._operands(None, *ops), kl._masks(tuple(bits)))
+        steps["conversions"] = lambda: ([kl._tile(x, dev, "x") for x in ops[:2]]
+                                        + [as_int32(x, dev, "x") for x in ops[2:]])
+        steps["row offset"] = lambda: idx.data_ptr() + off
+        shape = (nrows, 128) if len(tables) == 1 else (len(tables), nrows, 128)
+        call = lambda: kl.gather_rows_multi(list(zip(tables, bits)), idx, r0, nrows)
+    else:                                       # lane_gather
+        x, idx = a.values()
+        tables, masks, off, shape = [x], (kl.FULL,), 0, tuple(idx.shape)
+        steps["operand checks"] = lambda: kl._operands(None, x, idx)
+        steps["conversions"] = lambda: (kl._tile(x, dev, "vals"), as_int32(idx, dev, "li"))
+        call = lambda: kl.lane_gather(x, idx)
+    if helper.startswith("scatter"):
+        ntab, n_out = len(vals), out_rows * 128
+        shape = (n_out // 128, 128) if ntab == 1 else (ntab, n_out // 128, 128)
+        ptrs = lambda: kl._PTRS(*(v.data_ptr() + off for v in vals))
+        ctypes_args = lambda: (ptrs(), kl._uints(masks), kl.scatter_plan(ntab, n_out, limbs).slice)
+        what = f"{ntab} table(s) x {out_rows} rows"
+    else:
+        ntab, entries = len(tables), tables[0].numel()
+        ptrs = lambda: kl._PTRS(*[t.data_ptr() for t in tables])
+        ctypes_args = lambda: (ptrs(), kl._uints(masks))
+        what = f"{ntab} table(s) of {tuple(tables[0].shape)}, {shape[-2] * shape[-1]} indices"
     out = torch.empty(shape, dtype=torch.int32, device=dev)
 
     def allocate():
-        o = pos.new_empty(shape)
-        return [o] if o.ndim == 2 else list(o.unbind(0))
+        o = out.new_empty(shape)
+        return [o] if len(shape) == 2 else list(o.unbind(0))
 
     steps["allocation"] = allocate
-    steps["ctypes arguments"] = lambda: (kl._PTRS(*(v.data_ptr() + off for v in vals)),
-                                         kl._uints(masks), kl.scatter_plan(ntab, n_out, limbs).slice)
+    steps["ctypes arguments"] = ctypes_args
     steps["device and stream"] = lambda: (dev.index == torch.cuda.current_device(),
                                           _stream(dev.index))
-    launch, check = kl._entry("scatter")
-    args = (pos.data_ptr() + off, mask_ptr, mask_bytes, npos,
-            kl._PTRS(*(v.data_ptr() + off for v in vals)), kl._uints(masks), ntab, limbs, n_out,
-            kl.scatter_plan(ntab, n_out, limbs).slice, out.data_ptr(), _stream(dev.index))
+    if helper.startswith("scatter"):
+        launch, check = kl._entry("scatter")
+        args = (pos.data_ptr() + off, mask_ptr, mask_bytes, npos, ptrs(), kl._uints(masks), ntab,
+                limbs, n_out, kl.scatter_plan(ntab, n_out, limbs).slice, out.data_ptr(),
+                _stream(dev.index))
+    else:
+        launch, check = kl._entry("gather")
+        nidx = out.numel() // ntab
+        mode = kl.GATHER_MODES["flat_clip" if helper == "gather_rows_multi" else "row_take"]
+        args = (ptrs(), kl._uints(masks), ntab, entries, idx.data_ptr() + off, nidx, shape[-1],
+                mode, out.data_ptr(), _stream(dev.index))
     steps["launch entry"] = lambda: check(launch(*args))
 
     split = {step: us(fn) for step, fn in steps.items()}
     whole = us(call)
     total = sum(split.values())
-    print(f"[kernel_lib] host split of one {helper} call ({ntab} table(s) x {out_rows} rows), "
+    print(f"[kernel_lib] host split of one {helper} call ({what}), "
           f"us (time.perf_counter_ns, {n} runs a step): "
           + "; ".join(f"{k} {v:.2f}" for k, v in split.items())
           + f"; the steps {total:.2f}, the whole call {whole:.2f} (the rest: Python between "

@@ -15,10 +15,14 @@
 //
 // What bounds them on this card: the launch.  A tile is a few thousand
 // operations; one block of 1024 threads does the work in microseconds,
-// against a launch cost of the same order.  The shift, scan and gather are
+// against a launch cost of the same order.  The shift and scan are
 // therefore the plain design: one block, every operand staged into shared
 // memory once with coalesced loads (at most the 232,448 bytes a block
-// has), results written straight to global memory.  The scatter is not
+// has), results written straight to global memory.  The gather stages
+// nothing: its tables (at most 1.7 MB at the JAX fused kernels' shapes,
+// csnappy_tpu/ops/decode_fused.py:387, decode_stream.py:255) sit in the
+// 50 MB L2 and each entry it needs is read about once, so a grid of
+// threads, one an index of one table, reads them in place.  The scatter is not
 // bound by a block: the JAX fused kernels scatter into 2-3 histograms of
 // 32,768-38,912 entries (csnappy_tpu/ops/decode_fused.py:470,
 // decode_stream.py:315, encode_fused.py:375), more than one block holds.
@@ -42,6 +46,7 @@ namespace {
 using namespace kernel_lib;
 
 constexpr int kBlock = 1024;
+constexpr int kGatherBlock = 128;              // a gather's threads a block: one an index
 constexpr int kMaxTables = 8;                  // decode_fused.py:387 gathers from eight
 constexpr int kSmemMax = 232448;               // a block's shared memory on the H100 (measured)
 constexpr int kSmemDefault = 48 * 1024;        // dynamic shared memory a launch takes unasked
@@ -72,54 +77,33 @@ scan_harness(const int32_t* __restrict__ x, ScanArgs a, int32_t* __restrict__ ou
   }
 }
 
+// The tables of a gather and their masks.
 struct Tables {
   const int32_t* tab[kMaxTables];
   uint32_t vmask[kMaxTables];
-  int32_t* out[kMaxTables];
 };
 
-// A table's element type in shared memory follows its mask: 1 byte for
-// 0xFF, 2 for 0xFFFF, else 4.
-__host__ __device__ __forceinline__ int elem_bytes(uint32_t vmask) {
-  return vmask == 0xFFu ? 1 : vmask == 0xFFFFu ? 2 : 4;
-}
-
-__host__ __device__ __forceinline__ int table_slot(int n, uint32_t vmask) {
-  return (n * elem_bytes(vmask) + 15) / 16 * 16;
-}
-
-// out_j[e] = gather(table_j, idx[e]) for the ntab tables of n entries,
-// every table staged at its own width; idx == nullptr: idx[e] = n - 1 - e
-// (flip2d).  Element e's row is e / width.
-__global__ void __launch_bounds__(kBlock)
-gather_harness(Tables t, int ntab, int n, const int32_t* __restrict__ idx, int nidx, int width,
-               int mode) {
-  extern __shared__ __align__(16) unsigned char gsmem[];
-  unsigned char* slot[kMaxTables];
-  int off = 0;
-  for (int j = 0; j < ntab; ++j) {
-    slot[j] = gsmem + off;
-    off += table_slot(n, t.vmask[j]);
-    const int w = elem_bytes(t.vmask[j]);
-    for (int f = threadIdx.x; f < n; f += kBlock) {
-      const uint32_t v = static_cast<uint32_t>(t.tab[j][f]) & t.vmask[j];
-      if (w == 1) slot[j][f] = static_cast<uint8_t>(v);
-      else if (w == 2) reinterpret_cast<uint16_t*>(slot[j])[f] = static_cast<uint16_t>(v);
-      else reinterpret_cast<int32_t*>(slot[j])[f] = static_cast<int32_t>(v);
+// Block (x, j): out[j * nidx + e] = gather(table_j, idx[e]) & vmask_j for
+// the kGatherBlock indices e of block x, table j (n entries) read where it
+// lies; idx == nullptr: idx[e] = n - 1 - e (flip2d).  Element e's row is
+// e / width.  A block row a table spreads a gather of 8 tables over 8 times
+// the SMs that one thread an index looping over the tables would use, for
+// a faster kernel at every JAX shape (PERF.md, the gather's layout).
+__global__ void __launch_bounds__(kGatherBlock)
+gather_harness(Tables t, int n, const int32_t* __restrict__ idx, int nidx, int width, int mode,
+               int32_t* __restrict__ out) {
+  const int e = blockIdx.x * kGatherBlock + threadIdx.x, j = blockIdx.y;
+  if (e >= nidx) return;
+  const int32_t* __restrict__ tab = nullptr;
+  uint32_t vmask = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxTables; ++k)            // a select, not a copy of t to the stack
+    if (k == j) {
+      tab = t.tab[k];
+      vmask = t.vmask[k];
     }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < nidx; e += kBlock) {
-    const int32_t ix = idx != nullptr ? idx[e] : n - 1 - e;
-    const int row = e / width;
-    for (int j = 0; j < ntab; ++j) {
-      const int w = elem_bytes(t.vmask[j]);
-      const uint32_t m = t.vmask[j];
-      t.out[j][e] = w == 1   ? gather(slot[j], n, mode, m, ix, row)
-                    : w == 2 ? gather(reinterpret_cast<const uint16_t*>(slot[j]), n, mode, m, ix, row)
-                             : gather(reinterpret_cast<const int32_t*>(slot[j]), n, mode, m, ix, row);
-    }
-  }
+  const int32_t ix = idx != nullptr ? idx[e] : n - 1 - e;
+  out[static_cast<size_t>(j) * nidx + e] = gather(tab, n, mode, vmask, ix, e / width);
 }
 
 
@@ -164,11 +148,11 @@ scatter_harness(Values v, const int32_t* __restrict__ pos, const void* __restric
   scatter_finish(hist, n, limbs, out + static_cast<size_t>(j) * n_out + lo);
 }
 
-// Launch `kernel` on `grid` blocks of kBlock threads with `smem` bytes of
+// Launch `kernel` on `grid` blocks of `threads` threads with `smem` bytes of
 // dynamic shared memory; returns the first CUDA error (cleared), or 0.  Above
 // the default 48 KB, the kernel's limit is raised to a block's maximum once
 // per device (a bit a device), not on every launch.
-template <auto kernel, typename... Args>
+template <auto kernel, int threads = kBlock, typename... Args>
 int run(dim3 grid, size_t smem, void* stream, Args... args) {
   if (smem > static_cast<size_t>(kSmemMax)) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > static_cast<size_t>(kSmemDefault)) {
@@ -185,19 +169,8 @@ int run(dim3 grid, size_t smem, void* stream, Args... args) {
       return static_cast<int>(e);
     }
   }
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The tables, their masks and outputs, from host arrays of ntab entries.
-Tables tables(const void* const* tab, const unsigned* vmask, void* const* out, int ntab) {
-  Tables t{};
-  for (int j = 0; j < ntab; ++j) {
-    t.tab[j] = static_cast<const int32_t*>(tab[j]);
-    t.vmask[j] = vmask[j];
-    t.out[j] = static_cast<int32_t*>(out[j]);
-  }
-  return t;
 }
 
 }  // namespace
@@ -232,17 +205,21 @@ int kernel_lib_scan_launch(const void* x, int rows, int op, int rounds,
                            static_cast<int32_t*>(t_out));
 }
 
-int kernel_lib_gather_launch(const void* const* tab, const unsigned* vmask,
-                             void* const* out, int ntab, int n, const void* idx,
-                             int nidx, int width, int mode, void* stream) {
-  if (ntab < 1 || ntab > kMaxTables || n <= 0 || width <= 0 || mode < kFlatZero ||
-      mode > kRowTake)
+// The ntab outputs are one array of ntab x nidx words.
+int kernel_lib_gather_launch(const void* const* tab, const unsigned* vmask, int ntab, int n,
+                             const void* idx, int nidx, int width, int mode, void* out,
+                             void* stream) {
+  if (ntab < 1 || ntab > kMaxTables || n <= 0 || nidx <= 0 || width <= 0 ||
+      mode < kFlatZero || mode > kRowTake)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Tables t = tables(tab, vmask, out, ntab);
-  size_t smem = 0;
-  for (int j = 0; j < ntab; ++j) smem += table_slot(n, t.vmask[j]);
-  return run<gather_harness>(dim3(1), smem, stream, t, ntab, n,
-                             static_cast<const int32_t*>(idx), nidx, width, mode);
+  Tables t{};
+  for (int j = 0; j < ntab; ++j) {
+    t.tab[j] = static_cast<const int32_t*>(tab[j]);
+    t.vmask[j] = vmask[j];
+  }
+  return run<gather_harness, kGatherBlock>(dim3((nidx - 1) / kGatherBlock + 1, ntab), 0, stream,
+                                           t, n, static_cast<const int32_t*>(idx), nidx, width,
+                                           mode, static_cast<int32_t*>(out));
 }
 
 // The ntab outputs are one array of ntab x n_out words; a block owns `slice`

@@ -162,7 +162,7 @@ enum GatherMode {
 };
 
 // The value at index `ix` of the element in row `row`: a table of n
-// entries in shared memory (uint8, uint16 or int32), & vmask.
+// entries (global or shared memory), & vmask.
 template <typename T>
 __device__ __forceinline__ int32_t gather(const T* tab, int n, int mode, uint32_t vmask,
                                           int32_t ix, int row) {

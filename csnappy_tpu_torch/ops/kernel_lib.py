@@ -39,18 +39,21 @@ Each helper takes int32 tensors or arrays and a ``device`` (None = the
 card, on the device its CUDA operands lie on): on the card it launches its
 harness on torch's current stream and counts the launch in
 ``launches[helper]``; on the CPU it runs the plain version; a CUDA tensor
-with ``device="cpu"`` raises.  On the card the shifts, scans and gathers
-stage a tile in one block's shared memory, so it must fit (``SMEM_MAX``
-bytes).  The two scatters take any ``out_rows`` and rows, 1 to 8 value
-tiles and limbs 0-4, while int32 indexing holds: their blocks each own a
-slice of one table's output (``scatter_plan``).  ``scatter_sum_tile`` takes
-its mask as bool, uint8, int8 or int32 without a conversion.
+with ``device="cpu"`` raises.  On the card the shifts and scans stage a
+tile in one block's shared memory, so it must fit (``SMEM_MAX`` bytes).
+The gathers read their 1 to 8 tables in place, one thread an index, and
+take any size while int32 indexing holds.  The two scatters take any
+``out_rows`` and rows, 1 to 8 value tiles and limbs 0-4, while int32
+indexing holds: their blocks each own a slice of one table's output
+(``scatter_plan``).  ``scatter_sum_tile`` takes its mask as bool, uint8,
+int8 or int32 without a conversion.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import json
+from math import prod
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -212,7 +215,7 @@ def _entry(kind: str):
     launch.argtypes = {
         "shift": [vp, i, i, i, i, u, vp, vp],
         "scan": [vp, i, i, i, u, u, u, i, i, vp, vp, vp, vp],
-        "gather": [vp, vp, vp, i, i, vp, i, i, i, vp],
+        "gather": [vp, vp, i, i, vp, i, i, i, vp, vp],
         "scatter": [vp, vp, i, i, vp, vp, i, i, i, i, vp, vp],
     }[kind]
     return launch, check
@@ -268,21 +271,32 @@ def _scan(helper: str, x, device, op: str, rounds: bool, in_mask: int, lane_mask
     return tuple(outs) if parts else outs[0]
 
 
-def _gather(helper: str, tables: list[torch.Tensor], vmasks: list[int], idx: torch.Tensor | None,
-            mode: str, dev: torch.device, like: torch.Tensor) -> list[torch.Tensor]:
-    """Gather each of ``tables`` (one shape) at ``idx`` (None: n - 1 - e,
-    flip2d); the outputs take ``like``'s shape."""
-    if dev.type == "cpu":
-        return [_gather_plain(t, idx, m, mode) for t, m in zip(tables, vmasks)]
+def _gather(helper: str, dev: torch.device, tables: list[torch.Tensor], vmasks: tuple[int, ...],
+            idx: torch.Tensor | None, mode: str, r0: int = 0,
+            nrows: int | None = None) -> torch.Tensor:
+    """Each of ``tables`` (one shape) at the indices of ``idx`` (None:
+    n - 1 - e, flip2d; with ``nrows``, only its 128-lane rows r0 ..
+    r0 + nrows - 1), in one of ``GATHER_MODES``: the kernel on the card, the
+    plain version on the CPU; returns one tensor of the indices' shape, or
+    for several tables one (tables, *shape) tensor."""
     n = tables[0].numel()
-    _fits(helper, sum((n * (1 if m == 0xFF else 2 if m == 0xFFFF else 4) + 15) // 16 * 16
-                      for m in vmasks))
-    outs = [torch.empty(like.shape, dtype=torch.int32, device=dev) for _ in tables]
-    _run(helper, dev, _PTRS(*(t.data_ptr() for t in tables)), _uints(tuple(vmasks)),
-         _PTRS(*(o.data_ptr() for o in outs)), len(tables), n,
-         None if idx is None else idx.data_ptr(), like.numel(), like.shape[-1],
-         GATHER_MODES[mode])
-    return outs
+    shape = (tables[0].shape if idx is None else idx.shape if nrows is None
+             else (nrows, *idx.shape[1:]))
+    if dev.type == "cpu":
+        ix = (torch.arange(n - 1, -1, -1, dtype=torch.int32).reshape(shape) if idx is None
+              else idx if nrows is None else idx[r0 : r0 + nrows])
+        outs = [_gather_plain(t, ix, m, mode) for t, m in zip(tables, vmasks)]
+        return outs[0] if len(outs) == 1 else torch.stack(outs)
+    nidx = prod(shape)
+    if n >= 1 << 31 or len(tables) * nidx >= 1 << 31:
+        raise ValueError(f"{helper}: {len(tables)} x {nidx} outputs from tables of {n} entries, "
+                         "outside int32 indexing")
+    out = tables[0].new_empty(shape if len(tables) == 1 else (len(tables), *shape))
+    if nidx:
+        _run(helper, dev, _PTRS(*[t.data_ptr() for t in tables]), _uints(vmasks), len(tables),
+             n, None if idx is None else idx.data_ptr() + 4 * L * r0, nidx, shape[-1],
+             GATHER_MODES[mode], out.data_ptr())
+    return out
 
 
 class ScatterPlan(NamedTuple):
@@ -451,7 +465,7 @@ def gather_flat(table, idx, bits: int, device=None) -> torch.Tensor:
     m = bits_mask(bits)
     dev = _operands(device, table, idx)
     table, idx = _tile(table, dev, "table"), as_int32(idx, dev, "idx")
-    return _gather("gather_flat", [table], [m], idx, "flat_zero", dev, idx)[0]
+    return _gather("gather_flat", dev, [table], (m,), idx, "flat_zero")
 
 
 def local_gather_rows(vals, li, device=None) -> torch.Tensor:
@@ -473,7 +487,7 @@ def _row_gather(helper: str, vals, li, mode: str, device) -> torch.Tensor:
     if li.ndim != 2 or li.shape[0] != vals.shape[0] or li.shape[1] == 0:
         raise ValueError(f"{helper}: the index must be ({vals.shape[0]}, E >= 1), got "
                          f"{tuple(li.shape)}")
-    return _gather(helper, [vals], [FULL], li, mode, dev, li)[0]
+    return _gather(helper, dev, [vals], (FULL,), li, mode)
 
 
 def flip2d(x, bits: int = 16, device=None) -> torch.Tensor:
@@ -481,10 +495,7 @@ def flip2d(x, bits: int = 16, device=None) -> torch.Tensor:
     bits (``kernel_lib.py:367``)."""
     m = bits_mask(bits)
     dev = _operands(device, x)
-    x = _tile(x, dev, "x")
-    if dev.type == "cpu":
-        return _wrap(_keep(x.reshape(-1).long(), m).flip(0)).reshape(x.shape)
-    return _gather("flip2d", [x], [m], None, "flat_zero", dev, x)[0]
+    return _gather("flip2d", dev, [_tile(x, dev, "x")], (m,), None, "flat_zero")
 
 
 def gather_rows_multi(tables_bits, idx, r0: int, nrows: int = 8, pre=None,
@@ -497,19 +508,24 @@ def gather_rows_multi(tables_bits, idx, r0: int, nrows: int = 8, pre=None,
     tables_bits = list(tables_bits)
     if not 1 <= len(tables_bits) <= 8:
         raise ValueError(f"gather_rows_multi: 1 to 8 tables, got {len(tables_bits)}")
-    masks = [bits_mask(b) for _, b in tables_bits]
+    masks = _masks(tuple([b for _, b in tables_bits]))
     dev = _operands(device, idx, *(t for t, _ in tables_bits))
-    tables = [_tile(t, dev, "table") for t, _ in tables_bits]
+    first = _tile(tables_bits[0][0], dev, "table")     # the others must have its shape
+    tables = [first] + [as_int32(t, dev, "table") for t, _ in tables_bits[1:]]
     idx = _tile(idx, dev, "idx")
-    if any(t.shape != tables[0].shape for t in tables):
+    shape = first.shape
+    if any([t.shape != shape for t in tables]):
         raise ValueError("gather_rows_multi: tables differ in shape: "
                          f"{[tuple(t.shape) for t in tables]}")
     if r0 < 0 or nrows < 1 or r0 + nrows > idx.shape[0]:
         raise ValueError(f"gather_rows_multi: rows {r0}..{r0 + nrows - 1} outside idx's "
                          f"{idx.shape[0]}")
-    rows = idx[r0 : r0 + nrows]
-    rows = as_int32(pre(rows), dev, "pre(idx)") if pre is not None else rows.contiguous()
-    return _gather("gather_rows_multi", tables, masks, rows, "flat_clip", dev, rows)
+    if pre is None:                                 # rows r0.. of the contiguous tile, in place
+        out = _gather("gather_rows_multi", dev, tables, masks, idx, "flat_clip", r0, nrows)
+    else:
+        rows = as_int32(pre(idx[r0 : r0 + nrows]), dev, "pre(idx)")
+        out = _gather("gather_rows_multi", dev, tables, masks, rows, "flat_clip")
+    return [out] if len(tables) == 1 else list(out.unbind(0))
 
 
 # ----------------------------------------------------------------- scatters
@@ -525,7 +541,7 @@ def scatter_rows_multi(pos, vals_bits, r0: int, out_rows: int, nrows: int = 8,
     vals_bits = list(vals_bits)
     if not 1 <= len(vals_bits) <= 8:
         raise ValueError(f"scatter_rows_multi: 1 to 8 value tiles, got {len(vals_bits)}")
-    masks = _masks7(tuple([b for _, b in vals_bits]))
+    masks = _masks(tuple([b for _, b in vals_bits]), 7)
     vals = [v for v, _ in vals_bits]
     dev = _operands(device, pos, *vals)
     pos = _tile(pos, dev, "pos")
@@ -545,8 +561,8 @@ def scatter_rows_multi(pos, vals_bits, r0: int, out_rows: int, nrows: int = 8,
 
 
 @functools.cache
-def _masks7(bits: tuple[int, ...]) -> tuple[int, ...]:
-    return tuple(bits_mask(b, 7) for b in bits)
+def _masks(bits: tuple[int, ...], limb: int = 8) -> tuple[int, ...]:
+    return tuple(bits_mask(b, limb) for b in bits)
 
 
 _MASK_BYTES = {torch.bool: 1, torch.uint8: 1, torch.int8: 1, torch.int32: 4}

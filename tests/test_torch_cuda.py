@@ -662,8 +662,8 @@ def test_kernel_lib_kernel_equals_fixture(card, kl_cases, helper):
 
 def test_kernel_lib_kernels_on_wide_tiles(card):
     # tiles larger than the JAX tests', random over all of int32, against the
-    # plain versions; the scatters at the JAX fused kernels' shapes and past
-    # one block's shared memory; a scan tile past it raises
+    # plain versions; the scatters and gathers at the JAX fused kernels'
+    # shapes and past one block's shared memory; a scan tile past it raises
     rng = np.random.default_rng(11)
 
     def ints(lo, hi, shape):
@@ -726,6 +726,27 @@ def test_kernel_lib_kernels_on_wide_tiles(card):
         got = kl.scatter_sum_tile(torch.from_numpy(pos).to(card), torch.from_numpy(val).to(card),
                                   torch.from_numpy(m).to(card), 256, 32)
         assert got.is_cuda and torch.equal(got.cpu(), want), m.dtype
+    # the gathers past one block's 232,448 B, one launch each:
+    # gather_rows_multi at decode_fused.py:387 (8 x (256, 128)) and
+    # decode_stream.py:255 (2 x (1664, 128)), indices partly out of range
+    for rows_in, bits in ((256, [17, 16] * 4), (1664, [29, 17])):
+        tabs = [ints(-(2**31), 2**31, (rows_in, 128)) for _ in bits]
+        idx = ints(-500, rows_in * 128 + 500, (64, 128))
+        before = kl.launches["gather_rows_multi"]
+        got = kl.gather_rows_multi([(torch.from_numpy(t).to(card), b) for t, b in zip(tabs, bits)],
+                                   torch.from_numpy(idx).to(card), 16, nrows=16)
+        assert kl.launches["gather_rows_multi"] == before + 1
+        want = kl.gather_rows_multi(list(zip(tabs, bits)), idx, 16, nrows=16, device="cpu")
+        assert len(got) == len(bits) and all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    big = ints(-(2**31), 2**31, (1664, 128))
+    for helper, args in (("lane_gather", (big, ints(-300, 300, (1664, 128)))),
+                         ("local_gather_rows", (big, ints(-5, 133, (1664, 128)))),
+                         ("gather_flat", (big, ints(-10, 1664 * 128 + 10, (16, 128)), 24)),
+                         ("flip2d", (big, 16))):
+        fn, before = kl.HELPERS[helper].wrapper, kl.launches[helper]
+        got = fn(*(torch.from_numpy(a).to(card) if isinstance(a, np.ndarray) else a for a in args))
+        assert kl.launches[helper] == before + 1, helper
+        assert got.is_cuda and torch.equal(got.cpu(), fn(*args, device="cpu")), helper
     with pytest.raises(ValueError, match="shared memory"):
         kl.scan2d_mm(torch.zeros((300, 128), dtype=torch.int32, device=card))
 

@@ -247,6 +247,12 @@ def test_answers_outside_the_contracts():
     t0 = BY_CASE["grm_clip"][2]["t0"].reshape(-1)
     assert list(_out("grm_clip", 0)[0, :3]) == [t0[2047] & 0xFF, t0[0] & 0xFF, t0[0] & 0xFF]
     assert _out("grm_clip", 2)[0, 0] == BY_CASE["grm_clip"][2]["t2"].reshape(-1)[2047]
+    # and at decode_stream.py:255's shape: index row 18 (output row 2) holds
+    # -1, -300, 1664 * 128 and 1664 * 128 - 1; 29 bits keep 32, 17 keep 24
+    t0, t1 = (BY_CASE["grm_r1664_clip"][2][k].reshape(-1) for k in ("t0", "t1"))
+    assert list(_out("grm_r1664_clip", 0)[2, :4]) == [t0[0], t0[0], t0[-1], t0[-1]]
+    assert list(_out("grm_r1664_clip", 1)[2, :4]) == [t1[0] & 0xFFFFFF] * 2 + [
+        t1[-1] & 0xFFFFFF] * 2
     # local_gather_rows: lanes outside [0, 128) give 0; lane_gather: -128..-1
     # count from the end, the rest INT32_MIN
     vals, li = BY_CASE["lgr_oob"][2].values()
@@ -420,11 +426,16 @@ def _case_digest(z, cases) -> str:
 
 
 def test_earlier_fixture_cases_are_byte_identical():
-    # the 66 cases written before the main-path scatter cases, names,
-    # parameters, inputs and JAX answers, exactly as they were first stored
+    # the 66 cases written before the main-path scatter cases, and the 70
+    # written before the main-path gather cases: names, parameters, inputs
+    # and JAX answers, exactly as they were first stored
     with np.load(ROOT / "tests" / "data" / "torch_ref" / "kernel_lib.npz") as z:
         cases = list(zip(z["cases"], z["helpers"], z["args"], z["params"]))
         assert _case_digest(z, cases[:66]) == (
             "df4596b48102d3a766da0212d4f3be5c999120aa94c520b7b0aa39347787bde7")
-        assert [str(c[0]) for c in cases[66:]] == [
+        assert [str(c[0]) for c in cases[66:70]] == [
             "srm_dec_co256", "srm_stream_co256_t3", "srm_enc_ocr304_t3", "srm_co256_dup"]
+        assert _case_digest(z, cases[:70]) == (
+            "c775ad82d2bb3dc7913812469aee370969653e6a183ab581366fa6a20bcb41fb")
+        assert [str(c[0]) for c in cases[70:]] == [
+            "grm_dec_ci256_t8", "grm_stream_r1664_t2", "grm_stream_r1664_t1", "grm_r1664_clip"]

@@ -45,7 +45,8 @@ Writes ``tests/data/torch_ref/``:
   :137), on every parametrised case of ``tests/test_kernel_lib.py`` and on
   the constructed cases of :func:`build_kernel_lib_cases` (answers outside
   the helpers' contracts, the helpers no JAX test runs, and
-  ``scatter_rows_multi`` at the shapes the JAX fused kernels give it).
+  ``scatter_rows_multi`` and ``gather_rows_multi`` at the shapes the JAX
+  fused kernels give them).
 
 The tests rebuild the inputs from the seed, check them against the stored
 copies (drift check), then hold the port against the stored outputs.
@@ -1153,7 +1154,12 @@ def _kernel_lib_main_path() -> list[tuple[str, str, dict, dict]]:
     with: 16 rows of a 64-row position tile into 256 or 304 output rows
     (csnappy_tpu/ops/decode_fused.py:470, decode_stream.py:315,
     encode_fused.py:375), unique positions masked by the -1 sentinel as the
-    callers mask; then duplicates, out-of-range positions and wide values."""
+    callers mask; then duplicates, out-of-range positions and wide values.
+    Then ``gather_rows_multi`` at its call sites' shapes, rows 16..31 of a
+    64-row index tile with no ``pre``: 8 tables of (256, 128)
+    (decode_fused.py:387), 2 and 1 of (1664, 128) (decode_stream.py:255,
+    :270), values over all of int32; then indices from -300 to past the
+    table's end, repeated rows among them."""
     rng = np.random.default_rng(SEED + 9)
 
     def ints(lo, hi, shape):
@@ -1169,7 +1175,7 @@ def _kernel_lib_main_path() -> list[tuple[str, str, dict, dict]]:
     dup = ints(-300, 256 * 128 + 300, (64, 128))
     dup[16:32:3] = dup[17]                                # whole rows repeated
     dup[20, :40] = -1
-    return [
+    cases = [
         ("srm_dec_co256", "scatter_rows_multi",
          {"pos": unique(256), "v0": ints(0, 1 << 31, (64, 128)), "v1": ints(0, 1 << 18, (64, 128))},
          rows(256, [31, 18])),
@@ -1183,6 +1189,21 @@ def _kernel_lib_main_path() -> list[tuple[str, str, dict, dict]]:
          {"pos": dup, "v0": ints(-(1 << 31), 1 << 31, (64, 128)),
           "v1": ints(-(1 << 31), 1 << 31, (64, 128))},
          rows(256, [31, 18])),
+    ]
+
+    def gather(rows_in, bits, idx=None):
+        tabs = {f"t{k}": ints(-(1 << 31), 1 << 31, (rows_in, 128)) for k in range(len(bits))}
+        idx = ints(0, rows_in * 128, (64, 128)) if idx is None else idx
+        return {**tabs, "idx": idx}, {"bits": bits, "r0": 16, "nrows": 16}
+
+    clip = ints(-300, 1664 * 128 + 300, (64, 128))
+    clip[16:32:3] = clip[17]                              # whole rows repeated
+    clip[18, :4] = (-1, -300, 1664 * 128, 1664 * 128 - 1)
+    return cases + [
+        ("grm_dec_ci256_t8", "gather_rows_multi", *gather(256, [17, 16] * 4)),
+        ("grm_stream_r1664_t2", "gather_rows_multi", *gather(1664, [29, 17])),
+        ("grm_stream_r1664_t1", "gather_rows_multi", *gather(1664, [18])),
+        ("grm_r1664_clip", "gather_rows_multi", *gather(1664, [29, 17], clip)),
     ]
 
 
