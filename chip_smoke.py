@@ -12,24 +12,34 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              urls.10K.snappy's body.  Each kernel result must equal the plain
              version run on CPU copies: every output byte, ``produced`` and
              ``status`` (exact: bytes have no tolerance);
-3. encode  — ``encode_blocks`` on the same B=64 x 32 KiB batch, equal byte
-             for byte to the plain version, and ``compress_np(urls.10K)``
+3. encode  — ``encode_blocks`` (one kernel, ``csrc/encode_blocks.cu``) on the
+             same B=64 x 32 KiB batch, equal byte for byte to the plain
+             version (tensor-op preparation, plain walk), ``compress_np(urls.10K)``
              byte-identical to the JAX package's stream (the committed
-             fixture, 354,567 B);
+             fixture, 354,567 B), the e1k, e4k and eadv groups of
+             ``tests/data/torch_ref/blocks.npz`` equal to the JAX encoder's
+             rows and to the plain version, and urls.10K as 4 KiB pages (as
+             the container calls it) equal to the plain version;
 4. main path — with every launch count set to 0, through the entry points a
              user calls (device=None, so the card): ``encode_blocks`` and
              ``decode_blocks`` on the B=64 batch from host arrays,
              ``api.compress(urls.10K)`` equal to the fixture,
              ``api.decompress(urls.10K.snappy)`` equal to urls.10K, a 32 KiB
              fragment and the unaligned vector round-trip; every kernel of
-             the path must have launched;
+             the path must have launched; then ``torch.profiler`` counts the
+             device kernels of one ``encode_blocks`` call on card tensors:
+             exactly one, the encoder's, and no sort, scan, gather or scatter;
 5. times   — median of 20 CUDA-event-timed launches after warm-up for each
              kernel at the main path's shapes (inputs resident in L2), the
              plain version's time on the host, and the bound: the larger of
              the bytes the function must move over 3.35 TB/s and one
              operation per byte over 67 TOP/s (H100 SXM data sheet).  The
-             serial chain (tags or commits of the longest block) is counted
-             and printed beside it;
+             serial chain (tags of the longest block; for the encoder, twice
+             the longest of its 32 walk segments' commits plus 32 steps) is
+             counted and printed beside it; for the encoder also its kernel
+             alone (torch.profiler), a whole call and a lone call (host clock,
+             synchronised), its shared memory at 32 KiB and 4 KiB blocks and
+             the SM cycles of its phases (``clock64()`` stamps);
 6. whole streams — on every stream of ``tests/data/torch_ref/streams.npz``:
              ``scan_segments.cu`` equal to its plain walk and to the JAX
              scan (``seg``, ``meta``), ``decode_ws`` bytes-or-None equal to
@@ -177,6 +187,42 @@ def _tags(frag: bytes) -> tuple[int, int]:
             copies += 1
             ip += (2, 3, 5)[kind - 1]
     return tags, copies
+
+
+def _copy_starts(frag: bytes) -> list[int]:
+    """Output positions of the copies of a valid headerless stream (the
+    encoder's commits)."""
+    ip = op = 0
+    out = []
+    while ip < len(frag):
+        tag = frag[ip]
+        kind = tag & 3
+        if kind == 0:
+            u = tag >> 2
+            nb = max(0, u - 59)
+            ln = int.from_bytes(frag[ip + 1 : ip + 1 + nb], "little") + 1 if nb else u + 1
+            ip += 1 + nb + ln
+            op += ln
+        else:
+            out.append(op)
+            op += (((tag >> 2) & 7) + 4) if kind == 1 else (tag >> 2) + 1
+            ip += (2, 3, 5)[kind - 1]
+    return out
+
+
+def _device_kernels(torch, fn) -> dict:
+    """Device kernels (not copies or fills) of one ``fn()`` call on the card,
+    by name, with their launch counts, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith(("Memcpy", "Memset"))}
 
 
 def _smi(query: str) -> str:
@@ -1231,7 +1277,7 @@ def main() -> int:
     from csnappy_tpu_torch.models import pymodel, wire
     from csnappy_tpu_torch.ops import _build, decode_fused, encode_fused
     from csnappy_tpu_torch.runtime import native
-    from csnappy_tpu_torch.tools.timing import time_ms
+    from csnappy_tpu_torch.tools.timing import device_profile, time_ms
 
     dev = torch.device("cuda")
     card = _smi("name,power.limit,clocks.max.sm")
@@ -1320,11 +1366,36 @@ def main() -> int:
     err_enc = int((ec.cpu().int() - pc.int()).abs().max())
     assert err_enc == 0, f"encode bytes differ (max abs err {err_enc})"
     commits = [_tags(ec[i, : int(en[i])].cpu().numpy().tobytes())[1] for i in range(B)]
+    seg = BS // 32                            # the kernel walks 32 segments side by side
+    seg_max = max(int(np.bincount(np.array(_copy_starts(ec[i, : int(en[i])].cpu().numpy()
+                                                        .tobytes()), np.int64) // seg,
+                                  minlength=32).max())
+                  for i in range(B))
     stream = encode_fused.compress_np(urls, device=dev)
     assert stream == fixture, f"compress_np: {len(stream)} B, not the fixture's {len(fixture)} B"
     print(f"[encode] B=64 x 32 KiB equal to plain ({int(en.sum())} B); compress_np(urls.10K) "
           f"= {len(stream)} B, byte-identical to the JAX fixture; commits/block max "
-          f"{max(commits)}", flush=True)
+          f"{max(commits)}, commits/segment of {seg} B max {seg_max}", flush=True)
+    with np.load(DATA / "torch_ref" / "blocks.npz") as z:
+        for group in ("e1k", "e4k", "eadv"):
+            gd, gl = z[f"{group}_data"], z[f"{group}_lens"]
+            gc, gn = encode_fused.encode_blocks(torch.from_numpy(gd).to(dev), gl, device=dev)
+            wc, wn = encode_fused.encode_blocks(gd, gl, device="cpu")
+            assert gn.cpu().tolist() == wn.tolist() == z[f"{group}_clen"].tolist(), group
+            assert np.array_equal(gc.cpu().numpy(), z[f"{group}_comp"]), group
+            assert torch.equal(gc.cpu(), wc), group
+    nr = -(-len(urls) // PAGE)                # urls.10K as the container pages it
+    pages = np.zeros((nr * PAGE,), np.uint8)
+    pages[: len(urls)] = np.frombuffer(urls, np.uint8)
+    pages = pages.reshape(nr, PAGE)
+    plens = np.full((nr,), PAGE, np.int32)
+    plens[-1] = len(urls) - (nr - 1) * PAGE
+    gc, gn = encode_fused.encode_blocks(torch.from_numpy(pages).to(dev), plens, device=dev)
+    wc, wn = encode_fused.encode_blocks(pages, plens, device="cpu")
+    assert torch.equal(gn.cpu(), wn) and torch.equal(gc.cpu(), wc), "4 KiB pages differ"
+    print(f"[encode] the JAX fixtures' e1k, e4k and eadv groups equal on the card (and the "
+          f"plain version); urls.10K as {nr} pages of {PAGE} B equal to plain "
+          f"({int(gn.sum())} B)", flush=True)
 
     # -------------------------------------------------------- 4. main path
     wrappers = {"decode_blocks": decode_fused.decode_blocks,
@@ -1345,6 +1416,14 @@ def main() -> int:
     assert all(n > 0 for n in launches.values()), launches
     print(f"[main] B=64 batch and api compress/decompress end to end on the card; "
           f"launches {launches}", flush=True)
+    data_dev, blens_np = data.to(dev), blens.numpy()
+    enc_kernels = _device_kernels(torch, lambda: encode_fused.encode_blocks(data_dev, blens_np))
+    assert len(enc_kernels) == 1 and list(enc_kernels.values()) == [1], enc_kernels
+    assert "encode_kernel" in next(iter(enc_kernels)), enc_kernels
+    assert not any(w in k.lower() for k in enc_kernels
+                   for w in ("sort", "scan", "gather", "scatter", "cum", "reduce")), enc_kernels
+    print(f"[main] one encode_blocks call on card tensors runs {sum(enc_kernels.values())} "
+          f"device kernel: {enc_kernels} (torch.profiler; copies not counted)", flush=True)
 
     # ------------------------------------------------------------ 5. times
     flat = comp.to(dev).reshape(-1)
@@ -1361,13 +1440,44 @@ def main() -> int:
         decode_fused.decode_segments, body_dev, offs_s, lens_s, dl_s, BS))
     seg_plain = _host_ms(lambda: decode_fused.decode_segments(body, offs, slens, sdl,
                                                               device="cpu"))
-    data_dev, blens_dev = data.to(dev), blens.to(dev)
-    in1, nc = encode_fused.prep(data_dev, blens_dev)
-    ow = encode_fused.ocap(BS)
-    kern_ms = time_ms(lambda: encode_fused._launch(data_dev, blens_dev, in1, nc, ow))
-    prep_ms = time_ms(lambda: encode_fused.prep(data_dev, blens_dev))
-    enc_ms = time_ms(lambda: encode_fused._launch(
-        data_dev, blens_dev, *encode_fused.prep(data_dev, blens_dev), ow))
+    blens_dev = blens.to(dev)
+    ow, wcap = encode_fused.ocap(BS), encode_fused.walk_cap(BS)
+    enc_ms = time_ms(lambda: encode_fused._launch(data_dev, blens_dev, BS, ow, wcap))
+    enc_call_ms = time_ms(lambda: encode_fused.encode_blocks(data_dev, blens_np))
+
+    def lone() -> float:                      # one call alone: host clock, synchronised
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode_fused.encode_blocks(data_dev, blens_np)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    enc_lone_ms = statistics.median(lone() for _ in range(20))
+    enc_kernel_ms = sum(device_profile(lambda: encode_fused._launch(
+        data_dev, blens_dev, BS, ow, wcap))["kernels"].values()) or None
+    pages_dev, plens_dev = torch.from_numpy(pages).to(dev), torch.from_numpy(plens).to(dev)
+    pages_ms = time_ms(lambda: encode_fused._launch(pages_dev, plens_dev, PAGE,
+                                                    encode_fused.ocap(PAGE),
+                                                    encode_fused.walk_cap(PAGE)))
+    print(f"[times] encode_blocks on urls.10K as {nr} pages of {PAGE} B (the container's "
+          f"shape): {pages_ms:.4f} ms", flush=True)
+    for what, x, xl, bs_ in (("B=64 x 32 KiB", data_dev, blens_dev, BS),
+                             (f"{nr} x 4 KiB", pages_dev, plens_dev, PAGE)):
+        stamps = torch.zeros((len(xl), encode_fused.STAMPS), dtype=torch.int64, device=dev)
+        encode_fused._launch(x, xl, bs_, encode_fused.ocap(bs_), encode_fused.walk_cap(bs_),
+                             stamps)
+        clk = stamps.cpu().numpy()[:, : len(encode_fused.PHASES) + 1]
+        cyc = np.diff(clk, axis=1)
+        slow = int(np.argmax(clk[:, -1] - clk[:, 0]))
+        cycles = {name: [int(cyc[slow, i]), int(np.median(cyc[:, i]))]
+                  for i, name in enumerate(encode_fused.PHASES)}
+        if bs_ == BS:                                       # the main path's go in the row
+            phases = cycles
+        print(f"[times] encode_kernel phases at {what}, SM cycles (slowest block {slow}: "
+              f"{int(clk[slow, -1] - clk[slow, 0])} in all; median block beside): {cycles}",
+              flush=True)
+    print(f"[times] encode_kernel shared memory {encode_fused.smem_bytes(BS)} B at bs = {BS}, "
+          f"{encode_fused.smem_bytes(PAGE)} B at bs = {PAGE} (dynamic; ptxas above)", flush=True)
     enc_plain = _host_ms(lambda: encode_fused.encode_blocks(data, blens, device="cpu"))
 
     rows = []
@@ -1380,7 +1490,7 @@ def main() -> int:
         ("decode_segments", "csnappy_tpu/ops/decode_fused.py:782", seg_ms, seg_plain,
          len(body) + 16 * nseg, nseg * BS + 8 * nseg, max(seg_tags), err_seg),
         ("encode_blocks", "csnappy_tpu/ops/encode_fused.py:602", enc_ms, enc_plain,
-         B * BS + 4 * B, B * ow + 8 * B, max(commits), err_enc),
+         B * BS + 4 * B, B * ow + 8 * B, 2 * seg_max + 32, err_enc),
     ):
         bound_ms, bound_by = _bound(nin + nout)
         src = "csnappy_tpu_torch/csrc/" + ("encode" if name == "encode_blocks" else "decode") \
@@ -1392,12 +1502,17 @@ def main() -> int:
                "library_ms": None, "GBps": useful / (ms * 1e-3) / 1e9,
                "bytes": nin + nout, "chain_steps": steps}
         if name == "encode_blocks":
-            row.update(kernel_ms=kern_ms, prep_ms=prep_ms)
+            row.update(kernel_ms=enc_kernel_ms, call_ms=enc_call_ms, lone_ms=enc_lone_ms,
+                       commits_max=max(commits), phases_cycles=phases,
+                       smem_bytes=encode_fused.smem_bytes(BS))
         rows.append(row)
         print(f"[times] {name}: {ms:.4f} ms ({row['GBps']:.3f} GB/s of uncompressed bytes), "
               f"plain {plain_ms:.1f} ms (host CPU), bound {row['bound_ms']:.5f} ms by "
               f"{row['bound_by']} ({nin + nout} B), serial chain {steps} steps"
-              + (f"; kernel {kern_ms:.4f} ms + prep {prep_ms:.4f} ms"
+              + (f" (2 x the longest segment's {seg_max} commits + 32; the longest block's "
+                 f"{max(commits)} commits walked by one thread); kernel alone "
+                 f"{_or_not_measured(enc_kernel_ms)}, a call {enc_call_ms:.4f} ms (CUDA "
+                 f"events), a lone call {enc_lone_ms:.4f} ms (host clock)"
                  if name == "encode_blocks" else ""), flush=True)
     print(f"[times] card {name_}, power limit {power_}, max SM clock {clock_}", flush=True)
 

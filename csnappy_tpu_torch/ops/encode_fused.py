@@ -1,22 +1,26 @@
-"""Batched independent-block Snappy encode: tensor-op preparation, then the
-CUDA kernel (or its plain version).
+"""Batched independent-block Snappy encode: one CUDA kernel from the raw
+bytes to the stream on the card, tensor ops and a plain walk on the CPU.
 
 Port of ``csnappy_tpu/ops/encode_fused.py``; the stream is byte-identical to
-it (354,567 B on urls.10K).  Two stages:
+it (354,567 B on urls.10K).
 
-1. :func:`prep` — PyTorch tensor ops on the block's device, the
-   counterpart of the XLA preparation in front of the Pallas kernel
-   (``encode_fused.py:492-600``).  Every position's most recent prior
-   occurrence of its 4-byte window comes from ONE sort of the unique key
-   ``window << 15 | pos``; the LCP against it reads ``EXTRAS`` further
-   windows; a reverse segmented cummax (the staircase) extends matches
-   through runs of consecutive candidates; lazy deferral drops a match when
-   the next position's is >= 2 longer; a reverse cummin gives ``nc``, the
-   next position that has a match.  Output, per position:
-   ``in1 = cand | ml << 15 | has << 22`` and ``nc``.
-2. the greedy walk and emission — ``csrc/encode_blocks.cu`` on a CUDA
-   tensor, :func:`emit_plain` on a CPU tensor.  Its source comment says what
-   bounds it on the card and what its design does about that.
+* On a CUDA tensor, :func:`encode_blocks` launches ``csrc/encode_blocks.cu``
+  once: one thread block per Snappy block finds every position's most recent
+  prior equal 4-byte window (a stable radix sort of the positions in shared
+  memory), its LCP, the staircase, lazy deferral and the next-candidate
+  table, then walks the greedy commits and writes the records.  Its source
+  comment says what bounds it on the card and what its design does about
+  that.
+* On a CPU tensor the plain version runs: :func:`prep`, the counterpart of
+  the XLA preparation in front of the Pallas kernel
+  (``encode_fused.py:492-600``) — every position's most recent prior
+  occurrence of its 4-byte window from ONE sort of the unique key
+  ``window << 15 | pos``, the LCP from ``EXTRAS`` further windows, a reverse
+  segmented cummax (the staircase) through runs of consecutive candidates,
+  lazy deferral when the next position's match is >= 2 longer, a reverse
+  cummin for ``nc``, the next position that has a match; output, per
+  position, ``in1 = cand | ml << 15 | has << 22`` and ``nc`` — then
+  :func:`emit_plain`, the successor table, the greedy walk and the records.
 
 The TPU kernel's pair fusion (two commits per walk step) changes how many
 steps its walk takes, never the parse, so it has no counterpart here.
@@ -33,9 +37,15 @@ from ..config import refuse_card_tensors, resolve_device
 from ..errors import E_DATA_MALFORMED, SnappyError
 from ..models import wire
 from . import _build
+from .primitives import _stream
 
 NOCAND = 0x7FFF   # candidate sentinel
 EXTRAS = 2        # carried LCP windows, as the JAX package (direct LCP cap 4 + 4 * EXTRAS)
+# the kernel's SM clock stamps a block (kStamps of encode_blocks.cu): at its
+# start, then after each of these phases (``stamps`` of ``_launch``)
+PHASES = ("staged", "sorted", "cand_lcp", "breaks", "staircase", "deferral_nc_T", "entries",
+          "chain", "commits", "scan", "records", "zeroed")
+STAMPS = 16
 
 
 def ocap(bs: int) -> int:
@@ -107,6 +117,12 @@ def prep(data: torch.Tensor, blens: torch.Tensor) -> tuple[torch.Tensor, torch.T
     return in1, nc.to(torch.int32)
 
 
+def walk_cap(bs: int) -> int:
+    """Commits a block's walk may take: each covers >= 4 bytes, so bs // 4 + 1
+    bounds every valid parse; one more means a broken preparation."""
+    return bs // 4 + 1
+
+
 def encode_blocks(data, blens, hash_bits: int = 16, device=None):
     """Compress B independent fragments.
 
@@ -128,44 +144,61 @@ def encode_blocks(data, blens, hash_bits: int = 16, device=None):
     if lens.shape != (B,) or ((lens < 0) | (lens > bs0)).any():
         raise ValueError("blens must be B lengths in [0, bs]")
     bs = max(bs0 + 1023, 1024) // 1024 * 1024
-    data_t = torch.nn.functional.pad(t.to(dev), (0, bs - bs0)).contiguous()
     lens_t = torch.from_numpy(lens.astype(np.int32)).to(dev)
     if B == 0:
         return torch.zeros((0, ocap(bs)), dtype=torch.uint8, device=dev), lens_t
-    in1, nc = prep(data_t, lens_t)
     if dev.type == "cpu":
-        comp, clen, fail = emit_plain(data_t, lens_t, in1, nc, ocap(bs))
-    else:
-        comp, clen, fail = _launch(data_t, lens_t, in1, nc, ocap(bs))
-    if bool(fail.any()):
+        data_t = torch.nn.functional.pad(t, (0, bs - bs0)).contiguous()
+        comp, clen, fail = emit_plain(data_t, lens_t, *prep(data_t, lens_t), ocap(bs))
+    else:                       # the kernel pads the row to bs itself: one launch a call
+        comp, clen, fail = _launch(t.to(dev).contiguous(), lens_t, bs, ocap(bs), walk_cap(bs))
+    bad = np.nonzero(fail.cpu().numpy())[0]
+    if bad.size:
         # the walk bound holds for every valid preparation: this is an
         # internal invariant break, surfaced through the codec's error codes
-        bad = torch.nonzero(fail).reshape(-1).tolist()
-        raise SnappyError(E_DATA_MALFORMED, f"encoder walk exhausted its bound (blocks {bad})")
+        raise SnappyError(E_DATA_MALFORMED,
+                          f"encoder walk exhausted its bound (blocks {bad.tolist()})")
     return comp, clen
 
 
 @functools.cache
 def _kernel():
     launch, check = _build.kernel("encode_blocks")
-    vp = ctypes.c_void_p
-    launch.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp, ctypes.c_int, vp, vp, ctypes.c_int, vp]
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    launch.argtypes = [vp, i, vp, i, i, vp, i, vp, vp, i, vp, vp]
     return launch, check
 
 
-def _launch(data, blens, in1, nc, width: int):
-    """Launch ``encode_blocks.cu`` on the current stream; counts on
-    ``encode_blocks.launches``."""
+def smem_bytes(bs: int) -> int:
+    """Shared memory a block of the kernel takes for blocks of ``bs`` bytes."""
+    fn = _build.load("encode_blocks").encode_blocks_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(bs)
+
+
+def _launch(data, blens, bs: int, width: int, cap: int, stamps=None):
+    """Launch ``encode_blocks.cu`` on torch's current stream over ``data``
+    (uint8[B, w], w <= bs, contiguous, on the card) as blocks of ``bs``
+    bytes; counts on ``encode_blocks.launches``.  ``stamps``: None, or
+    int64[B, STAMPS] on the card for each block's SM clock at its start and
+    after each of ``PHASES``.  Returns (comp, clen, fail)."""
     dev = data.device
-    B, bs = data.shape
+    B, w = data.shape
+    if stamps is not None and (stamps.shape != (B, STAMPS) or stamps.dtype != torch.int64
+                               or stamps.device != dev or not stamps.is_contiguous()):
+        raise ValueError(f"stamps must be int64[{B}, {STAMPS}] on {dev}, contiguous")
     comp = torch.empty((B, width), dtype=torch.uint8, device=dev)
     clen = torch.empty((B,), dtype=torch.int32, device=dev)
     fail = torch.empty((B,), dtype=torch.int32, device=dev)
     launch, check = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        check(launch(data.data_ptr(), blens.data_ptr(), in1.data_ptr(), nc.data_ptr(), bs,
-                     comp.data_ptr(), width, clen.data_ptr(), fail.data_ptr(), B, stream))
+    args = (data.data_ptr(), w, blens.data_ptr(), bs, cap, comp.data_ptr(), width,
+            clen.data_ptr(), fail.data_ptr(), B, None if stamps is None else stamps.data_ptr())
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        rc = launch(*args, _stream(dev.index))
+    else:                                           # operands on another card: launch there
+        with torch.cuda.device(dev):
+            rc = launch(*args, _stream(dev.index))
+    check(rc)
     encode_blocks.launches += 1
     return comp, clen, fail
 
@@ -174,14 +207,15 @@ encode_blocks.launches = 0
 
 
 def emit_plain(data, blens, in1, nc, width: int):
-    """Plain version of ``encode_blocks.cu`` on CPU tensors: the successor
-    table, the greedy commit walk, then the records' bytes."""
+    """The plain version's walk and emission on CPU tensors, after
+    :func:`prep`: the successor table, the greedy commit walk (at most
+    ``walk_cap(bs)`` commits), then the records' bytes."""
     B, bs = data.shape
     comp = torch.zeros((B, width), dtype=torch.uint8)
     clen = torch.zeros((B,), dtype=torch.int32)
     fail = torch.zeros((B,), dtype=torch.int32)
     d, I, N = data.numpy(), in1.numpy(), nc.numpy()
-    cap = bs // 4 + 1
+    cap = walk_cap(bs)
     idx = np.arange(bs)
     for b in range(B):
         ml = (I[b] >> 15) & 0x7F

@@ -460,33 +460,41 @@ def fill_max_rows(x, bits: int, rounds: int, device=None):
 
 
 def gather_flat(table, idx, bits: int, device=None) -> torch.Tensor:
-    """y = table[flat idx] keeping the low 8 * ceil(bits / 8) bits; an index
-    outside [0, R * 128) gives 0 (``kernel_lib.py:139``).  idx: any shape."""
+    """y (1, E) = table[flat idx] keeping the low 8 * ceil(bits / 8) bits; an
+    index outside [0, R * 128) gives 0 (``kernel_lib.py:139``).  idx: one row
+    (1, E >= 1), as in JAX, whose one-hot products refuse any other shape."""
     m = bits_mask(bits)
     dev = _operands(device, table, idx)
     table, idx = _tile(table, dev, "table"), as_int32(idx, dev, "idx")
+    if idx.ndim != 2 or idx.shape[0] != 1 or idx.shape[1] == 0:
+        raise ValueError(f"gather_flat: the index must be one row (1, E >= 1), got "
+                         f"{tuple(idx.shape)}")
     return _gather("gather_flat", dev, [table], (m,), idx, "flat_zero")
 
 
 def local_gather_rows(vals, li, device=None) -> torch.Tensor:
     """y[r, e] = vals[r, li[r, e]], all 32 bits; a lane outside [0, 128)
-    gives 0 (``kernel_lib.py:164``).  li: (R, E)."""
+    gives 0 (``kernel_lib.py:164``).  li: (R, E), or (1, E) broadcast over
+    the R rows as in JAX."""
     return _row_gather("local_gather_rows", vals, li, "row_zero", device)
 
 
 def lane_gather(x, lane_idx, device=None) -> torch.Tensor:
     """y[r, e] = x[r, lane_idx[r, e]] as ``take_along_axis``: lanes -128..-1
     count from the end, any other lane outside [0, 128) gives INT32_MIN
-    (``kernel_lib.py:300``)."""
+    (``kernel_lib.py:300``).  lane_idx: (R, E), or (1, E) broadcast over the
+    R rows as in JAX."""
     return _row_gather("lane_gather", x, lane_idx, "row_take", device)
 
 
 def _row_gather(helper: str, vals, li, mode: str, device) -> torch.Tensor:
     dev = _operands(device, vals, li)
     vals, li = _tile(vals, dev, "vals"), as_int32(li, dev, "li")
-    if li.ndim != 2 or li.shape[0] != vals.shape[0] or li.shape[1] == 0:
-        raise ValueError(f"{helper}: the index must be ({vals.shape[0]}, E >= 1), got "
-                         f"{tuple(li.shape)}")
+    if li.ndim != 2 or li.shape[0] not in (1, vals.shape[0]) or li.shape[1] == 0:
+        raise ValueError(f"{helper}: the index must be ({vals.shape[0]}, E >= 1) or (1, E), "
+                         f"got {tuple(li.shape)}")
+    if li.shape[0] != vals.shape[0]:                # one row, broadcast over the tile's rows
+        li = li.expand(vals.shape[0], li.shape[1]).contiguous()
     return _gather(helper, dev, [vals], (FULL,), li, mode)
 
 
@@ -661,7 +669,7 @@ def traffic(name: str, arrays: dict, params: dict) -> tuple[int, int]:
             tables, idx = a[:1], a[1]
             flat = idx[(idx >= 0) & (idx < a[0].size)]
         else:                                   # local_gather_rows, lane_gather: along the row
-            tables, idx = a[:1], a[1]
+            tables, idx = a[:1], np.broadcast_to(a[1], (a[0].shape[0], a[1].shape[1]))
             li = np.where(idx < 0, idx + L, idx) if name == "lane_gather" else idx
             row = np.arange(idx.shape[0])[:, None].repeat(idx.shape[1], 1)
             ok = (li >= 0) & (li < L)

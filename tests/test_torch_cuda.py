@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from csnappy_tpu_torch import api
+from csnappy_tpu_torch.errors import E_DATA_MALFORMED, SnappyError
 from csnappy_tpu_torch.models import pymodel, wire
 from csnappy_tpu_torch.ops import decode_fused, encode_fused
 from csnappy_tpu_torch.ops import kernel_lib as kl
@@ -135,7 +136,7 @@ def test_decode_segments_kernel_equals_plain(card, urls10k_snappy, urls10k):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("bs", [1024, 32768])
+@pytest.mark.parametrize("bs", [1024, 4096, 32768])
 def test_encode_kernel_equals_plain(card, urls10k, bs):
     rng = np.random.default_rng(bs)
     B = 8
@@ -151,6 +152,82 @@ def test_encode_kernel_equals_plain(card, urls10k, bs):
     want = encode_fused.encode_blocks(data, blens, device="cpu")
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def _encode_rows(urls10k: bytes, bs: int, n: int, seed: int):
+    # urls rows with their bytes kept past ragged lengths, one window
+    # repeated, short periods, incompressible rows
+    rng = np.random.default_rng(seed)
+    u = np.frombuffer(urls10k, np.uint8)
+    rows = []
+    for i in range(n):
+        kind = i % 5
+        if kind == 0:
+            s0 = int(rng.integers(0, len(u) - bs))
+            rows.append(u[s0 : s0 + bs])
+        elif kind == 1:
+            rows.append(np.full(bs, int(rng.integers(0, 256)), np.uint8))
+        elif kind == 2:
+            rows.append(np.resize(rng.integers(0, 256, int(rng.integers(2, 70)), dtype=np.uint8), bs))
+        elif kind == 3:
+            rows.append(rng.integers(0, 256, bs, dtype=np.uint8))
+        else:
+            rows.append(rng.integers(0, 3, bs, dtype=np.uint8))
+    blens = rng.choice([bs, bs, bs - 1, 0, 3, 4, 5, bs // 3], n).astype(np.int32)
+    return np.stack(rows), blens
+
+
+@pytest.mark.parametrize("shape", [(1, 32768), (5, 3000), (140, 32768), (300, 4096)])
+def test_encode_kernel_batches_and_widths(card, urls10k, shape):
+    # one block, a width the kernel pads to 1,024 itself, and batches past
+    # one wave of the 132 SMs (one 32 KiB block an SM, two 4 KiB blocks)
+    data, blens = _encode_rows(urls10k, shape[1], shape[0], seed=shape[0])
+    before = encode_fused.encode_blocks.launches
+    got = encode_fused.encode_blocks(torch.from_numpy(data).to(card), blens)
+    assert encode_fused.encode_blocks.launches == before + 1
+    want = encode_fused.encode_blocks(data, blens, device="cpu")
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+
+
+def test_encode_kernel_empty_batch(card):
+    before = encode_fused.encode_blocks.launches
+    comp, clen = encode_fused.encode_blocks(torch.zeros((0, 4096), dtype=torch.uint8,
+                                                        device=card), [])
+    assert comp.is_cuda and comp.shape == (0, encode_fused.ocap(4096)) and clen.numel() == 0
+    assert encode_fused.encode_blocks.launches == before
+
+
+@pytest.mark.parametrize("group", ["e1k", "e4k", "eadv"])
+def test_encode_kernel_equals_jax_fixture(card, group):
+    with np.load(DATA / "torch_ref" / "blocks.npz") as z:
+        data, blens = z[f"{group}_data"], z[f"{group}_lens"]
+        comp, clen = z[f"{group}_comp"], z[f"{group}_clen"]
+    got = encode_fused.encode_blocks(torch.from_numpy(data).to(card), blens)
+    assert got[1].cpu().numpy().tolist() == clen.tolist()
+    assert np.array_equal(got[0].cpu().numpy(), comp)
+
+
+def test_encode_kernel_walk_exhausted_raises(card, urls10k, monkeypatch):
+    # a walk with more commits than its bound fails its block, and the call
+    # raises the codec's data error, as the JAX encoder does
+    data = torch.from_numpy(np.frombuffer(urls10k[:4096], np.uint8).copy()[None, :]).to(card)
+    monkeypatch.setattr(encode_fused, "walk_cap", lambda bs: 2)
+    with pytest.raises(SnappyError) as ei:
+        encode_fused.encode_blocks(data, [4096])
+    assert ei.value.code == E_DATA_MALFORMED and "blocks [0]" in str(ei.value)
+
+
+def test_encode_never_reaches_the_plain_version(card, urls10k, monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(encode_fused, "prep", refuse)
+    monkeypatch.setattr(encode_fused, "emit_plain", refuse)
+    data = torch.from_numpy(np.frombuffer(urls10k[:32768], np.uint8).copy()[None, :])
+    comp, clen = encode_fused.encode_blocks(data.to(card), [32768])
+    assert pymodel.decompress_noheader(comp[0, : int(clen[0])].cpu().numpy().tobytes(),
+                                       32768) == urls10k[:32768]
+    assert api.compress(urls10k[:70000]) == encode_fused.compress_np(urls10k[:70000])
 
 
 def test_api_runs_the_kernels(card, urls10k, urls10k_snappy):
@@ -676,9 +753,11 @@ def test_kernel_lib_kernels_on_wide_tiles(card):
         ("row_shift_down", (x, 40), {"fill": -1}), ("scan2d", (x,), {"op": "add"}),
         ("scan2d_mm", (x,), {"op": "addsat", "bits": 20}), ("scan2d_tril", (x,), {"bits": 24}),
         ("fill_max_rows", (x, 18, 3), {}), ("flip2d", (x,), {"bits": 31}),
-        ("gather_flat", (x, ints(-10, 96 * 128 + 10, (3, 1000)), 16), {}),
+        ("gather_flat", (x, ints(-10, 96 * 128 + 10, (1, 3000)), 16), {}),
         ("lane_gather", (x, ints(-300, 300, (96, 40))), {}),
         ("local_gather_rows", (x, ints(-5, 133, (96, 200))), {}),
+        ("lane_gather", (x, ints(-300, 300, (1, 40))), {}),           # one row, broadcast
+        ("local_gather_rows", (x, ints(-5, 133, (1, 200))), {}),
         ("scatter_sum_tile", (ints(-9, 3000, (1, 4000)), x.reshape(-1)[:4000][None],
                               ints(0, 2, (1, 4000)), 20, 31), {}),
     ]
@@ -741,7 +820,7 @@ def test_kernel_lib_kernels_on_wide_tiles(card):
     big = ints(-(2**31), 2**31, (1664, 128))
     for helper, args in (("lane_gather", (big, ints(-300, 300, (1664, 128)))),
                          ("local_gather_rows", (big, ints(-5, 133, (1664, 128)))),
-                         ("gather_flat", (big, ints(-10, 1664 * 128 + 10, (16, 128)), 24)),
+                         ("gather_flat", (big, ints(-10, 1664 * 128 + 10, (1, 2048)), 24)),
                          ("flip2d", (big, 16))):
         fn, before = kl.HELPERS[helper].wrapper, kl.launches[helper]
         got = fn(*(torch.from_numpy(a).to(card) if isinstance(a, np.ndarray) else a for a in args))

@@ -140,6 +140,17 @@ def test_walk_exhausted_raises(monkeypatch):
     assert ei.value.code == errors.E_DATA_MALFORMED
 
 
+def test_walk_cap_bounds_the_plain_walk(monkeypatch):
+    # the plain walk stops at walk_cap(bs) commits, as the kernel does, and
+    # the call raises the codec's data error; bs // 4 + 1 bounds every parse
+    assert encode_fused.walk_cap(4096) == 1025 and encode_fused.walk_cap(32768) == 8193
+    monkeypatch.setattr(encode_fused, "walk_cap", lambda bs: 2)
+    assert _enc1(b"hello world hello world hello")      # one commit: within the bound
+    with pytest.raises(errors.SnappyError) as ei:
+        _enc1(b"abc" * 100 + bytes(range(200)) + b"abc" * 100 + bytes(range(200)) * 2)
+    assert ei.value.code == errors.E_DATA_MALFORMED
+
+
 def test_encode_blocks_rejects_bad_arguments():
     with pytest.raises(ValueError):
         encode_fused.encode_blocks(np.zeros((1, 40000), np.uint8), [10], device="cpu")

@@ -110,6 +110,19 @@ def test_encode_equals_jax(ref, group):
     assert np.array_equal(comp.numpy(), ref[f"{group}_comp"])
 
 
+def test_adversarial_rows_equal_jax_one_by_one(ref):
+    # the eadv group (one window 4,096 times, periods 2-5 and 64, random
+    # bytes, urls rows at blen 0, 3, 4, 5 and 4,095 with their bytes kept
+    # past blen, random bytes past blen) alone, one row a call
+    data, lens = ref["eadv_data"], ref["eadv_lens"]
+    assert not data[0].any() and (data[1] == data[1, 0]).all() and data[-1, 2000:].any()
+    assert sorted(set(lens.tolist())) == [0, 3, 4, 5, 2000, 4095, 4096]
+    for i in range(len(lens)):
+        comp, clen = encode_fused.encode_blocks(data[i : i + 1], lens[i : i + 1], device="cpu")
+        assert int(clen[0]) == ref["eadv_clen"][i], i
+        assert np.array_equal(comp[0].numpy(), ref["eadv_comp"][i]), i
+
+
 def test_compress_np_equals_jax_stream(urls10k):
     fixture = (REF / "urls.10K.jax.snappy").read_bytes()
     assert len(fixture) == URLS_JAX_BYTES

@@ -280,6 +280,50 @@ def test_answers_outside_the_contracts():
     assert _out("sst_or").reshape(-1)[5] == 0x100
 
 
+@pytest.mark.parametrize("helper", ["lane_gather", "local_gather_rows"])
+def test_row_gathers_broadcast_a_one_row_index_as_jax(helper):
+    # a (1, E) index over a (4, 128) tile: JAX broadcasts it over the rows
+    # (take_along_axis, and the one-hot select of kernel_lib.py:164)
+    import jax.numpy as jnp
+
+    from csnappy_tpu.ops import kernel_lib as jkl
+
+    r = np.random.default_rng(5)
+    x = r.integers(-(2**31), 2**31 - 1, (4, 128)).astype(np.int32)
+    idx = r.integers(0, 128, (1, 128)).astype(np.int32)
+    want = np.asarray(getattr(jkl, helper)(jnp.asarray(x), jnp.asarray(idx)))
+    got = _np(getattr(kl, helper)(x, idx, device="cpu"))
+    assert want.shape == got.shape == (4, 128)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.take_along_axis(x, np.repeat(idx, 4, 0), 1))
+    with pytest.raises(ValueError, match=r"\(4, E >= 1\) or \(1, E\)"):
+        getattr(kl, helper)(x, idx[:, :0], device="cpu")
+    with pytest.raises(ValueError, match=r"\(4, E >= 1\) or \(1, E\)"):
+        getattr(kl, helper)(x, np.zeros((2, 128), np.int32), device="cpu")
+
+
+@pytest.mark.parametrize("shape", [(3, 256), (256,), (1, 1, 256)])
+def test_gather_flat_takes_one_index_row_as_jax(shape):
+    # JAX's contract is a (1, E) row (kernel_lib.py:139): a (3, 256) index
+    # fails its one-hot products' broadcast with TypeError; the port refuses
+    # every other shape before any launch
+    import jax.numpy as jnp
+
+    from csnappy_tpu.ops import kernel_lib as jkl
+
+    r = np.random.default_rng(6)
+    tbl = r.integers(0, 1 << 16, (16, 128)).astype(np.int32)
+    idx = r.integers(0, 16 * 128, (1, 256)).astype(np.int32)
+    want = np.asarray(jkl.gather_flat(jnp.asarray(tbl), jnp.asarray(idx), 16))
+    np.testing.assert_array_equal(_np(kl.gather_flat(tbl, idx, 16, device="cpu")), want)
+    bad = r.integers(0, 16 * 128, shape).astype(np.int32)
+    if shape == (3, 256):
+        with pytest.raises(TypeError):
+            jkl.gather_flat(jnp.asarray(tbl), jnp.asarray(bad), 16)
+    with pytest.raises(ValueError, match=r"one row \(1, E >= 1\)"):
+        kl.gather_flat(tbl, bad, 16, device="cpu")
+
+
 def test_static_arguments_outside_their_range_raise():
     x = np.zeros((8, 128), np.int32)
     with pytest.raises(ValueError, match="roll"):

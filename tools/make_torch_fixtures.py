@@ -84,7 +84,7 @@ SEED = 20261016
 DECODE_GROUPS = {"d4": 4, "d4k": 4096, "d32k": 32768, "d1k": 1024}
 FAR_GROUP = {"far": 70000}
 # encode groups: name -> padded block width
-ENCODE_GROUPS = {"e1k": 1024, "e4k": 4096}
+ENCODE_GROUPS = {"e1k": 1024, "e4k": 4096, "eadv": 4096}
 
 
 def _pack(frags):
@@ -200,6 +200,26 @@ def build_inputs(urls: bytes, baddata3: bytes, far: bool = False) -> dict:
         e[i, : len(d)] = np.frombuffer(d, np.uint8)
     out["e4k_data"] = e
     out["e4k_lens"] = np.array([len(d) for d in datas], np.int32)
+
+    # eadv: adversarial rows at width 4096 for the block encoder's sort and
+    # walk: one window 4,096 times (all zero, one repeated byte), short and
+    # long periods, incompressible bytes, urls rows cut at ragged lengths
+    # with their bytes kept past blen, and random bytes past blen
+    n = ENCODE_GROUPS["eadv"]
+    rows = [np.zeros(n, np.uint8), np.full(n, 0xAB, np.uint8)]
+    rows += [np.resize(rng.integers(0, 256, k, dtype=np.uint8), n) for k in (2, 3, 4, 5, 64)]
+    rows.append(rng.integers(0, 256, n, dtype=np.uint8))
+    lens = [n] * len(rows)
+    s0 = int(rng.integers(0, len(urls) - n))
+    for blen in (0, 3, 4, 5, n - 1):
+        rows.append(np.frombuffer(urls[s0 : s0 + n], np.uint8))
+        lens.append(blen)
+    tail = rng.integers(0, 256, n, dtype=np.uint8)
+    tail[:2000] = np.resize(rng.integers(0, 256, 7, dtype=np.uint8), 2000)
+    rows.append(tail)
+    lens.append(2000)
+    out["eadv_data"] = np.stack(rows)
+    out["eadv_lens"] = np.array(lens, np.int32)
     return out
 
 

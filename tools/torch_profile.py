@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Where the port's block codec and primitives spend their device time, on one CUDA card.
 
-    python3 tools/torch_profile.py [--out FILE.json]
+    python3 tools/torch_profile.py [--out FILE.json] [--root TREE]
 
 Runs the main path's batch (B=64 blocks of 32 KiB of urls.10K, block i =
 ``urls[(i % 21) * 32768 : ...]``, as bench.py and chip_smoke.py make it)
-through ``encode_fused.encode_blocks`` and ``decode_fused.decode_blocks``
-and the six wrappers of ``ops/primitives.py`` on their inputs at the same
-batch (``movebench.primitive_inputs(64)``, on the card) under
-``torch.profiler`` after a warm-up, and prints for each the device time per
-call of every kernel, copy and fill it ran, their sum, and the call's
-CUDA-event time (the gap is device idle), with the card's name and power
-limit.
+through ``encode_fused.encode_blocks`` (one call on card tensors, as a user
+makes it) and ``decode_fused.decode_blocks`` and the six wrappers of
+``ops/primitives.py`` on their inputs at the same batch
+(``movebench.primitive_inputs(64)``, on the card) under ``torch.profiler``
+after a warm-up, and prints for each the device time per call of every
+kernel, copy and fill it ran, their sum, and the call's CUDA-event time (the
+gap is device idle), with the card's name and power limit; then the host
+time of a lone ``encode_blocks`` call (synchronised before and after,
+median of 50).  ``--root`` imports ``csnappy_tpu_torch`` from another tree
+(an unpacked parent commit) to compare two versions in one run.
 Imports nothing of the JAX package.  Exits non-zero without a card.
 """
 from __future__ import annotations
@@ -21,6 +24,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 B, BS = 64, 32768
@@ -30,13 +34,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the result as JSON to this file")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--root", default=str(ROOT),
+                    help="import csnappy_tpu_torch from this tree (default: this checkout)")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, args.root)
     from csnappy_tpu_torch.models import pymodel
     from csnappy_tpu_torch.ops import decode_fused, encode_fused
     from csnappy_tpu_torch.ops.primitives import PRIMITIVES
@@ -60,22 +66,35 @@ def main() -> int:
     offs = torch.arange(B, device=dev, dtype=torch.int64) * comp.shape[1]
     lens = torch.tensor([len(f) for f in frags], dtype=torch.int32, device=dev)
     dlim = torch.full((B,), BS, dtype=torch.int32, device=dev)
-    ow = encode_fused.ocap(BS)
+    blens_np = blens.cpu().numpy()
 
     result = {
-        "encode_blocks (prep + kernel)": device_profile(lambda: encode_fused._launch(
-            data, blens, *encode_fused.prep(data, blens), ow), args.reps),
+        "encode_blocks (one call)": device_profile(
+            lambda: encode_fused.encode_blocks(data, blens_np), args.reps),
         "decode_blocks": device_profile(lambda: decode_fused._launch(
             decode_fused.decode_blocks, flat, offs, lens, dlim, BS), args.reps),
     }
     for name, arrays in primitive_inputs(B).items():
         on_card = [torch.from_numpy(a).to(dev) for a in arrays]
         result[name] = device_profile(lambda: PRIMITIVES[name].wrapper(*on_card), args.reps)
+    lone = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode_fused.encode_blocks(data, blens_np)
+        torch.cuda.synchronize()
+        lone.append((time.perf_counter() - t0) * 1e3)
+    result["encode_lone_ms"] = sorted(lone)[len(lone) // 2]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
     result["card"] = card
+    print(f"tree {args.root}")
     for title, res in result.items():
+        if title == "encode_lone_ms":
+            print(f"encode_blocks, a lone call (host clock, synchronised; median of 50; {card}): "
+                  f"{res:.4f} ms")
+            continue
         if title == "card":
             continue
         print(f"{title}  (B={B} x {BS} B; {card}): CUDA events {res['event_ms']:.4f} ms, "
