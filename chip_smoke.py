@@ -6,12 +6,20 @@
 Builds the port's kernels from the sources in this checkout, then, in order:
 
 1. build   — every native source, one compiler each, all started together;
-2. decode  — ``decode_blocks`` on B=64 blocks of urls.10K (32 KiB each, as
-             bench.py makes them) and on malformed and error-priority
-             vectors at four output limits; ``decode_segments`` on
-             urls.10K.snappy's body.  Each kernel result must equal the plain
-             version run on CPU copies: every output byte, ``produced`` and
-             ``status`` (exact: bytes have no tolerance);
+2. decode  — ``decode_blocks`` (``csrc/decode_blocks.cu``: ``decode_kernel``
+             for rows up to 32 KiB, ``decode_wide_kernel`` past them, chosen
+             by width) on B=64 blocks of urls.10K (32 KiB each, as bench.py
+             makes them) and on malformed and error-priority vectors at four
+             output limits; ``decode_segments`` on urls.10K.snappy's body;
+             every decode group of ``tests/data/torch_ref/blocks.npz`` (the
+             adversarial ``dadv`` among them) equal to the JAX answers, but
+             on the JAX package's known faults (``JAX_DECODE_FAULTS``), and
+             the dadv rows' resolve rounds printed and bounded by
+             ceil(log2 block_out) + 1; 200 pages of 4 KiB; rows of 32,769,
+             70,000 and 131,072 bytes through the wide kernel.  Each kernel
+             result must equal the plain version run on CPU copies: every
+             output byte, ``produced`` and ``status`` (exact: bytes have no
+             tolerance);
 3. encode  — ``encode_blocks`` (one kernel, ``csrc/encode_blocks.cu``) on the
              same B=64 x 32 KiB batch, equal byte for byte to the plain
              version (tensor-op preparation, plain walk), ``compress_np(urls.10K)``
@@ -26,20 +34,27 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              ``api.compress(urls.10K)`` equal to the fixture,
              ``api.decompress(urls.10K.snappy)`` equal to urls.10K, a 32 KiB
              fragment and the unaligned vector round-trip; every kernel of
-             the path must have launched; then ``torch.profiler`` counts the
-             device kernels of one ``encode_blocks`` call on card tensors:
-             exactly one, the encoder's, and no sort, scan, gather or scatter;
+             the path must have launched, every decode through
+             ``decode_kernel``; then ``torch.profiler`` counts the device
+             kernels of one ``encode_blocks``, one ``decode_blocks`` and one
+             ``decode_segments`` call on card tensors: exactly one each, the
+             encoder's and ``decode_kernel``, and no sort, scan, gather or
+             scatter;
 5. times   — median of 20 CUDA-event-timed launches after warm-up for each
              kernel at the main path's shapes (inputs resident in L2), the
              plain version's time on the host, and the bound: the larger of
              the bytes the function must move over 3.35 TB/s and one
              operation per byte over 67 TOP/s (H100 SXM data sheet).  The
-             serial chain (tags of the longest block; for the encoder, twice
-             the longest of its 32 walk segments' commits plus 32 steps) is
-             counted and printed beside it; for the encoder also its kernel
-             alone (torch.profiler), a whole call and a lone call (host clock,
-             synchronised), its shared memory at 32 KiB and 4 KiB blocks and
-             the SM cycles of its phases (``clock64()`` stamps);
+             serial chain (the longest block's tags over eight, the decoder's
+             walk steps; for the encoder, twice the longest of its 32 walk
+             segments' commits plus 32 steps) is counted and printed beside
+             it; for the encoder and the decoder also the kernel alone
+             (torch.profiler), a whole call and a lone call (host clock,
+             synchronised), the shared memory at 32 KiB and 4 KiB and the SM
+             cycles of their phases (``clock64()`` stamps); for the decoder
+             its ``ptxas -v`` line and the split of the port's first design
+             (``decode_wide_kernel`` launched at 32 KiB: walk, literals,
+             copies);
 6. whole streams — on every stream of ``tests/data/torch_ref/streams.npz``:
              ``scan_segments.cu`` equal to its plain walk and to the JAX
              scan (``seg``, ``meta``), ``decode_ws`` bytes-or-None equal to
@@ -260,6 +275,91 @@ def _bound(nbytes: int) -> tuple[float, str]:
 
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nbytes / OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+# the decode groups of tests/data/torch_ref/blocks.npz and their block_out;
+# the rows where the JAX package answers otherwise than the reference
+# decoder (JAX_DECODE_FAULTS of tools/make_torch_fixtures.py), held to the
+# plain version only
+DECODE_GROUPS = {"d4": 4, "d4k": 4096, "d32k": 32768, "d1k": 1024, "dadv": 32768, "far": 70000}
+JAX_DECODE_FAULTS = {"far": (0,), "dadv": (3,)}
+
+
+def _decode_fixtures(torch, np, dev, decode_fused) -> list:
+    """Every decode group of blocks.npz on the card, equal to the plain
+    version and, but on the JAX package's known faults, to the JAX answers;
+    then the dadv group stamped: its resolve rounds a row (bounded by
+    ceil(log2 block_out) + 1)."""
+    with np.load(DATA / "torch_ref" / "blocks.npz") as z:
+        groups = {g: [z[f"{g}_{k}"] for k in ("comp", "lens", "out", "prod", "status")]
+                  for g in DECODE_GROUPS}
+    for g, (comp, lens, jout, jprod, jstat) in groups.items():
+        got = decode_fused.decode_blocks(torch.from_numpy(comp).to(dev), lens, DECODE_GROUPS[g])
+        _same(f"decode group {g}", got, decode_fused.decode_blocks(comp, lens, DECODE_GROUPS[g],
+                                                                   device="cpu"))
+        out, prod, stat = (t.cpu().numpy() for t in got)
+        for i in range(len(lens)):
+            if i in JAX_DECODE_FAULTS.get(g, ()):
+                continue
+            assert (prod[i], stat[i]) == (jprod[i], jstat[i]), (g, i)
+            assert np.array_equal(out[i, : prod[i]], jout[i, : prod[i]]), (g, i)
+    comp, lens = groups["dadv"][:2]
+    B, width = len(lens), DECODE_GROUPS["dadv"]
+    flat = torch.from_numpy(comp).to(dev).reshape(-1)
+    offs = torch.arange(B, device=dev, dtype=torch.int64) * comp.shape[1]
+    args = (flat, offs, torch.from_numpy(lens).to(dev),
+            torch.full((B,), width, dtype=torch.int32, device=dev))
+    got, st = _stamps(torch, np, decode_fused, decode_fused.decode_blocks, args, width)
+    _same("decode group dadv, stamped", got, decode_fused.decode_blocks(comp, lens, width,
+                                                                        device="cpu"))
+    rounds = st[:, -1].tolist()
+    bound = (width - 1).bit_length() + 1
+    assert max(rounds) <= bound and rounds[0] >= 1, rounds
+    print(f"[decode] groups {sorted(DECODE_GROUPS)} of blocks.npz equal to the JAX answers (but "
+          f"the JAX faults {JAX_DECODE_FAULTS}) and to plain on the card; dadv resolve rounds a "
+          f"row {rounds} (bound {bound}), windows {st[:, -3].tolist()}, tags "
+          f"{st[:, -2].tolist()}; the deep chain (8,191 copies) exact in {rounds[0]} rounds, "
+          f"launched in {_launch_ms(decode_fused, decode_fused.decode_blocks, args, width):.4f} "
+          f"ms (the whole group)", flush=True)
+    return rounds
+
+
+def _stamps(torch, np, decode_fused, wrapper, args, width: int, kernel=None):
+    """One stamped launch of ``decode_blocks.cu``: its result and the stamps
+    (int64[B, STAMPS], on the host)."""
+    st = torch.zeros((args[1].numel(), decode_fused.STAMPS), dtype=torch.int64,
+                     device=args[0].device)
+    got = decode_fused._launch(wrapper, *args, width, st, kernel=kernel)
+    return got, st.cpu().numpy()
+
+
+def _phases(np, st, names) -> dict:
+    """Phase cycles of the slowest block (and of the median block) from stamps."""
+    tot = st[:, : len(names)].sum(1)
+    slow = int(np.argmax(tot))
+    return {"slowest_block": slow, "cycles": int(tot[slow]),
+            "phases": {n: [int(st[slow, i]), int(np.median(st[:, i]))]
+                       for i, n in enumerate(names)},
+            "windows": int(st[slow, -3]), "tags": int(st[slow, -2]), "rounds": int(st[slow, -1])}
+
+
+def _launch_ms(decode_fused, wrapper, args, width: int, kernel=None) -> float:
+    """Milliseconds of one launch of ``decode_blocks.cu`` (CUDA events)."""
+    from csnappy_tpu_torch.tools.timing import time_ms
+
+    return time_ms(lambda: decode_fused._launch(wrapper, *args, width, kernel=kernel))
+
+
+def _lone_ms(torch, fn, n: int = 20) -> float:
+    """Median host milliseconds of one ``fn()`` alone, synchronised before and after."""
+    def one() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    return statistics.median(one() for _ in range(n))
 
 
 def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, card: str):
@@ -1086,13 +1186,13 @@ def _index_select(torch, a, params):
             lambda: torch.index_select(stacked, 1, ix64))
 
 
-def _ptxas(kernel: str) -> tuple[str, str]:
+def _ptxas(kernel: str, lib: str = "kernel_lib") -> tuple[str, str]:
     """The stack-frame and register lines ``ptxas -v`` printed for ``kernel``
-    in the last build of ``csrc/kernel_lib.cu``."""
+    in the last build of ``csrc/<lib>.cu``."""
     from csnappy_tpu_torch.ops import _build
 
-    log = _build.log_path("kernel_lib").read_text().splitlines()
-    at = next(i for i, line in enumerate(log) if kernel in line)
+    log = _build.log_path(lib).read_text().splitlines()
+    at = next(i for i, line in enumerate(log) if kernel in line and "Compiling" not in line)
     frame = next(line.strip() for line in log[at:] if "stack frame" in line)
     used = next(line.split(":", 1)[1].strip() for line in log[at:] if "Used" in line)
     return frame, used
@@ -1353,6 +1453,21 @@ def main() -> int:
     seg_tags = [_tags(body[o : o + n])[0] for o, n in zip(offs, slens)]
     print(f"[decode] decode_segments over urls.10K.snappy ({len(offs)} segments) equal to "
           f"plain and to urls.10K; tags/segment max {max(seg_tags)}", flush=True)
+    dadv_rounds = _decode_fixtures(torch, np, dev, decode_fused)
+    pages = [pymodel.compress_fragment(urls[i * 3000 : i * 3000 + PAGE]) for i in range(200)]
+    pcomp, plens = _pack(torch, pages)
+    _same("decode_blocks 200 x 4 KiB", decode_fused.decode_blocks(pcomp.to(dev), plens, PAGE),
+          decode_fused.decode_blocks(pcomp, plens, PAGE, device="cpu"))
+    wide = frag_of[:3] + [bad[1]]
+    wcomp, wlens = _pack(torch, wide)
+    before = decode_fused.launches_by_kernel["decode_wide_kernel"]
+    for cap in (32769, 70000, decode_fused.MAX_BLOCK_OUT):
+        _same(f"decode_blocks wide rows at {cap}", decode_fused.decode_blocks(
+            wcomp.to(dev), wlens, cap), decode_fused.decode_blocks(wcomp, wlens, cap, device="cpu"))
+    assert decode_fused.launches_by_kernel["decode_wide_kernel"] == before + 3
+    print(f"[decode] 200 pages of {PAGE} B equal to plain (decode_kernel); rows of 32,769, "
+          f"70,000 and {decode_fused.MAX_BLOCK_OUT} B equal to plain (decode_wide_kernel, "
+          f"chosen by width)", flush=True)
 
     # ----------------------------------------------------------- 3. encode
     data = torch.zeros((B, BS), dtype=torch.uint8)
@@ -1403,6 +1518,7 @@ def main() -> int:
                 "encode_blocks": encode_fused.encode_blocks}
     for w in wrappers.values():
         w.launches = 0
+    decode_fused.launches_by_kernel.update(dict.fromkeys(decode_fused.KERNELS, 0))
     mc, ml = encode_fused.encode_blocks(data.numpy(), blens.numpy())
     assert torch.equal(mc.cpu(), pc) and torch.equal(ml.cpu(), pn)
     mo, mp, ms_ = decode_fused.decode_blocks(comp.numpy(), lens.numpy(), BS)
@@ -1414,8 +1530,11 @@ def main() -> int:
     assert api.decompress(api.compress(unaligned)) == unaligned
     launches = {k: w.launches for k, w in wrappers.items()}
     assert all(n > 0 for n in launches.values()), launches
+    by_kernel = dict(decode_fused.launches_by_kernel)
+    assert by_kernel["decode_kernel"] == launches["decode_blocks"] + launches["decode_segments"], \
+        by_kernel
     print(f"[main] B=64 batch and api compress/decompress end to end on the card; "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, decoder kernels {by_kernel}", flush=True)
     data_dev, blens_np = data.to(dev), blens.numpy()
     enc_kernels = _device_kernels(torch, lambda: encode_fused.encode_blocks(data_dev, blens_np))
     assert len(enc_kernels) == 1 and list(enc_kernels.values()) == [1], enc_kernels
@@ -1424,6 +1543,16 @@ def main() -> int:
                    for w in ("sort", "scan", "gather", "scatter", "cum", "reduce")), enc_kernels
     print(f"[main] one encode_blocks call on card tensors runs {sum(enc_kernels.values())} "
           f"device kernel: {enc_kernels} (torch.profiler; copies not counted)", flush=True)
+    comp_dev, lens_np = comp.to(dev), lens.numpy()
+    for what, fn, name in (
+            ("decode_blocks", lambda: decode_fused.decode_blocks(comp_dev, lens_np, BS),
+             "decode_kernel"),
+            ("decode_segments", lambda: decode_fused.decode_segments(body_dev, offs, slens, sdl),
+             "decode_kernel")):
+        dk = _device_kernels(torch, fn)
+        assert len(dk) == 1 and list(dk.values()) == [1] and name in next(iter(dk)), (what, dk)
+        print(f"[main] one {what} call on card tensors runs 1 device kernel: {dk} "
+              f"(torch.profiler; copies not counted)", flush=True)
 
     # ------------------------------------------------------------ 5. times
     flat = comp.to(dev).reshape(-1)
@@ -1445,14 +1574,7 @@ def main() -> int:
     enc_ms = time_ms(lambda: encode_fused._launch(data_dev, blens_dev, BS, ow, wcap))
     enc_call_ms = time_ms(lambda: encode_fused.encode_blocks(data_dev, blens_np))
 
-    def lone() -> float:                      # one call alone: host clock, synchronised
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        encode_fused.encode_blocks(data_dev, blens_np)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    enc_lone_ms = statistics.median(lone() for _ in range(20))
+    enc_lone_ms = _lone_ms(torch, lambda: encode_fused.encode_blocks(data_dev, blens_np))
     enc_kernel_ms = sum(device_profile(lambda: encode_fused._launch(
         data_dev, blens_dev, BS, ow, wcap))["kernels"].values()) or None
     pages_dev, plens_dev = torch.from_numpy(pages).to(dev), torch.from_numpy(plens).to(dev)
@@ -1480,6 +1602,35 @@ def main() -> int:
           f"{encode_fused.smem_bytes(PAGE)} B at bs = {PAGE} (dynamic; ptxas above)", flush=True)
     enc_plain = _host_ms(lambda: encode_fused.encode_blocks(data, blens, device="cpu"))
 
+    # the decoder: the kernel alone, a call, a lone call, its phases; the
+    # present design's split (decode_wide_kernel, launched at 32 KiB here only)
+    dec = {}
+    for name, wrapper, args, call in (
+            ("decode_blocks", decode_fused.decode_blocks, (flat, offs_b, lens_b, dl_b),
+             lambda: decode_fused.decode_blocks(comp_dev, lens_np, BS)),
+            ("decode_segments", decode_fused.decode_segments, (body_dev, offs_s, lens_s, dl_s),
+             lambda: decode_fused.decode_segments(body_dev, offs, slens, sdl))):
+        kernel_ms = sum(device_profile(
+            lambda: decode_fused._launch(wrapper, *args, BS))["kernels"].values()) or None
+        _, st = _stamps(torch, np, decode_fused, wrapper, args, BS)
+        _, wst = _stamps(torch, np, decode_fused, wrapper, args, BS, kernel="decode_wide_kernel")
+        dec[name] = dict(
+            kernel_ms=kernel_ms, call_ms=time_ms(call), lone_ms=_lone_ms(torch, call),
+            phases_cycles=_phases(np, st, decode_fused.PHASES),
+            wide_ms=_launch_ms(decode_fused, wrapper, args, BS, kernel="decode_wide_kernel"),
+            wide_phases_cycles=_phases(np, wst, decode_fused.WIDE_PHASES))
+        d = dec[name]
+        print(f"[times] {name}: decode_kernel alone {_or_not_measured(kernel_ms)}, a call "
+              f"{d['call_ms']:.4f} ms (CUDA events), a lone call {d['lone_ms']:.4f} ms (host "
+              f"clock); SM cycles {d['phases_cycles']}; the present design "
+              f"(decode_wide_kernel at {BS} B) {d['wide_ms']:.4f} ms launched, SM cycles "
+              f"{d['wide_phases_cycles']}", flush=True)
+    frame, used = _ptxas("decode_kernel", "decode_blocks")
+    print(f"[times] decode_kernel ptxas -v: {frame}; {used}; shared memory "
+          f"{decode_fused.layout(BS)} at {BS} B rows, {decode_fused.layout(PAGE)} at {PAGE} B "
+          f"(dynamic; the wide kernel {decode_fused.smem_bytes(decode_fused.MAX_BLOCK_OUT)} B "
+          f"at {decode_fused.MAX_BLOCK_OUT})", flush=True)
+
     rows = []
     # bytes each function must move: every input tensor read once (per-block
     # offsets, lengths and limits included), every output tensor written once
@@ -1493,6 +1644,7 @@ def main() -> int:
          B * BS + 4 * B, B * ow + 8 * B, 2 * seg_max + 32, err_enc),
     ):
         bound_ms, bound_by = _bound(nin + nout)
+        steps_printed = steps if name == "encode_blocks" else -(-steps // 8)   # 8 tags a step
         src = "csnappy_tpu_torch/csrc/" + ("encode" if name == "encode_blocks" else "decode") \
             + "_blocks.cu"
         useful = B * BS if name != "decode_segments" else len(urls)   # uncompressed bytes
@@ -1500,20 +1652,26 @@ def main() -> int:
                "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "GBps": useful / (ms * 1e-3) / 1e9,
-               "bytes": nin + nout, "chain_steps": steps}
+               "bytes": nin + nout, "chain_steps": steps_printed}
         if name == "encode_blocks":
             row.update(kernel_ms=enc_kernel_ms, call_ms=enc_call_ms, lone_ms=enc_lone_ms,
                        commits_max=max(commits), phases_cycles=phases,
                        smem_bytes=encode_fused.smem_bytes(BS))
+        else:
+            row.update(dec[name], tags_max=steps, smem_bytes=decode_fused.smem_bytes(BS),
+                       launches_by_kernel=by_kernel)
+            if name == "decode_blocks":
+                row["dadv_rounds"] = dadv_rounds
         rows.append(row)
         print(f"[times] {name}: {ms:.4f} ms ({row['GBps']:.3f} GB/s of uncompressed bytes), "
               f"plain {plain_ms:.1f} ms (host CPU), bound {row['bound_ms']:.5f} ms by "
-              f"{row['bound_by']} ({nin + nout} B), serial chain {steps} steps"
+              f"{row['bound_by']} ({nin + nout} B), serial chain {steps_printed} steps"
               + (f" (2 x the longest segment's {seg_max} commits + 32; the longest block's "
                  f"{max(commits)} commits walked by one thread); kernel alone "
                  f"{_or_not_measured(enc_kernel_ms)}, a call {enc_call_ms:.4f} ms (CUDA "
                  f"events), a lone call {enc_lone_ms:.4f} ms (host clock)"
-                 if name == "encode_blocks" else ""), flush=True)
+                 if name == "encode_blocks" else
+                 f" (the longest block's {steps} tags, walked eight a step)"), flush=True)
     print(f"[times] card {name_}, power limit {power_}, max SM clock {clock_}", flush=True)
 
     # -------------------------------------------------- 6. whole streams

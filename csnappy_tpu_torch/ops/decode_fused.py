@@ -10,7 +10,14 @@ Port of ``csnappy_tpu/ops/decode_fused.py``.  One kernel,
   offsets, one launch.
 
 The source comment of ``decode_blocks.cu`` says what bounds the kernel on
-the card and what its design does about it.
+the card and what its design does about it.  It holds two kernels, chosen
+by the row's width before the launch (:func:`kernel_for`): ``decode_kernel``
+for rows of at most ``FAST_MAX`` bytes, every route of the API (one thread
+block a Snappy block: the parse at every position, a pair-table walk of the
+tag starts, a block scan and judgement of the tags, a cover max-scan of
+the output and parents collapsed by pointer jumping, in shared memory), and
+``decode_wide_kernel``, the port's first serial design, for the wider rows
+only tests and the far fixture make.
 
 Contract, identical in both versions.  For each block the stream is decoded
 against its limit ``dlim`` exactly as the oracle does
@@ -37,8 +44,22 @@ from ..config import refuse_card_tensors, resolve_device
 from ..errors import SnappyError
 from ..models import pymodel
 from . import _build
+from .primitives import _stream
 
 MAX_BLOCK_OUT = 1 << 17   # output row bytes one thread block holds in shared memory
+FAST_MAX = 1 << 15        # widest row decode_kernel takes; wider rows go to decode_wide_kernel
+KERNELS = ("decode_kernel", "decode_wide_kernel")
+# what the kernels' ``stamps`` hold a block (``_launch``): the SM cycles of
+# each phase, summed over the input windows, then three counts
+PHASES = ("staged", "parsed", "walked", "judged", "covered", "resolved", "gathered", "written")
+WIDE_PHASES = ("staged", "walked", "literals", "copies", "written")
+COUNTS = ("windows", "tags", "rounds")     # at STAMPS - 3 .. STAMPS - 1
+STAMPS = 16
+
+
+def kernel_for(width: int) -> str:
+    """The kernel that takes rows of ``width`` bytes."""
+    return KERNELS[0] if width <= FAST_MAX else KERNELS[1]
 
 
 def _u8_tensor(x, device: torch.device) -> torch.Tensor:
@@ -116,39 +137,80 @@ def _decode(wrapper, src: torch.Tensor, offs, lens, dlims, width: int):
         return torch.zeros((0, width), dtype=torch.uint8, device=src.device), i32, i32.clone()
     if src.device.type == "cpu":
         return decode_plain(src, offs, lens, dlims, width)
-    ints = torch.from_numpy(np.stack([offs, lens, dlims])).to(src.device)
-    return _launch(wrapper, src, ints[0].contiguous(), ints[1].to(torch.int32),
-                   ints[2].to(torch.int32), width)
+    # one host buffer, one copy to the card: int64 offsets, int32 lengths
+    # and limits, viewed in place (no conversion kernel on the card)
+    B = len(offs)
+    host = np.empty((16 * B,), np.uint8)
+    host[: 8 * B].view(np.int64)[:] = offs
+    host[8 * B :].view(np.int32)[:] = np.concatenate([lens, dlims])
+    ints = torch.from_numpy(host).to(src.device)
+    return _launch(wrapper, src, ints[: 8 * B].view(torch.int64),
+                   ints[8 * B : 12 * B].view(torch.int32), ints[12 * B :].view(torch.int32), width)
 
 
 @functools.cache
 def _kernel():
     launch, check = _build.kernel("decode_blocks")
     vp = ctypes.c_void_p
-    launch.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, vp, vp, ctypes.c_int, vp]
+    launch.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, vp, vp, ctypes.c_int, ctypes.c_int,
+                       vp, vp]
     return launch, check
 
 
-def _launch(wrapper, src, offs_t, lens_t, dlims_t, width: int):
-    """Launch ``decode_blocks.cu`` on the current stream and count it on
-    ``wrapper.launches``.  All tensors are on the card: the flat source,
-    int64 offsets, int32 lengths and limits (validated by the caller)."""
+def layout(width: int) -> dict:
+    """``decode_kernel``'s shared arrays for rows of ``width`` bytes: each
+    array's byte offset and the total."""
+    fn = _build.load("decode_blocks").decode_blocks_layout
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], None
+    fields = (ctypes.c_int * 8)()
+    fn(width, fields)
+    return dict(zip(("out", "par", "win", "nx", "cp", "tl", "tos", "total"), fields))
+
+
+def smem_bytes(width: int, kernel: str | None = None) -> int:
+    """Shared memory a block of ``kernel`` (default: :func:`kernel_for`) takes
+    for rows of ``width`` bytes."""
+    fn = _build.load("decode_blocks").decode_blocks_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong
+    return fn(width, KERNELS.index(kernel or kernel_for(width)))
+
+
+def _launch(wrapper, src, offs_t, lens_t, dlims_t, width: int, stamps=None, kernel=None):
+    """Launch ``decode_blocks.cu`` on torch's current stream and count it on
+    ``wrapper.launches`` and ``launches_by_kernel``.  All tensors are on the
+    card: the flat source, int64 offsets, int32 lengths and limits
+    (validated by the caller).  ``kernel``: None for :func:`kernel_for`'s
+    choice by width (a measurement may name ``decode_wide_kernel`` for any
+    width); ``stamps``: None, or int64[B, STAMPS] on the card for each
+    block's phase cycles and counts (``PHASES`` or ``WIDE_PHASES``, then
+    ``COUNTS``)."""
     dev = src.device
     B = offs_t.numel()
+    kernel = kernel or kernel_for(width)
+    if stamps is not None and (stamps.shape != (B, STAMPS) or stamps.dtype != torch.int64
+                               or stamps.device != dev or not stamps.is_contiguous()):
+        raise ValueError(f"stamps must be int64[{B}, {STAMPS}] on {dev}, contiguous")
     out = torch.empty((B, width), dtype=torch.uint8, device=dev)
     produced = torch.empty((B,), dtype=torch.int32, device=dev)
     status = torch.empty((B,), dtype=torch.int32, device=dev)
     launch, check = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        check(launch(src.data_ptr(), offs_t.data_ptr(), lens_t.data_ptr(), dlims_t.data_ptr(),
-                     out.data_ptr(), width, produced.data_ptr(), status.data_ptr(), B, stream))
+    args = (src.data_ptr(), offs_t.data_ptr(), lens_t.data_ptr(), dlims_t.data_ptr(),
+            out.data_ptr(), width, produced.data_ptr(), status.data_ptr(), B,
+            KERNELS.index(kernel), None if stamps is None else stamps.data_ptr())
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        rc = launch(*args, _stream(dev.index))
+    else:                                           # operands on another card: launch there
+        with torch.cuda.device(dev):
+            rc = launch(*args, _stream(dev.index))
+    check(rc)
     wrapper.launches += 1
+    launches_by_kernel[kernel] += 1
     return out, produced, status
 
 
 decode_blocks.launches = 0
 decode_segments.launches = 0
+launches_by_kernel = dict.fromkeys(KERNELS, 0)
 
 
 # ------------------------------------------------------------ plain version

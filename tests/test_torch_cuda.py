@@ -136,6 +136,127 @@ def test_decode_segments_kernel_equals_plain(card, urls10k_snappy, urls10k):
         assert torch.equal(g.cpu(), w)
 
 
+def _maker():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_fixtures", DATA.parents[1] / "tools" / "make_torch_fixtures.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("group", ["d4", "d4k", "d32k", "d1k", "dadv", "far"])
+def test_decode_kernel_equals_jax_fixture(card, group):
+    # every decode group of blocks.npz on the card: the JAX answers on every
+    # row but the JAX package's known faults, the plain version on all
+    maker = _maker()
+    block_out = dict(maker.DECODE_GROUPS, **maker.FAR_GROUP)[group]
+    with np.load(DATA / "torch_ref" / "blocks.npz") as z:
+        comp, lens = z[f"{group}_comp"], z[f"{group}_lens"]
+        jout, jprod, jstat = z[f"{group}_out"], z[f"{group}_prod"], z[f"{group}_status"]
+    got = decode_fused.decode_blocks(torch.from_numpy(comp).to(card), lens, block_out)
+    want = decode_fused.decode_blocks(comp, lens, block_out, device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    out, prod, stat = (t.cpu().numpy() for t in got)
+    for i in range(len(lens)):
+        if i in maker.JAX_DECODE_FAULTS.get(group, ()):
+            continue
+        assert (prod[i], stat[i]) == (jprod[i], jstat[i]), (group, i)
+        assert np.array_equal(out[i, : prod[i]], jout[i, : prod[i]]), (group, i)
+
+
+def test_decode_kernel_resolve_rounds_are_bounded(card):
+    # the dadv rows through the stamped launch: every row exact, the deep
+    # chain (8,191 copies each reading the last) included, and no row past
+    # ceil(log2 32768) = 15 resolve rounds
+    rows = _dadv_rows()
+    arr, lens = _pack(rows)
+    B = len(rows)
+    flat = torch.from_numpy(arr).to(card).reshape(-1)
+    offs = torch.arange(B, device=card, dtype=torch.int64) * arr.shape[1]
+    stamps = torch.zeros((B, decode_fused.STAMPS), dtype=torch.int64, device=card)
+    got = decode_fused._launch(decode_fused.decode_blocks, flat, offs,
+                               torch.from_numpy(lens).to(card),
+                               torch.full((B,), 32768, dtype=torch.int32, device=card), 32768,
+                               stamps)
+    want = decode_fused.decode_blocks(arr, lens, 32768, device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    windows, tags, rounds = stamps[:, -3:].cpu().numpy().T
+    assert (rounds <= 15).all() and rounds[0] >= 1, rounds
+    assert tags[2] == 32768 and windows[3] == 196608 // 8192, (tags, windows)
+
+
+def _dadv_rows():
+    with np.load(DATA / "torch_ref" / "blocks.npz") as z:
+        return [z["dadv_comp"][i, : n].tobytes() for i, n in enumerate(z["dadv_lens"])]
+
+
+def test_decode_kernel_pages_4k_at_zram_batch(card, urls10k):
+    # 200 pages of 4 KiB (the container's shape), some mutated or cut
+    pages = [pymodel.compress_fragment(urls10k[i * 4096 : (i + 1) * 4096]) for i in range(180)]
+    pages += _mutants(pages[0], 10, seed=4096) + [p[:-3] for p in pages[1:11]]
+    arr, lens = _pack(pages)
+    before = dict(decode_fused.launches_by_kernel)
+    got = decode_fused.decode_blocks(torch.from_numpy(arr).to(card), lens, 4096)
+    assert decode_fused.launches_by_kernel["decode_kernel"] == before["decode_kernel"] + 1
+    want = decode_fused.decode_blocks(arr, lens, 4096, device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert (want[2][:180] == 0).all()
+
+
+def test_decode_segments_unequal_limits(card, urls10k_snappy, urls10k):
+    # each segment of urls.10K.snappy against its own limit: above, at and
+    # below what it produces (an overrun), and 0
+    from csnappy_tpu_torch.runtime import native
+
+    body = urls10k_snappy[wire.varint_decode(urls10k_snappy)[1]:]
+    _, offs, _ = native.scan_segments(body, len(urls10k))
+    lens = np.diff(np.append(offs, len(body)))
+    full = np.minimum(32768, len(urls10k) - np.arange(len(offs)) * 32768)
+    dl = full + np.resize([0, 5000, -1, -full[0]], len(offs))
+    dl = np.clip(dl, 0, 32768)
+    got = decode_fused.decode_segments(_u8(body).to(card), offs, lens, dl)
+    want = decode_fused.decode_segments(body, offs, lens, dl, device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert got[0].shape[1] == int(dl.max()) and set(want[2].tolist()) == {0, -3}
+
+
+def test_decode_picks_the_kernel_by_width(card, urls10k):
+    # rows up to 32,768 bytes take decode_kernel, wider ones decode_wide_kernel,
+    # each counted on the wrapper's launches; both equal the plain version
+    frags = [pymodel.compress_fragment(urls10k[i * 32768 : (i + 1) * 32768]) for i in range(3)]
+    arr, lens = _pack(frags)
+    for width, kernel in ((32768, "decode_kernel"), (32769, "decode_wide_kernel"),
+                          (70000, "decode_wide_kernel")):
+        before = dict(decode_fused.launches_by_kernel)
+        n = decode_fused.decode_blocks.launches
+        got = decode_fused.decode_blocks(torch.from_numpy(arr).to(card), lens, width)
+        assert decode_fused.decode_blocks.launches == n + 1
+        assert {k: v - before[k] for k, v in decode_fused.launches_by_kernel.items()} == \
+            {k: int(k == kernel) for k in decode_fused.KERNELS}
+        want = decode_fused.decode_blocks(arr, lens, width, device="cpu")
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_the_32k_kernel_never_takes_a_wider_row(card):
+    # the launch entry refuses a row past 32,768 bytes for decode_kernel
+    frag = pymodel.compress_fragment(b"abc" * 100)
+    arr, lens = _pack([frag])
+    flat = torch.from_numpy(arr).to(card).reshape(-1)
+    offs = torch.zeros((1,), dtype=torch.int64, device=card)
+    lt = torch.from_numpy(lens).to(card)
+    dl = torch.full((1,), 32769, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        decode_fused._launch(decode_fused.decode_blocks, flat, offs, lt, dl, 32769,
+                             kernel="decode_kernel")
+
+
 @pytest.mark.parametrize("bs", [1024, 4096, 32768])
 def test_encode_kernel_equals_plain(card, urls10k, bs):
     rng = np.random.default_rng(bs)

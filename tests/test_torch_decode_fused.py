@@ -244,3 +244,43 @@ def test_device_none_means_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decode_fused.decode_blocks(np.zeros((1, 4), np.uint8), [1], 16)
+
+
+def test_kernel_for_picks_by_width():
+    # rows up to FAST_MAX bytes (every API route) take the parallel kernel;
+    # only wider rows take the serial wide kernel
+    assert decode_fused.FAST_MAX == 32768
+    for width in (0, 4, 4096, 32768):
+        assert decode_fused.kernel_for(width) == "decode_kernel"
+    for width in (32769, 70000, decode_fused.MAX_BLOCK_OUT):
+        assert decode_fused.kernel_for(width) == "decode_wide_kernel"
+
+
+def test_launch_refuses_a_bad_stamps_buffer():
+    src = torch.zeros((8,), dtype=torch.uint8)
+    offs, ints = torch.zeros((1,), dtype=torch.int64), torch.ones((1,), dtype=torch.int32)
+    for bad in (torch.zeros((1, decode_fused.STAMPS - 1), dtype=torch.int64),
+                torch.zeros((1, decode_fused.STAMPS), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="stamps"):
+            decode_fused._launch(decode_fused.decode_blocks, src, offs, ints, ints, 16, bad)
+    assert len(decode_fused.PHASES) + len(decode_fused.COUNTS) <= decode_fused.STAMPS
+
+
+def test_decode_segments_equal_decode_blocks_on_adversarial_rows():
+    # one-byte literals with 5-byte headers, the long literal and the deep
+    # copy chain as segments of one stream, read in place at their offsets
+    s1 = (bytes([63 << 2, 0, 0, 0, 0]) + b"q") * 700
+    s2 = bytearray()
+    wire.emit_literal(s2, bytes(range(256)) * 20)
+    s3 = bytearray(b"\x0cabcd") + bytes([wire.TAG_COPY_1, 4]) * 900
+    segs = [s1, bytes(s2), bytes(s3)]
+    body = b"".join(segs)
+    offs = np.cumsum([0] + [len(x) for x in segs[:-1]])
+    lens = [len(x) for x in segs]
+    out, prod, status = decode_fused.decode_segments(body, offs, lens, 5120, device="cpu")
+    arr = np.zeros((3, max(lens)), np.uint8)
+    for i, x in enumerate(segs):
+        arr[i, : len(x)] = np.frombuffer(x, np.uint8)
+    assert [torch.equal(a, b) for a, b in zip(
+        (out, prod, status), decode_fused.decode_blocks(arr, lens, 5120, device="cpu"))] == [True] * 3
+    assert prod.tolist() == [700, 5120, 3604] and status.tolist() == [0, 0, 0]

@@ -72,11 +72,15 @@ def test_inputs_have_not_drifted(ref, rebuilt):
 
 @pytest.mark.parametrize("group", sorted(MAKER.DECODE_GROUPS))
 def test_decode_equals_jax(ref, group):
+    # every row but the JAX package's known faults (JAX_DECODE_FAULTS: the
+    # port answers as the reference there, pinned by the tests below)
     out, prod, status = decode_fused.decode_blocks(
         ref[f"{group}_comp"], ref[f"{group}_lens"], DECODE_GROUPS[group], device="cpu")
-    assert status.numpy().tolist() == ref[f"{group}_status"].tolist()
-    assert prod.numpy().tolist() == ref[f"{group}_prod"].tolist()
-    for i, n in enumerate(prod.tolist()):
+    rows = [i for i in range(len(prod)) if i not in MAKER.JAX_DECODE_FAULTS.get(group, ())]
+    assert status.numpy()[rows].tolist() == ref[f"{group}_status"][rows].tolist()
+    assert prod.numpy()[rows].tolist() == ref[f"{group}_prod"][rows].tolist()
+    for i in rows:
+        n = int(prod[i])
         assert np.array_equal(out[i, :n].numpy(), ref[f"{group}_out"][i, :n]), (group, i)
 
 
@@ -90,6 +94,7 @@ def test_decode_groups_cover_every_outcome(ref):
 def test_far_copy4_matches_the_oracle_not_jax(ref):
     # the JAX kernel clamps COPY_4 offsets to 0xFFFF (decode_fused.py:218-225),
     # so an offset of 66000 fails there; the port keeps 32 bits, as the oracle
+    assert MAKER.JAX_DECODE_FAULTS["far"] == (0,)
     comp = ref["far_comp"][0, : ref["far_lens"][0]].tobytes()
     assert ref["far_status"].tolist() == [-5]
     out, prod, status = decode_fused.decode_blocks(
@@ -97,6 +102,39 @@ def test_far_copy4_matches_the_oracle_not_jax(ref):
     want = pymodel.decompress_noheader(comp, DECODE_GROUPS["far"])
     assert int(status[0]) == 0 and int(prod[0]) == len(want) == 66008
     assert out[0, : len(want)].numpy().tobytes() == want
+
+
+def test_dadv_literals_past_64k_match_the_oracle_not_jax(ref):
+    # row 3 of dadv: 32,768 one-byte literals with 5-byte headers, 196,608 B
+    # of input.  The JAX kernel answers status 0 and 32,768 bytes, but every
+    # literal byte read past input byte 65,535 comes back 0; the port
+    # answers as the oracle
+    i = MAKER.JAX_DECODE_FAULTS["dadv"][0]
+    n = int(ref["dadv_lens"][i])
+    comp = ref["dadv_comp"][i, :n].tobytes()
+    assert n == 196_608 and ref["dadv_status"][i] == 0 and ref["dadv_prod"][i] == 32768
+    want = pymodel.decompress_noheader(comp, 32768)
+    jax_out = ref["dadv_out"][i]
+    wrong = np.nonzero(jax_out != np.frombuffer(want, np.uint8))[0]
+    assert wrong.size and (6 * wrong + 5 > 65535).all() and not jax_out[wrong].any()
+    out, prod, status = decode_fused.decode_blocks(ref["dadv_comp"][i : i + 1], [n], 32768,
+                                                   device="cpu")
+    assert (int(status[0]), int(prod[0])) == (0, 32768)
+    assert out[0].numpy().tobytes() == want
+
+
+def test_dadv_rows_are_the_designed_ones(ref):
+    # the group's rows keep their shapes: chain depth 8,191, offset-1 runs,
+    # 32,768 tags, 196,608 B of input, one long literal, COPY_4 offsets of
+    # the bytes written, and six error events after 3,000 valid tags
+    lens = ref["dadv_lens"].tolist()
+    assert lens[:5] == [5 + 2 * 8191, 2 + 3 * 511, 65536, 196608, 32771]
+    assert ref["dadv_status"].tolist() == [0] * 6 + [-5, -3, -5, -3, -5, -5]
+    assert ref["dadv_prod"].tolist()[:6] == [32768, 32705, 32768, 32768, 32768, 32768]
+    c = ref["dadv_comp"]
+    assert (c[0, 5 : lens[0]].reshape(-1, 2) == [1, 4]).all()         # COPY_1 len 4 off 4
+    assert (c[3, : lens[3]].reshape(-1, 6)[:, :5] == [252, 0, 0, 0, 0]).all()
+    assert (c[5, : lens[5]] & 3 == 3).any()                             # COPY_4 tags
 
 
 @pytest.mark.parametrize("group", sorted(MAKER.ENCODE_GROUPS))

@@ -81,8 +81,13 @@ JAX_CACHE = ROOT / "build" / "jax_cache"      # git-ignored: the JAX probe files
 SEED = 20261016
 
 # decode groups: name -> block_out (one decode_blocks call each)
-DECODE_GROUPS = {"d4": 4, "d4k": 4096, "d32k": 32768, "d1k": 1024}
+DECODE_GROUPS = {"d4": 4, "d4k": 4096, "d32k": 32768, "d1k": 1024, "dadv": 32768}
 FAR_GROUP = {"far": 70000}
+# rows where the JAX decode_blocks answers otherwise than the reference
+# decoder (ROADMAP.md queue C); the port answers as the reference there:
+# far 0, a COPY_4 offset above 65535 (clamped to 0xFFFF, decode_fused.py:218-225);
+# dadv 3, literal bytes read past input byte 65,535 come back 0
+JAX_DECODE_FAULTS = {"far": (0,), "dadv": (3,)}
 # encode groups: name -> padded block width
 ENCODE_GROUPS = {"e1k": 1024, "e4k": 4096, "eadv": 4096}
 
@@ -220,7 +225,85 @@ def build_inputs(urls: bytes, baddata3: bytes, far: bool = False) -> dict:
     lens.append(2000)
     out["eadv_data"] = np.stack(rows)
     out["eadv_lens"] = np.array(lens, np.int32)
+    out["dadv_comp"], out["dadv_lens"] = _pack(build_dadv(urls))
     return out
+
+
+def _tag_cut(frag: bytes, ntags: int) -> tuple[int, int]:
+    """(input, output) position after the first ``ntags`` tags of a valid stream."""
+    ip = op = 0
+    for _ in range(ntags):
+        tag = frag[ip]
+        kind, u = tag & 3, tag >> 2
+        if kind == 0:
+            nb = max(0, u - 59)
+            n = int.from_bytes(frag[ip + 1 : ip + 1 + nb], "little") + 1 if nb else u + 1
+            ip, op = ip + 1 + nb + n, op + n
+        else:
+            op += (u & 7) + 4 if kind == 1 else u + 1
+            ip += (2, 3, 5)[kind - 1]
+    return ip, op
+
+
+def build_dadv(urls: bytes) -> list[bytes]:
+    """The ``dadv`` group: rows that stress a parallel block decoder at
+    block_out 32768 (chain depth, self-overlap, tag count, input length, one
+    long literal, COPY_4 offsets of exactly the bytes written, and error
+    events after ~3,000 valid tags)."""
+    from csnappy_tpu.models import pymodel, wire
+
+    rng = np.random.default_rng(SEED + 12)
+
+    def copy(kind: int, length: int, offset: int) -> bytes:
+        if kind == wire.TAG_COPY_1:
+            return bytes([kind | ((length - 4) << 2) | ((offset >> 8) << 5), offset & 0xFF])
+        width = 2 if kind == wire.TAG_COPY_2 else 4
+        return bytes([kind | ((length - 1) << 2)]) + offset.to_bytes(width, "little")
+
+    def literal(payload: bytes) -> bytearray:
+        s = bytearray()
+        wire.emit_literal(s, payload)
+        return s
+
+    rows = []
+    # every copy reads the previous one: chain depth 8,191
+    rows.append(bytes(literal(b"abcd") + copy(wire.TAG_COPY_1, 4, 4) * 8191))
+    # self-overlap: offset 1, 64 bytes a copy
+    rows.append(bytes(literal(b"z") + copy(wire.TAG_COPY_2, 64, 1) * 511))
+    # 32,768 one-byte literals (32,768 tags, 64 KiB of input)
+    b = rng.integers(0, 256, 32768, dtype=np.uint8)
+    rows.append(np.stack([np.zeros_like(b), b], 1).tobytes())
+    # one-byte literals with 5-byte headers (196,608 B of input)
+    b = rng.integers(0, 256, 32768, dtype=np.uint8)
+    hdr = np.zeros((32768, 6), np.uint8)
+    hdr[:, 0], hdr[:, 5] = 63 << 2, b
+    rows.append(hdr.tobytes())
+    # one 32,768-byte literal
+    rows.append(bytes(literal(rng.integers(0, 256, 32768, dtype=np.uint8).tobytes())))
+    # COPY_4 offsets of exactly the bytes written (each reads from byte 0)
+    s, op = literal(rng.integers(0, 256, 16, dtype=np.uint8).tobytes()), 16
+    while op + 64 <= 32768:
+        if rng.random() < 0.25:
+            n = int(rng.integers(1, 21))
+            s += literal(rng.integers(0, 256, n, dtype=np.uint8).tobytes())
+        else:
+            n = int(rng.integers(1, 65))
+            s += copy(wire.TAG_COPY_4, n, op)
+        op += n
+    s += literal(rng.integers(0, 256, 32768 - op, dtype=np.uint8).tobytes())
+    rows.append(bytes(s))
+    # error events after 3,000 valid tags of a urls block
+    frag = pymodel.compress_fragment(urls[:32768])
+    ip, op = _tag_cut(frag, 3000)
+    head, rest = frag[:ip], frag[ip:]
+    fill = bytes(literal(urls[40000 : 40000 + 32705 - op]))    # output to 32,705
+    rows.append(head + copy(wire.TAG_COPY_2, 8, op + 1) + rest)               # far offset
+    rows.append(head + fill + copy(wire.TAG_COPY_2, 64, 1000) + rest)         # overrun by one
+    rows.append(head + fill + copy(wire.TAG_COPY_2, 64, 40000) + rest)        # both: offset first
+    rows.append(head + bytes(literal(urls[:32769 - op])))                     # literal overrun by one
+    rows.append(head + copy(wire.TAG_COPY_2, 8, 5)[:2])                       # header cut at the end
+    rows.append(head + bytes(literal(urls[:500]))[:-1])                       # literal body cut
+    return rows
 
 
 def _fuzz_stream(rng, trial: int) -> bytes:

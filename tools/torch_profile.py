@@ -5,15 +5,16 @@
 
 Runs the main path's batch (B=64 blocks of 32 KiB of urls.10K, block i =
 ``urls[(i % 21) * 32768 : ...]``, as bench.py and chip_smoke.py make it)
-through ``encode_fused.encode_blocks`` (one call on card tensors, as a user
-makes it) and ``decode_fused.decode_blocks`` and the six wrappers of
-``ops/primitives.py`` on their inputs at the same batch
-(``movebench.primitive_inputs(64)``, on the card) under ``torch.profiler``
-after a warm-up, and prints for each the device time per call of every
-kernel, copy and fill it ran, their sum, and the call's CUDA-event time (the
-gap is device idle), with the card's name and power limit; then the host
-time of a lone ``encode_blocks`` call (synchronised before and after,
-median of 50).  ``--root`` imports ``csnappy_tpu_torch`` from another tree
+through ``encode_fused.encode_blocks`` and ``decode_fused.decode_blocks``
+(one call each on card tensors, as a user makes it, and the decoder's
+launch alone), ``decode_fused.decode_segments`` over urls.10K.snappy's 22
+segments (one call), and the six wrappers of ``ops/primitives.py`` on their
+inputs at the same batch (``movebench.primitive_inputs(64)``, on the card)
+under ``torch.profiler`` after a warm-up, and prints for each the device
+time per call of every kernel, copy and fill it ran, their sum, and the
+call's CUDA-event time (the gap is device idle), with the card's name and
+power limit; then the host time of a lone call of each codec entry
+(synchronised before and after, median of 50).  ``--root`` imports ``csnappy_tpu_torch`` from another tree
 (an unpacked parent commit) to compare two versions in one run.
 Imports nothing of the JAX package.  Exits non-zero without a card.
 """
@@ -37,14 +38,16 @@ def main() -> int:
     ap.add_argument("--root", default=str(ROOT),
                     help="import csnappy_tpu_torch from this tree (default: this checkout)")
     args = ap.parse_args()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, args.root)
-    from csnappy_tpu_torch.models import pymodel
+    from csnappy_tpu_torch.models import pymodel, wire
     from csnappy_tpu_torch.ops import decode_fused, encode_fused
+    from csnappy_tpu_torch.runtime import native
     from csnappy_tpu_torch.ops.primitives import PRIMITIVES
     from csnappy_tpu_torch.tools.movebench import primitive_inputs
     from csnappy_tpu_torch.tools.timing import device_profile
@@ -67,33 +70,46 @@ def main() -> int:
     lens = torch.tensor([len(f) for f in frags], dtype=torch.int32, device=dev)
     dlim = torch.full((B,), BS, dtype=torch.int32, device=dev)
     blens_np = blens.cpu().numpy()
-
-    result = {
-        "encode_blocks (one call)": device_profile(
-            lambda: encode_fused.encode_blocks(data, blens_np), args.reps),
-        "decode_blocks": device_profile(lambda: decode_fused._launch(
-            decode_fused.decode_blocks, flat, offs, lens, dlim, BS), args.reps),
+    comp_dev, lens_np = comp.to(dev), lens.cpu().numpy()
+    golden = (ROOT / "tests" / "data" / "urls.10K.snappy").read_bytes()
+    body = golden[wire.varint_decode(golden)[1]:]
+    _, soffs, _ = native.scan_segments(body, len(urls), BS)
+    slens = np.diff(np.append(soffs, len(body)))
+    sdl = np.minimum(BS, len(urls) - np.arange(len(soffs)) * BS)
+    body_dev = torch.frombuffer(bytearray(body), dtype=torch.uint8).to(dev)
+    calls = {
+        "encode_blocks": lambda: encode_fused.encode_blocks(data, blens_np),
+        "decode_blocks": lambda: decode_fused.decode_blocks(comp_dev, lens_np, BS),
+        "decode_segments": lambda: decode_fused.decode_segments(body_dev, soffs, slens, sdl),
     }
+
+    result = {f"{k} (one call)": device_profile(fn, args.reps) for k, fn in calls.items()}
+    result["decode_blocks (the launch)"] = device_profile(lambda: decode_fused._launch(
+        decode_fused.decode_blocks, flat, offs, lens, dlim, BS), args.reps)
     for name, arrays in primitive_inputs(B).items():
         on_card = [torch.from_numpy(a).to(dev) for a in arrays]
         result[name] = device_profile(lambda: PRIMITIVES[name].wrapper(*on_card), args.reps)
-    lone = []
-    for _ in range(50):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        encode_fused.encode_blocks(data, blens_np)
-        torch.cuda.synchronize()
-        lone.append((time.perf_counter() - t0) * 1e3)
-    result["encode_lone_ms"] = sorted(lone)[len(lone) // 2]
+    lone_ms = {}
+    for k, fn in calls.items():
+        lone = []
+        for _ in range(50):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            lone.append((time.perf_counter() - t0) * 1e3)
+        lone_ms[k] = sorted(lone)[len(lone) // 2]
+    result["lone_ms"] = lone_ms
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
     result["card"] = card
     print(f"tree {args.root}")
     for title, res in result.items():
-        if title == "encode_lone_ms":
-            print(f"encode_blocks, a lone call (host clock, synchronised; median of 50; {card}): "
-                  f"{res:.4f} ms")
+        if title == "lone_ms":
+            for k, ms in res.items():
+                print(f"{k}, a lone call (host clock, synchronised; median of 50; {card}): "
+                      f"{ms:.4f} ms")
             continue
         if title == "card":
             continue
