@@ -39,7 +39,8 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              kernels of one ``encode_blocks``, one ``decode_blocks`` and one
              ``decode_segments`` call on card tensors: exactly one each, the
              encoder's and ``decode_kernel``, and no sort, scan, gather or
-             scatter;
+             scatter; of one ``decode_ws.decompress_noheader_ws`` call
+             exactly two, the scan's and ``decode_kernel``;
 5. times   — median of 20 CUDA-event-timed launches after warm-up for each
              kernel at the main path's shapes (inputs resident in L2), the
              plain version's time on the host, and the bound: the larger of
@@ -55,9 +56,11 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              its ``ptxas -v`` line and the split of the port's first design
              (``decode_wide_kernel`` launched at 32 KiB: walk, literals,
              copies);
-6. whole streams — on every stream of ``tests/data/torch_ref/streams.npz``:
-             ``scan_segments.cu`` equal to its plain walk and to the JAX
-             scan (``seg``, ``meta``), ``decode_ws`` bytes-or-None equal to
+6. whole streams — on every stream of ``tests/data/torch_ref/streams.npz``
+             and of ``scan_adv.npz`` (the adversarial scan group):
+             ``scan_segments.cu`` equal to its plain walk at nslot = nseg + 1,
+             2 and 1 and to the JAX scan (``seg``, ``meta[:3]``),
+             ``decode_ws`` bytes-or-None equal to
              the JAX pipeline's, ``decode_stream.cu`` equal to its plain
              version at the exact limit, 5000 below it and at a multiple of
              32768, and to the JAX kernel, ``decode_jnp``'s torch ops on the
@@ -71,7 +74,13 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              scan to one ``decode_segments`` launch and no ``decode_jnp``
              (a disagreeing segment decoder raises on the card); then times on the
              702 KB and 16 MiB streams (each kernel, the host scan, the whole
-             ``decode_ws`` pipeline);
+             ``decode_ws`` pipeline); for the scan also the kernel alone, its
+             launch, a lone call, the SM cycles of the slowest block's phases
+             and the chaining's span (``clock64()`` and ``%globaltimer``
+             stamps), the sweep over its chunk sizes, ``decode_ws``'s device
+             kernels a call, ``ptxas -v`` and shared memory, and a stream of
+             the 16 MiB one's input length whose two tag chains never merge
+             (exact, timed: the worst case);
 7. container — ``tools/zramsim.run`` over a 256 MiB tree (the port's
              corpus files, urls.10K among them, copied under subdirectories up
              to 268,435,456 B) at 4 KiB pages on the card, with md5 readback of
@@ -386,14 +395,32 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
     z = np.load(DATA / "torch_ref" / "streams.npz")
     errs = {"scan_segments": 0, "decode_stream": 0, "decode_jnp": 0}
     nstream = 0
+
+    def scan_err(body: bytes, nslots) -> int:
+        """The scan on the card against its plain walk at each slot count."""
+        worst = 0
+        for nslot in nslots:
+            seg, meta = decode_ws.scan_segments(u8(body).to(dev), nslot, dev)
+            pseg, pmeta = decode_ws.scan_plain(u8(body), nslot)
+            worst = max(worst, int((seg.cpu() - pseg).abs().max()),
+                        int((meta[:3].cpu() - pmeta[:3]).abs().max()))
+        return worst
+
+    adv = np.load(DATA / "torch_ref" / "scan_adv.npz")
+    for i, name in enumerate(str(s) for s in adv["names"]):
+        body, dst = adv["body"][adv["offs"][i] : adv["offs"][i + 1]].tobytes(), int(adv["dst_len"][i])
+        nseg = -(-dst // BS)
+        errs["scan_segments"] = max(errs["scan_segments"], scan_err(body, (nseg + 1, 2, 1)))
+        seg, meta = decode_ws.scan_segments(u8(body).to(dev), nseg + 1, dev)
+        want = adv["jax_seg"][adv["jax_seg_offs"][i] : adv["jax_seg_offs"][i + 1]]
+        assert seg[:nseg].cpu().numpy().tolist() == want.tolist(), name
+        assert meta[:3].cpu().numpy().tolist() == adv["jax_meta"][i].tolist(), name
     for i, name in enumerate(str(s) for s in z["names"]):
         body, dst = z["body"][z["offs"][i] : z["offs"][i + 1]].tobytes(), int(z["dst_len"][i])
         nseg = -(-dst // BS)
         bdev = u8(body).to(dev)
         seg, meta = decode_ws.scan_segments(bdev, nseg + 1, dev)
-        pseg, pmeta = decode_ws.scan_plain(u8(body), nseg + 1)
-        errs["scan_segments"] = max(errs["scan_segments"], int((seg.cpu() - pseg).abs().max()),
-                                    int((meta[:3].cpu() - pmeta[:3]).abs().max()))
+        errs["scan_segments"] = max(errs["scan_segments"], scan_err(body, (nseg + 1, 2, 1)))
         if decode_ws.plan(len(body), dst) is not None:      # the JAX scan's seg[:nseg], meta[:3]
             want = z["ws_seg"][z["ws_seg_offs"][i] : z["ws_seg_offs"][i + 1]]
             assert seg[:nseg].cpu().numpy().tolist() == want.tolist(), name
@@ -418,8 +445,9 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
         errs["decode_jnp"] = max(errs["decode_jnp"], err(torch.from_numpy(jg[0]), torch.from_numpy(jc[0])))
     torch.cuda.synchronize()
     assert not any(errs.values()), errs
-    print(f"[stream] {len(z['names'])} fixture streams: scan_segments (seg, meta) equal to plain "
-          f"and to the JAX scan; decode_ws bytes-or-None equal to the JAX pipeline; "
+    print(f"[stream] {len(z['names'])} fixture streams and the {len(adv['names'])} adversarial "
+          f"streams of scan_adv.npz: scan_segments (seg, meta[:3]) equal to plain at nslot = nseg "
+          f"+ 1, 2 and 1, and to the JAX scan; decode_ws bytes-or-None equal to the JAX pipeline; "
           f"decode_stream equal to plain ({nstream} limits: exact, -5000, multiple of 32768) "
           f"and to the JAX kernel; decode_jnp on the card equal to the CPU and the JAX decoder; "
           f"max abs err {errs}", flush=True)
@@ -481,6 +509,7 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
 
     # times: the 702 KB reference stream and the 16 MiB stream
     rows = {}
+    scan_rec = _scan_phase(torch, np, dev, golden, len(urls), big_comp, len(big))
     for label, stream, dst in (("702KB", golden, len(urls)), ("16MiB", big_comp, len(big))):
         body = stream[wire.varint_decode(stream)[1]:]
         nseg = -(-dst // BS)
@@ -494,14 +523,12 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
                                         n=reps),
               "decode_jnp": time_ms(lambda: decode_jnp._decode_core(
                   comp, len(body), dst, decode_jnp._bucket(dst)), n=reps)}
-        host_ms = statistics.median(_host_ms(lambda: native.scan_segments(body, dst, BS))
-                                    for _ in range(5))
-        ws_ms = statistics.median(_host_ms(lambda: decode_ws.decompress_noheader_ws(bdev, dst, dev))
-                                  for _ in range(5))
+        rec = scan_rec[label]
         print(f"[times] {label} stream ({len(body)} B in, {dst} B out, {nseg} segments, {tags} "
-              f"tags): scan_segments {ms['scan_segments']:.4f} ms on the card, host "
-              f"native.scan_segments {host_ms:.4f} ms; decode_ws pipeline {ws_ms:.4f} ms host clock "
-              f"({dst / ws_ms / 1e6:.3f} GB/s of output)", flush=True)
+              f"tags, {rec['chunks']} chunks): scan_segments {ms['scan_segments']:.4f} ms a call "
+              f"(CUDA events), host native.scan_segments {rec['host_scan_ms']:.4f} ms; decode_ws "
+              f"pipeline {rec['decode_ws_ms']:.4f} ms host clock "
+              f"({dst / rec['decode_ws_ms'] / 1e6:.3f} GB/s of output)", flush=True)
         for name, route, src, replaces, nbytes in (
                 ("scan_segments", "cuda", "csnappy_tpu_torch/csrc/scan_segments.cu",
                  "csnappy_tpu/ops/decode_ws.py:268", len(body) + 4 * (nseg + 1) + 32),
@@ -510,9 +537,11 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
                 ("decode_jnp", "torch-ops", "csnappy_tpu_torch/ops/decode_jnp.py",
                  "csnappy_tpu/ops/decode_jnp.py:184", len(body) + dst)):
             bound_ms, bound_by = _bound(nbytes)
+            chain = (f"{rec['visited']} chunks chained" if name == "scan_segments"
+                     else f"serial chain {tags} tags")
             print(f"[times] {label} {name}: {ms[name]:.4f} ms, bound {bound_ms:.5f} ms by "
-                  f"{bound_by} ({nbytes} B), serial chain {tags} tags, {launches[name]} "
-                  f"launches on the main path", flush=True)
+                  f"{bound_by} ({nbytes} B), {chain}, {launches[name]} launches on the main "
+                  f"path", flush=True)
             if label == "702KB":
                 plain = {"scan_segments": lambda: decode_ws.scan_plain(bcpu, nseg + 1),
                          "decode_stream": lambda: decode_stream.decode_stream(bcpu, dst, "cpu"),
@@ -521,13 +550,121 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
                               "launches": launches[name], "max_abs_err": errs[name],
                               "ms": ms[name], "plain_ms": _host_ms(plain[name]),
                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                              "bytes": nbytes, "chain_steps": tags}
+                              "bytes": nbytes}
+                if name != "scan_segments":
+                    rows[name]["chain_steps"] = tags
             else:
-                rows[name].update(ms_16MiB=ms[name], bound_ms_16MiB=bound_ms, chain_steps_16MiB=tags)
+                rows[name].update(ms_16MiB=ms[name], bound_ms_16MiB=bound_ms)
+                if name != "scan_segments":
+                    rows[name]["chain_steps_16MiB"] = tags
         key = "" if label == "702KB" else "_16MiB"
-        rows["scan_segments"].update({f"host_scan_ms{key}": host_ms, f"decode_ws_ms{key}": ws_ms})
+        rows["scan_segments"].update({f"{k}{key}": v for k, v in rec.items()})
+    rows["scan_segments"].update(scan_rec["shared"])
     print(f"[times] card {card}", flush=True)
     return list(rows.values())
+
+
+def _scan_phase(torch, np, dev, golden: bytes, ulen: int, big_comp: bytes, big_len: int) -> dict:
+    """Phase 6's measurements of ``scan_segments.cu`` on urls.10K.snappy and
+    the 16 MiB stream: the kernel alone (torch.profiler), its launch (CUDA
+    events), a lone call and the host scan (host clock), the stamped phases
+    of the slowest block and the chaining's span (%globaltimer), the sweep
+    over ``CHUNK_LOGS``, and ``decode_ws`` (host clock, its device kernels);
+    then a stream of the 16 MiB one's input length whose tag chains never
+    merge, exact against the plain walk and timed; ``ptxas -v`` and shared
+    memory.  Returns a record for each stream and one shared."""
+    from csnappy_tpu_torch.models import wire
+    from csnappy_tpu_torch.ops import decode_ws
+    from csnappy_tpu_torch.runtime import native
+    from csnappy_tpu_torch.tools.timing import device_profile, time_ms
+
+    def u8(b: bytes):
+        return torch.frombuffer(bytearray(b), dtype=torch.uint8)
+
+    def launch_ms(bdev, nslot: int, log: int, n: int = 20) -> float:
+        seg = torch.empty(nslot, dtype=torch.int32, device=dev)
+        meta = torch.empty(4, dtype=torch.int64, device=dev)
+        return time_ms(lambda: decode_ws._launch(bdev, seg, meta, chunk_log=log), n=n)
+
+    out = {}
+    for label, stream, dst in (("702KB", golden, ulen), ("16MiB", big_comp, big_len)):
+        body = stream[wire.varint_decode(stream)[1]:]
+        bdev = u8(body).to(dev)
+        nseg = -(-dst // decode_ws.SEG)
+        n = 10 if label == "16MiB" else 20
+        st = torch.zeros((decode_ws.chunks(len(body)), decode_ws.STAMPS), dtype=torch.int64,
+                         device=dev)
+        seg = torch.empty(nseg + 1, dtype=torch.int32, device=dev)
+        meta = torch.empty(4, dtype=torch.int64, device=dev)
+        decode_ws._launch(bdev, seg, meta, stamps=st)
+        pseg, pmeta = decode_ws.scan_plain(u8(body), nseg + 1)
+        assert torch.equal(seg.cpu(), pseg) and torch.equal(meta[:3].cpu(), pmeta[:3]), label
+        stamps = st.cpu().numpy()
+        phases = stamps[:, : len(decode_ws.PHASES)]
+        slow = int(np.argmax(phases.sum(1)))
+        counts = dict(zip(decode_ws.COUNTS, stamps[:, len(decode_ws.PHASES):].T))
+        visited = counts["visited"] == 1
+        ns = counts["published_ns"][visited]
+        kernels = device_profile(lambda: decode_ws.scan_segments(bdev, nseg + 1, dev), 10)
+        ws_kernels = _device_kernels(torch, lambda: decode_ws.decompress_noheader_ws(bdev, dst, dev))
+        assert sorted(ws_kernels.values()) == [1, 1], ws_kernels
+        rec = {"chunks": len(stamps), "chunk_log": decode_ws.CHUNK_LOG,
+               "visited": int(visited.sum()), "meta3": int(meta[3]),
+               "kernel_ms": kernels["device_ms"] or None,
+               "launch_ms": launch_ms(bdev, nseg + 1, decode_ws.CHUNK_LOG, n),
+               "lone_ms": _lone_ms(torch, lambda: decode_ws.scan_segments(bdev, nseg + 1, dev), n),
+               "host_scan_ms": statistics.median(
+                   _host_ms(lambda: native.scan_segments(body, dst, decode_ws.SEG))
+                   for _ in range(5)),
+               "decode_ws_ms": statistics.median(
+                   _host_ms(lambda: decode_ws.decompress_noheader_ws(bdev, dst, dev))
+                   for _ in range(5)),
+               "decode_ws_kernels": ws_kernels,
+               "chaining_us": float(ns.max() - ns.min()) / 1e3 if len(ns) > 1 else 0.0,
+               "slowest_block": {"chunk": slow, "cycles": int(phases[slow].sum()),
+                                 "phases": dict(zip(decode_ws.PHASES, phases[slow].tolist())),
+                                 "rounds": int(counts["rounds"][slow])},
+               "median_block_phases": dict(zip(decode_ws.PHASES,
+                                               np.median(phases[visited], 0).tolist())),
+               "sweep_launch_ms": {2 ** log: launch_ms(bdev, nseg + 1, log, n)
+                                   for log in decode_ws.CHUNK_LOGS}}
+        rec["hop_us"] = rec["chaining_us"] / max(1, rec["visited"] - 1)
+        out[label] = rec
+        print(f"[scan] {label}: {rec['chunks']} chunks of {2 ** decode_ws.CHUNK_LOG} positions, "
+              f"{rec['visited']} visited; kernel alone {_or_not_measured(rec['kernel_ms'])}, "
+              f"launched {rec['launch_ms']:.4f} ms (CUDA events, with the workspace memset), a "
+              f"lone scan_segments call {rec['lone_ms']:.4f} ms, host scan "
+              f"{rec['host_scan_ms']:.4f} ms (host clock); chaining {rec['chaining_us']:.1f} us "
+              f"from chunk 0's publish to the stop's ({rec['hop_us']:.3f} us a chunk); slowest "
+              f"block {rec['slowest_block']}; median visited block (SM cycles) "
+              f"{rec['median_block_phases']}; chunk sweep, launched ms {rec['sweep_launch_ms']}; "
+              f"decode_ws {rec['decode_ws_ms']:.4f} ms host clock, device kernels a call "
+              f"{ws_kernels}", flush=True)
+    # the worst case: two tag chains that never merge, at the 16 MiB stream's input length
+    blen = len(big_comp) - wire.varint_decode(big_comp)[1]
+    never = b"\x00a" + b"\x01\x01" * ((blen - 2) // 2)
+    nseg = -(-(1 + 2 * (len(never) - 2)) // decode_ws.SEG)
+    ndev = u8(never).to(dev)
+    seg, meta = decode_ws.scan_segments(ndev, nseg + 1, dev)
+    pseg, pmeta = decode_ws.scan_plain(u8(never), nseg + 1)
+    assert torch.equal(seg.cpu(), pseg) and torch.equal(meta[:3].cpu(), pmeta[:3]), "never-merging"
+    assert int(meta[3]) == decode_ws.chunks(len(never)), int(meta[3])    # every chunk visited
+    never_ms = launch_ms(ndev, nseg + 1, decode_ws.CHUNK_LOG, 10)
+    never_kernel = device_profile(lambda: decode_ws.scan_segments(ndev, nseg + 1, dev), 5)
+    frame, used = _ptxas(f"scan_kernelILi{decode_ws.CHUNK_LOG}E", "scan_segments")
+    smem = {2 ** log: decode_ws.smem_bytes(log) for log in decode_ws.CHUNK_LOGS}
+    out["shared"] = {"never_merging_bytes": len(never), "never_merging_launch_ms": never_ms,
+                     "never_merging_kernel_ms": never_kernel["device_ms"] or None,
+                     "never_merging_chunks_visited": int(meta[3]),
+                     "ptxas": f"{frame}; {used}", "smem_bytes_by_chunk": smem,
+                     "workspace_bytes_per_position": 8 / 2 ** decode_ws.CHUNK_LOG}
+    print(f"[scan] never-merging stream of {len(never)} B (the 16 MiB stream's input length; "
+          f"{int(meta[3])} chunks visited, exact against the plain walk): launched "
+          f"{never_ms:.4f} ms, kernel alone {_or_not_measured(never_kernel['device_ms'] or None)}, "
+          f"against {out['16MiB']['launch_ms']:.4f} ms on the 16 MiB stream; scan_kernel<"
+          f"{decode_ws.CHUNK_LOG}> ptxas -v: {frame}; {used}; dynamic shared memory a block by "
+          f"chunk size {smem} B; workspace 16 B + 8 B a chunk", flush=True)
+    return out
 
 
 ZRAM_BYTES = 256 << 20         # the [container] tree: 65,536 pages of 4 KiB
@@ -1553,6 +1690,14 @@ def main() -> int:
         assert len(dk) == 1 and list(dk.values()) == [1] and name in next(iter(dk)), (what, dk)
         print(f"[main] one {what} call on card tensors runs 1 device kernel: {dk} "
               f"(torch.profiler; copies not counted)", flush=True)
+    from csnappy_tpu_torch.ops import decode_ws
+
+    dk = _device_kernels(torch, lambda: decode_ws.decompress_noheader_ws(body_dev, len(urls)))
+    assert sorted(dk.values()) == [1, 1] and any("scan_kernel" in k for k in dk) \
+        and any("decode_kernel" in k for k in dk), dk
+    print(f"[main] one decode_ws.decompress_noheader_ws call on card tensors (urls.10K.snappy) "
+          f"runs 2 device kernels, the scan's and decode_kernel: {dk} (torch.profiler; the "
+          f"workspace memset and the copies not counted)", flush=True)
 
     # ------------------------------------------------------------ 5. times
     flat = comp.to(dev).reshape(-1)

@@ -175,7 +175,8 @@ def smem_bytes(width: int, kernel: str | None = None) -> int:
     return fn(width, KERNELS.index(kernel or kernel_for(width)))
 
 
-def _launch(wrapper, src, offs_t, lens_t, dlims_t, width: int, stamps=None, kernel=None):
+def _launch(wrapper, src, offs_t, lens_t, dlims_t, width: int, stamps=None, kernel=None,
+            outs=None):
     """Launch ``decode_blocks.cu`` on torch's current stream and count it on
     ``wrapper.launches`` and ``launches_by_kernel``.  All tensors are on the
     card: the flat source, int64 offsets, int32 lengths and limits
@@ -183,7 +184,8 @@ def _launch(wrapper, src, offs_t, lens_t, dlims_t, width: int, stamps=None, kern
     choice by width (a measurement may name ``decode_wide_kernel`` for any
     width); ``stamps``: None, or int64[B, STAMPS] on the card for each
     block's phase cycles and counts (``PHASES`` or ``WIDE_PHASES``, then
-    ``COUNTS``)."""
+    ``COUNTS``); ``outs``: None, or the int32[B] tensors on the card that
+    take ``produced`` and ``status`` (views of a caller's buffer)."""
     dev = src.device
     B = offs_t.numel()
     kernel = kernel or kernel_for(width)
@@ -191,8 +193,10 @@ def _launch(wrapper, src, offs_t, lens_t, dlims_t, width: int, stamps=None, kern
                                or stamps.device != dev or not stamps.is_contiguous()):
         raise ValueError(f"stamps must be int64[{B}, {STAMPS}] on {dev}, contiguous")
     out = torch.empty((B, width), dtype=torch.uint8, device=dev)
-    produced = torch.empty((B,), dtype=torch.int32, device=dev)
-    status = torch.empty((B,), dtype=torch.int32, device=dev)
+    if outs is None:
+        outs = (torch.empty((B,), dtype=torch.int32, device=dev),
+                torch.empty((B,), dtype=torch.int32, device=dev))
+    produced, status = outs
     launch, check = _kernel()
     args = (src.data_ptr(), offs_t.data_ptr(), lens_t.data_ptr(), dlims_t.data_ptr(),
             out.data_ptr(), width, produced.data_ptr(), status.data_ptr(), B,

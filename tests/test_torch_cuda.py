@@ -397,17 +397,28 @@ def streams():
                  int(z["dst_len"][i])) for i in range(len(z["names"]))]
 
 
+@pytest.fixture(scope="module")
+def scan_adv():
+    """The adversarial scan group of ``tests/data/torch_ref/scan_adv.npz``:
+    (name, body, dst_len, the JAX scan's seg[:nseg], its meta[:3])."""
+    with np.load(DATA / "torch_ref" / "scan_adv.npz") as z:
+        return [(str(z["names"][i]), z["body"][z["offs"][i] : z["offs"][i + 1]].tobytes(),
+                 int(z["dst_len"][i]), z["jax_seg"][z["jax_seg_offs"][i] : z["jax_seg_offs"][i + 1]],
+                 z["jax_meta"][i]) for i in range(len(z["names"]))]
+
+
 def _u8(b: bytes) -> torch.Tensor:
     return torch.frombuffer(bytearray(b), dtype=torch.uint8)
 
 
 def _fuzz_bodies(urls10k: bytes, seed: int):
     """Random bytes, truncations and bit flips of whole streams, at lengths
-    around the scan kernel's 16 KiB windows."""
+    around the scan kernel's chunks (8 and 16 KiB)."""
     rng = np.random.default_rng(seed)
     base = pymodel.compress(urls10k[:200000])
     base = base[wire.varint_decode(base)[1]:]
-    out = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in (1, 5, 16383, 16384, 16389)]
+    out = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+           for n in (1, 5, 8191, 8192, 8193, 16383, 16384, 16389)]
     out += [base[: int(rng.integers(1, len(base)))] for _ in range(4)]
     for _ in range(8):
         b = bytearray(base)
@@ -418,16 +429,92 @@ def _fuzz_bodies(urls10k: bytes, seed: int):
     return out + [run]
 
 
-def test_scan_kernel_equals_plain(card, streams, urls10k):
+def test_scan_kernel_equals_plain(card, streams, scan_adv, urls10k):
+    # every chunk size the kernel is built for, nslot = nseg + 1, 2 and 1;
+    # the adversarial group also against the JAX scan; then a stream of 16
+    # MiB whose odd and even tag chains never merge
     from csnappy_tpu_torch.ops import decode_ws
 
-    cases = [(b, d) for _, b, d in streams] + [(b, 200000) for b in _fuzz_bodies(urls10k, 5)]
+    cases = ([(b, d) for _, b, d in streams] + [(b, d) for _, b, d, _, _ in scan_adv]
+             + [(b, 200000) for b in _fuzz_bodies(urls10k, 5)])
     for body, dst in cases:
-        nslot = -(-dst // 32768) + 1
-        seg, meta = decode_ws.scan_segments(_u8(body).to(card), nslot, device=card)
+        nseg = -(-dst // 32768)
+        bdev = _u8(body).to(card)
+        for nslot in sorted({nseg + 1, 2, 1}):
+            pseg, pmeta = decode_ws.scan_plain(_u8(body), nslot)
+            seg, meta = decode_ws.scan_segments(bdev, nslot, device=card)
+            assert torch.equal(seg.cpu(), pseg) and torch.equal(meta[:3].cpu(), pmeta[:3]), \
+                (len(body), nslot)
+            for log in decode_ws.CHUNK_LOGS:
+                seg = torch.empty(nslot, dtype=torch.int32, device=card)
+                meta = torch.empty(4, dtype=torch.int64, device=card)
+                decode_ws._launch(bdev, seg, meta, chunk_log=log)
+                assert torch.equal(seg.cpu(), pseg) and torch.equal(meta[:3].cpu(), pmeta[:3]), \
+                    (len(body), nslot, log)
+    for _, body, dst, jseg, jmeta in scan_adv:
+        nseg = -(-dst // 32768)
+        seg, meta = decode_ws.scan_segments(_u8(body).to(card), nseg + 1, device=card)
+        assert seg[:nseg].cpu().tolist() == jseg.tolist()
+        assert meta[:3].cpu().tolist() == jmeta.tolist()
+    n = (16 << 20) // 2 - 1
+    body = b"\x00a" + b"\x01\x01" * n
+    nseg = -(-(1 + 4 * n) // 32768)
+    pseg, pmeta = decode_ws.scan_plain(_u8(body), nseg + 1)
+    seg, meta = decode_ws.scan_segments(_u8(body).to(card), nseg + 1, device=card)
+    assert torch.equal(seg.cpu(), pseg) and torch.equal(meta[:3].cpu(), pmeta[:3])
+    assert int(meta[3]) == decode_ws.chunks(len(body))          # every chunk visited
+
+
+def test_decode_ws_on_card_runs_two_kernels_and_equals_jax(card):
+    # a decompress_noheader_ws call on card tensors: the scan's kernel and
+    # one decode_segments kernel, no torch op between them; bytes or None
+    # as the JAX pipeline answered on every fixture stream
+    import hashlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from csnappy_tpu_torch.ops import decode_ws
+
+    with np.load(DATA / "torch_ref" / "streams.npz") as z:
+        for i in range(len(z["names"])):
+            body = z["body"][z["offs"][i] : z["offs"][i + 1]].tobytes()
+            dst = int(z["dst_len"][i])
+            res = decode_ws.decompress_noheader_ws(_u8(body).to(card), dst, device=card)
+            assert (res is not None) == bool(z["ws_bytes"][i]), str(z["names"][i])
+            assert res is None or hashlib.sha256(res).digest() == z["ws_sha"][i].tobytes()
+    golden = (DATA / "urls.10K.snappy").read_bytes()
+    ulen, hdr = wire.varint_decode(golden)
+    bdev = _u8(golden[hdr:]).to(card)
+    decode_ws.decompress_noheader_ws(bdev, ulen, device=card)
+    torch.cuda.synchronize()
+    before = (decode_ws.scan_segments.launches, decode_fused.decode_segments.launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode_ws.decompress_noheader_ws(bdev, ulen, device=card)
         torch.cuda.synchronize()
-        pseg, pmeta = decode_ws.scan_plain(_u8(body), nslot)
-        assert torch.equal(seg.cpu(), pseg) and torch.equal(meta[:3].cpu(), pmeta[:3]), len(body)
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.key.startswith(("Memcpy", "Memset"))}
+    assert sorted(kernels.values()) == [1, 1], kernels
+    assert any("scan_kernel" in k for k in kernels) and any("decode_kernel" in k for k in kernels)
+    assert (decode_ws.scan_segments.launches, decode_fused.decode_segments.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+def test_failed_scan_launch_raises_and_takes_no_host_scan(card, urls10k_snappy, monkeypatch):
+    from csnappy_tpu_torch.ops import decode_ws
+    from csnappy_tpu_torch.runtime import native
+
+    _, check = decode_ws._kernel()
+    monkeypatch.setattr(decode_ws, "_kernel", lambda: (lambda *a: 1, check))   # cudaErrorInvalidValue
+    host = []
+    scan = native.scan_segments
+    monkeypatch.setattr(native, "scan_segments", lambda *a, **k: host.append(1) or scan(*a, **k))
+    monkeypatch.setattr(decode_ws, "scan_plain", lambda *a, **k: host.append(2))
+    with pytest.raises(RuntimeError, match="scan_segments: CUDA error 1"):
+        api.decompress(urls10k_snappy)
+    with pytest.raises(RuntimeError, match="scan_segments: CUDA error 1"):
+        decode_ws.scan_segments(_u8(urls10k_snappy).to(card), 4, device=card)
+    assert not host
 
 
 @pytest.mark.parametrize("limit", ["exact", "short", "multiple"])

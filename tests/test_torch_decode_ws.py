@@ -5,8 +5,14 @@ The seven cases of ``test_decode_ws.py`` through the port's plain versions
 segment decoder's plain version), the dense parse against the JAX
 ``_entries``, and every stream of ``tests/data/torch_ref/streams.npz``
 against what the JAX pipeline answered for it: the scan's ``seg[:nseg]``
-and ``meta[:3]``, and bytes or None.  All exact.
+and ``meta[:3]``, and bytes or None; the adversarial streams of
+``scan_adv.npz`` against the JAX scan.  Then a numpy model of the card
+kernel's decomposition (``csrc/scan_segments.cu``: chunk tables by pointer
+jumping, one lookup a chunk, slots by the kernel's rule), held to
+``scan_plain`` at chunk sizes that make skipped chunks, stops at chunk edges
+and chains that never merge occur at small sizes.  All exact.
 """
+import functools
 import hashlib
 import importlib.util
 import pathlib
@@ -44,7 +50,9 @@ def _maker():
     return mod
 
 
-STREAMS, REF = _maker().read_streams()
+MAKER = _maker()
+STREAMS, REF = MAKER.read_streams()
+ADV, ADV_REF = MAKER.read_scan_adv()
 JAX_ENTRIES = jax.jit(jax_ws._entries)
 
 
@@ -159,3 +167,140 @@ def test_wrapper_checks():
         decode_ws.scan_segments(b"\x00a", 0, device=CPU)
     seg, meta = decode_ws.scan_segments(b"", 3, device=CPU)
     assert seg.tolist() == [0, 0, 0] and meta.tolist() == [0, 0, 0, 0]
+
+
+# ------------------------------------------- the adversarial scan group
+
+
+def test_scan_adv_inputs_rebuild():
+    assert [(n, b, d) for n, b, d in MAKER.load_scan_adv()] == ADV
+
+
+@pytest.mark.parametrize("i", range(len(ADV)), ids=[s[0] for s in ADV])
+def test_scan_adv_equals_jax(i):
+    _, body, dst = ADV[i]
+    nseg = decode_ws.plan(len(body), dst)
+    seg, meta = decode_ws.scan_segments(body, nseg + 1, device=CPU)
+    want = ADV_REF["jax_seg"][ADV_REF["jax_seg_offs"][i] : ADV_REF["jax_seg_offs"][i + 1]]
+    assert seg[:nseg].tolist() == want.tolist()
+    assert meta[:3].tolist() == ADV_REF["jax_meta"][i].tolist()
+    pinned = ADV_REF["plain_seg"][ADV_REF["plain_seg_offs"][i] : ADV_REF["plain_seg_offs"][i + 1]]
+    assert seg.tolist() == pinned.tolist() and meta.tolist() == ADV_REF["plain_meta"][i].tolist()
+
+
+# ------------------------------- a model of the card kernel's decomposition
+
+SEG = decode_ws.SEG
+SUB = 256          # the kernel's sub-chunks (kSubLog = 8)
+
+
+def chunk_scan_model(body: bytes, nslots, C: int):
+    """The decomposition of ``csrc/scan_segments.cu`` in numpy, chunk size C
+    (any, not only the kernel's powers of two).  Returns {nslot: (seg, meta[:3])}.
+
+    Chunk tables: every position's exit from its sub-chunk (J1, P1), then from
+    its chunk (J, P), by pointer jumping.  Chaining: one lookup a chunk.
+    Slots: each visited chunk writes the boundaries in its output range, each
+    exactly once, by sub-chunk hops and then tags from its entry."""
+    n = len(body)
+    nchunks = n // C + 1
+    N = nchunks * C
+    ent = np.zeros(N, np.int64)
+    ent[:n] = decode_ws.entries(torch.frombuffer(bytearray(body), dtype=torch.uint8)
+                                if n else torch.zeros(0, dtype=torch.uint8)).numpy().view(np.uint32)
+    adv, prod = ent & 0xFFFF, ent >> 16
+    pos = np.arange(N, dtype=np.int64)
+    cstart = pos - pos % C
+    sub_end = np.minimum(cstart + (pos % C // SUB + 1) * SUB, cstart + C)
+
+    def jump(J, P, stop, end, max_rounds):
+        for r in range(max_rounds + 1):
+            live = ~stop & (J < end)
+            if not live.any():
+                return
+            assert r < max_rounds, "pointer jumping did not end within its bound"
+            j = J[live]
+            J[live], P[live], stop[live] = J[j], P[live] + P[j], stop[j]
+
+    stop1 = ent == 0
+    J1, P1 = np.where(stop1, pos, pos + adv), np.where(stop1, 0, prod)
+    jump(J1, P1, stop1, sub_end, (SUB // 2).bit_length())
+    J, P, stopc = J1.copy(), P1.copy(), stop1.copy()
+    jump(J, P, stopc, cstart + C, (-(-C // SUB)).bit_length())
+
+    visited, e, pp = [], 0, 0          # (entry, pp at entry, pp at exit or stop, stops)
+    while True:
+        out = pp + int(P[e])
+        visited.append((e, pp, out, bool(stopc[e])))
+        if stopc[e]:
+            stop_at, pp_stop = int(J[e]), out
+            break
+        assert J[e] >= cstart[e] + C and J[e] <= n        # lands in a later chunk
+        e, pp = int(J[e]), out
+
+    def last_at_or_below(x, px, bound):
+        end = cstart[x] + C
+        while True:
+            py = px + int(P1[x])
+            if py > bound:
+                break
+            if stop1[x]:
+                x, px = int(J1[x]), py
+                break
+            if J1[x] >= end:
+                break
+            x, px = int(J1[x]), py
+        while ent[x] and px + int(prod[x]) <= bound and x + adv[x] < end:
+            x, px = int(x + adv[x]), px + int(prod[x])
+        return x, px
+
+    got = {}
+    for nslot in nslots:
+        seg = np.full(nslot, -1, np.int64)
+        for e, pp, out, stops in visited:
+            kstop = -(-out // SEG)
+            k1 = nslot - 2 if stops else min(kstop - 1, nslot - 2)
+            for k in range(-(-pp // SEG), k1 + 1):
+                v = n
+                if not stops or k <= kstop:
+                    q, pq = last_at_or_below(e, pp, k * SEG)
+                    v = q if pq > (k - 1) * SEG else n
+                assert seg[k] == -1, "a slot written twice"
+                seg[k] = v
+            if stops:
+                assert seg[nslot - 1] == -1
+                seg[nslot - 1] = stop_at if kstop >= nslot - 1 else n
+        assert (seg >= 0).all(), "a slot no chunk wrote"
+        got[nslot] = (seg, [stop_at, pp_stop, 0])
+    return got
+
+
+def _tiny_tags() -> bytes:
+    return b"\x04ab" + bytes([wire.TAG_COPY_1, 2]) * 40000      # 40,001 tags of 2-3 bytes
+
+
+MODEL_CASES = ([("streams", n, b, d) for n, b, d in STREAMS] + [("scan_adv", n, b, d) for n, b, d in ADV]
+               + [("edges", "tiny_tags_40001", _tiny_tags(), 3 + 4 * 40000),
+                  ("edges", "empty", b"", 0), ("edges", "one_byte", b"\x00", 1)])
+
+
+@functools.cache
+def _plain(i: int, nslot: int):
+    body = MODEL_CASES[i][2]
+    seg, meta = decode_ws.scan_plain(torch.frombuffer(bytearray(body), dtype=torch.uint8)
+                                     if body else torch.zeros(0, dtype=torch.uint8), nslot)
+    return seg.tolist(), meta[:3].tolist()
+
+
+@pytest.mark.parametrize("C", [64, 1000, 8192])
+@pytest.mark.parametrize("i", range(len(MODEL_CASES)),
+                         ids=[f"{g}-{n}" for g, n, _, _ in MODEL_CASES])
+def test_chunk_model_equals_scan_plain(i, C):
+    _, _, body, dst = MODEL_CASES[i]
+    nseg = -(-dst // SEG)
+    nslots = sorted({nseg + 1, 2, 1})
+    got = chunk_scan_model(body, nslots, C)
+    for nslot in nslots:
+        seg, meta = _plain(i, nslot)
+        assert got[nslot][0].tolist() == seg, nslot
+        assert got[nslot][1] == meta, nslot

@@ -15,6 +15,13 @@ Writes ``tests/data/torch_ref/``:
   ``decode_stream`` and ``decode_jnp`` (``produced``, ``status``) and
   ``api.decompress_noheader`` (status), with a sha256 of every output instead
   of the output itself;
+* ``scan_adv.npz`` — adversarial streams for a parallel boundary scan (built
+  by :func:`build_scan_adv`: tag chains that never merge, 32 KiB literals
+  that skip whole chunks, stops just before, at and just after position
+  16,384, output boundaries on tag starts and inside copies), each with the
+  JAX scan's answer (``_scan_compiled``: ``seg[:nseg]``, ``meta[:3]``, as
+  for ``streams.npz``) and the port's ``decode_ws.scan_plain`` at nseg + 1
+  slots;
 * ``container.npz`` — the paged container (``runtime/container.py``) on the
   inputs of :func:`build_container_inputs`: each container's bytes and the
   compress and decompress stats, and for each malformed container of
@@ -55,10 +62,10 @@ On a CPU backend the Pallas kernels run in interpret mode, so this takes
 minutes; it is run by hand when the reference or the input set changes, never
 by the tests.  ``--far`` adds the 70000-byte-window COPY_4 vector
 (``far`` group, offset 66000 > 65535), which costs several minutes more.
-``--group blocks``, ``streams``, ``container``, ``movebench``,
+``--group blocks``, ``streams``, ``scan_adv``, ``container``, ``movebench``,
 ``primitives``, ``probes`` or ``kernel_lib`` (seconds) writes one file
-only; the stream and container groups run one process per case, ``--procs``
-at a time.
+only; the stream, scan_adv and container groups run one process per case,
+``--procs`` at a time.
 """
 from __future__ import annotations
 
@@ -388,8 +395,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--far", action="store_true", help="add the far COPY_4 group")
     ap.add_argument("--group", default="all",
-                    choices=("all", "blocks", "streams", "container", "movebench", "primitives",
-                             "probes", "kernel_lib"))
+                    choices=("all", "blocks", "streams", "scan_adv", "container", "movebench",
+                             "primitives", "probes", "kernel_lib"))
     ap.add_argument("--procs", type=int, default=4, help="processes for the stream group")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -402,6 +409,8 @@ def main() -> int:
         write_blocks(args.far)
     if args.group in ("all", "streams"):
         write_streams(args.procs)
+    if args.group in ("all", "scan_adv"):
+        write_scan_adv(args.procs)
     if args.group in ("all", "container"):
         write_container(args.procs)
     if args.group in ("all", "movebench"):
@@ -531,6 +540,129 @@ def write_streams(procs: int) -> None:
         a[key] = a[key].astype(np.int32)
     np.savez_compressed(OUT / "streams.npz", **a)
 
+
+
+# ------------------------------------------------------------- scan_adv
+
+STOP_AT = 16384                # the adversarial stops sit around 2 x 8192 positions
+
+
+def build_scan_adv(urls: bytes) -> list[tuple[str, bytes, int]]:
+    """Adversarial whole streams for a boundary scan cut into chunks of
+    stream positions: (name, headerless body, dst_len) each, at most ~200 KB."""
+    from csnappy_tpu.models import pymodel, wire
+
+    def split(stream: bytes) -> bytes:
+        return stream[wire.varint_decode(stream)[1]:]
+
+    def literal(payload: bytes) -> bytearray:
+        s = bytearray()
+        wire.emit_literal(s, payload)
+        return s
+
+    def copy2(length: int, offset: int) -> bytes:
+        return bytes([wire.TAG_COPY_2 | ((length - 1) << 2)]) + offset.to_bytes(2, "little")
+
+    def chain(body: bytes) -> list[int]:
+        """Tag starts of a valid stream."""
+        ip, out = 0, []
+        while ip < len(body):
+            out.append(ip)
+            tag, kind = body[ip], body[ip] & 3
+            if kind == 0:
+                nb = max(0, (tag >> 2) - 59)
+                ln = int.from_bytes(body[ip + 1 : ip + 1 + nb], "little") + 1 if nb else (tag >> 2) + 1
+                ip += 1 + nb + ln
+            else:
+                ip += (2, 3, 5)[kind - 1]
+        return out
+
+    rng = np.random.default_rng(SEED + 3)
+    n = 99_999                 # a literal, then COPY_1 tags of length 4 and offset 1: the odd
+    out = [("never_merging", b"\x00a" + b"\x01\x01" * n, 1 + 4 * n)]   # chain never meets it
+    n = 98_303                 # the same, ending at 24 x 8192 positions: the stop opens a chunk
+    out.append(("never_merging_196608", b"\x00a" + b"\x01\x01" * n, 1 + 4 * n))
+    raw = (rng.integers(0, 256, 96 << 10, dtype=np.uint8).tobytes() + urls[: 64 << 10]
+           + rng.integers(0, 256, 40 << 10, dtype=np.uint8).tobytes())
+    out.append(("random_fragments", split(pymodel.compress(raw)), len(raw)))
+    base = split(pymodel.compress(urls[:150000]))
+    starts = chain(base)
+    bad = b"\xf4\xff\xff"     # a literal of 65,536 bytes: its entry is 0
+    for name, at in (("stop_before_16384", STOP_AT - 1), ("stop_at_16384", STOP_AT),
+                     ("stop_after_16384", STOP_AT + 1)):
+        t = max(p for p in starts if 2 <= at - p <= 61)
+        body = base[:t] + bytes(literal(urls[: at - t - 1])) + bad + base[t:]
+        assert body.index(bad, t) == at
+        out.append((name, body, 200000))
+    # boundaries on tag starts: 64 literal bytes, then 3-byte copies of 64
+    out.append(("boundaries_on_tag_starts",
+                bytes(literal(urls[:64])) + copy2(64, 64) * 30000, 64 * 30001))
+    # boundaries inside copies (and inside a literal) of 60 bytes
+    body = bytes(literal(urls[:60])) + copy2(60, 60) * 20000 + bytes(literal(urls[:30000]))
+    out.append(("boundaries_inside_tags", body + copy2(60, 60) * 9000,
+                60 * 20001 + 30000 + 60 * 9000))
+    return out
+
+
+def load_scan_adv() -> list[tuple[str, bytes, int]]:
+    """:func:`build_scan_adv` over urls.10K."""
+    return build_scan_adv((DATA / "urls.10K").read_bytes())
+
+
+def read_scan_adv() -> tuple[list[tuple[str, bytes, int]], dict]:
+    """The stored scan_adv group: its inputs as (name, body, dst_len) and every array."""
+    with np.load(OUT / "scan_adv.npz") as z:
+        a = {k: z[k] for k in z.files}
+    inputs = [(str(a["names"][i]), a["body"][a["offs"][i] : a["offs"][i + 1]].tobytes(),
+               int(a["dst_len"][i])) for i in range(len(a["names"]))]
+    return inputs, a
+
+
+def _answer_scan_adv(i: int) -> dict:
+    """The JAX boundary scan and the port's plain scan on stream ``i`` of
+    :func:`load_scan_adv` (a fresh process each, as for the streams)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import torch
+
+    from csnappy_tpu.ops import decode_ws
+    from csnappy_tpu_torch.ops import decode_ws as port_ws
+
+    name, body, dst_len = load_scan_adv()[i]
+    t0 = time.time()
+    buf = np.frombuffer(body, np.uint8)
+    nseg = -(-dst_len // decode_ws.SEG)
+    MR, Bb, _ = decode_ws.plan(len(buf), dst_len)
+    arr = np.zeros(MR * decode_ws.L, np.uint8)
+    arr[: len(buf)] = buf
+    ent = decode_ws._entries(jnp.asarray(arr).astype(jnp.int32).reshape(MR, decode_ws.L),
+                             jnp.int32(len(buf)))
+    seg, meta = decode_ws._scan_compiled(MR, Bb)(jnp.full((1,), len(buf), jnp.int32), ent)
+    pseg, pmeta = port_ws.scan_plain(torch.from_numpy(buf.copy()), nseg + 1)
+    print(f"scan_adv {name}: {len(body)} B -> {dst_len}, {nseg} segments, stop "
+          f"{np.asarray(meta)[:2].tolist()} ({time.time() - t0:.0f} s)", flush=True)
+    return {"jax_seg": np.asarray(seg)[:nseg], "jax_meta": np.asarray(meta)[:3],
+            "plain_seg": pseg.numpy(), "plain_meta": pmeta.numpy()}
+
+
+def write_scan_adv(procs: int) -> None:
+    import multiprocessing
+
+    streams = load_scan_adv()
+    with multiprocessing.get_context("spawn").Pool(procs, maxtasksperchild=1) as pool:
+        rs = pool.map(_answer_scan_adv, range(len(streams)), chunksize=1)
+    a = {"names": np.array([s[0] for s in streams]),
+         "body": np.frombuffer(b"".join(s[1] for s in streams), np.uint8),
+         "offs": np.cumsum([0] + [len(s[1]) for s in streams]).astype(np.int64),
+         "dst_len": np.array([s[2] for s in streams], np.int64),
+         "jax_meta": np.array([r["jax_meta"] for r in rs], np.int32),
+         "plain_meta": np.array([r["plain_meta"] for r in rs], np.int64)}
+    for key in ("jax_seg", "plain_seg"):
+        a[key] = np.concatenate([r[key] for r in rs]).astype(np.int32)
+        a[f"{key}_offs"] = np.cumsum([0] + [len(r[key]) for r in rs]).astype(np.int64)
+    np.savez_compressed(OUT / "scan_adv.npz", **a)
 
 
 # ---------------------------------------------------------------- container

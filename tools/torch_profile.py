@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's block codec and primitives spend their device time, on one CUDA card.
 
-    python3 tools/torch_profile.py [--out FILE.json] [--root TREE]
+    python3 tools/torch_profile.py [--out FILE.json] [--root TREE] [--scan-split]
 
 Runs the main path's batch (B=64 blocks of 32 KiB of urls.10K, block i =
 ``urls[(i % 21) * 32768 : ...]``, as bench.py and chip_smoke.py make it)
@@ -13,16 +13,30 @@ inputs at the same batch (``movebench.primitive_inputs(64)``, on the card)
 under ``torch.profiler`` after a warm-up, and prints for each the device
 time per call of every kernel, copy and fill it ran, their sum, and the
 call's CUDA-event time (the gap is device idle), with the card's name and
-power limit; then the host time of a lone call of each codec entry
-(synchronised before and after, median of 50).  ``--root`` imports ``csnappy_tpu_torch`` from another tree
-(an unpacked parent commit) to compare two versions in one run.
-Imports nothing of the JAX package.  Exits non-zero without a card.
+power limit; then the whole-stream slice the same way: one
+``decode_ws.scan_segments`` and one ``decode_ws.decompress_noheader_ws``
+call on card tensors of urls.10K.snappy, of urls.10K x 24 (16 MiB,
+compressed on the card) and, for the scan, of a 16 MiB stream whose two tag
+chains never merge; then the host time of a lone call of each codec entry,
+of those whole-stream calls and of the host scan (``native.scan_segments``)
+(synchronised before and after, median of 50; 10 at 16 MiB), and the host
+split of one ``decompress_noheader_ws`` call on urls.10K.snappy, step by
+step (µs).  ``--root`` imports ``csnappy_tpu_torch`` from another tree (an
+unpacked parent commit) to compare two versions in one run.
+``--scan-split`` builds ``--root``'s ``csrc/scan_segments.cu`` when it is
+the one-block walk (commit bde1c5d and before) with ``clock64()`` stamps
+added around its three phases (staging a window, parse and fuse, thread 0's
+walk) and prints each phase's SM cycles summed over the windows, on
+urls.10K.snappy and the 16 MiB stream.  Imports nothing of the JAX package.
+Exits non-zero without a card.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -37,6 +51,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--root", default=str(ROOT),
                     help="import csnappy_tpu_torch from this tree (default: this checkout)")
+    ap.add_argument("--scan-split", action="store_true",
+                    help="the one-block scan's phases in --root, with clock64() stamps added")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -89,31 +105,65 @@ def main() -> int:
     for name, arrays in primitive_inputs(B).items():
         on_card = [torch.from_numpy(a).to(dev) for a in arrays]
         result[name] = device_profile(lambda: PRIMITIVES[name].wrapper(*on_card), args.reps)
-    lone_ms = {}
-    for k, fn in calls.items():
-        lone = []
-        for _ in range(50):
+    from csnappy_tpu_torch.ops import decode_ws
+
+    big = urls * 24
+    big_comp = encode_fused.compress_np(big, device=dev)
+    bbody = big_comp[wire.varint_decode(big_comp)[1]:]
+    never = b"\x00a" + b"\x01\x01" * ((len(bbody) - 2) // 2)   # odd and even chains never merge
+    whole = {}
+    for label, b, dst in (("urls.10K.snappy", body, len(urls)), ("16 MiB", bbody, len(big)),
+                          ("never-merging 16 MiB", never, 1 + 2 * (len(never) - 2))):
+        bd = torch.frombuffer(bytearray(b), dtype=torch.uint8).to(dev)
+        nseg = -(-dst // BS)
+        whole[f"scan_segments on {label}"] = (
+            lambda bd=bd, nseg=nseg: decode_ws.scan_segments(bd, nseg + 1, dev), b, dst)
+        if not label.startswith("never"):
+            whole[f"decode_ws on {label}"] = (
+                lambda bd=bd, dst=dst: decode_ws.decompress_noheader_ws(bd, dst, dev), b, dst)
+            whole[f"host scan on {label}"] = (
+                lambda b=b, dst=dst: native.scan_segments(b, dst, BS), b, dst)
+    for k, (fn, _, _) in whole.items():
+        if not k.startswith("host"):
+            result[f"{k} (one call)"] = device_profile(fn, args.reps)
+
+    def lone(fn, n: int) -> float:
+        times = []
+        for _ in range(n):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-            lone.append((time.perf_counter() - t0) * 1e3)
-        lone_ms[k] = sorted(lone)[len(lone) // 2]
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+
+    lone_ms = {k: lone(fn, 50) for k, fn in calls.items()}
+    lone_ms.update({k: lone(fn, 10 if "16 MiB" in k else 50) for k, (fn, _, _) in whole.items()})
     result["lone_ms"] = lone_ms
+    if hasattr(decode_ws, "_carve"):
+        result["decode_ws host split, urls.10K.snappy (us)"] = _ws_split(
+            torch, decode_ws, decode_fused, body_dev, len(urls))
+    if args.scan_split:
+        result["one-block scan split (SM cycles)"] = _scan_split(
+            torch, pathlib.Path(args.root), dev, {"urls.10K.snappy": body, "16 MiB": bbody})
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
     result["card"] = card
     print(f"tree {args.root}")
     for title, res in result.items():
+        if title.startswith(("decode_ws host split", "one-block scan split")):
+            print(f"{title} ({card}): {res}")
+            continue
         if title == "lone_ms":
             for k, ms in res.items():
-                print(f"{k}, a lone call (host clock, synchronised; median of 50; {card}): "
+                print(f"{k}, a lone call (host clock, synchronised; median of "
+                      f"{10 if '16 MiB' in k else 50}; {card}): "
                       f"{ms:.4f} ms")
             continue
         if title == "card":
             continue
-        print(f"{title}  (B={B} x {BS} B; {card}): CUDA events {res['event_ms']:.4f} ms, "
+        print(f"{title}  ({'B=64 x 32 KiB; ' if ' on ' not in title else ''}{card}): CUDA events {res['event_ms']:.4f} ms, "
               f"kernels {res['device_ms']:.4f} ms")
         for k, ms in res["kernels"].items():
             print(f"  {ms:10.4f}  {k[:110]}")
@@ -124,6 +174,102 @@ def main() -> int:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
     return 0
+
+
+def _ws_split(torch, decode_ws, decode_fused, bdev, dst: int, n: int = 200) -> dict:
+    """Host microseconds of each step of one ``decompress_noheader_ws`` call
+    on card tensors (median of ``n``; the copies wait for the kernels)."""
+    nseg = decode_ws.plan(bdev.numel(), dst)
+    st = {}
+
+    def carve():
+        st["v"] = decode_ws._carve(
+            bdev.device, (torch.int64, 4), (torch.int64, 3 + 2 * nseg), (torch.int64, nseg),
+            (torch.int32, nseg + 1), (torch.int32, nseg), (torch.int32, nseg),
+            decode_ws._work(bdev.numel()))
+
+    def scan():
+        meta, check, offs, seg, lens, dlims, work = st["v"]
+        decode_ws._launch(bdev, seg, meta, work, (offs, lens, dlims, check[: 3 + nseg]), dst)
+
+    def decode():
+        meta, check, offs, seg, lens, dlims, _ = st["v"]
+        ps = check[3 + nseg :].view(torch.int32)
+        st["out"] = decode_fused._launch(decode_fused.decode_segments, bdev, offs, lens, dlims,
+                                         decode_ws.SEG, outs=(ps[:nseg], ps[nseg:]))[0]
+
+    steps = {"allocate and view": carve, "scan launch": scan, "decode launch": decode,
+             "check copy (waits for both kernels)": lambda: st["v"][1].cpu(),
+             "bytes copy": lambda: st["out"].reshape(-1)[:dst].cpu().numpy().tobytes(),
+             "the whole call": lambda: decode_ws.decompress_noheader_ws(bdev, dst, bdev.device)}
+    times = {k: [] for k in steps}
+    for _ in range(n):
+        torch.cuda.synchronize()
+        for k, fn in steps.items():
+            t0 = time.perf_counter()
+            fn()
+            times[k].append((time.perf_counter() - t0) * 1e6)
+    return {k: round(statistics.median(v), 1) for k, v in times.items()}
+
+
+# where clock64() stamps go in the one-block scan's loop (bde1c5d)
+_SPLIT_MARKS = (
+    ("    const int64_t p0 = s_p;\n", "    const int64_t p0 = s_p;\n    const long long t0_ = clock64();\n"),
+    ("bytes[i] = (p0 + i < slen) ? src[p0 + i] : 0;\n    __syncthreads();\n",
+     "bytes[i] = (p0 + i < slen) ? src[p0 + i] : 0;\n    __syncthreads();\n"
+     "    const long long t1_ = clock64();\n"),
+    ("    if (threadIdx.x == 0) {\n      int64_t p = p0,",
+     "    const long long t2_ = clock64();\n    if (threadIdx.x == 0) {\n      int64_t p = p0,"),
+    ("      s_done = done;\n    }\n    __syncthreads();\n",
+     "      s_done = done;\n    }\n    __syncthreads();\n    if (threadIdx.x == 0) {\n"
+     "      g_split[0] += t1_ - t0_; g_split[1] += t2_ - t1_; g_split[2] += clock64() - t2_;\n"
+     "      g_split[3] += 1;\n    }\n"),
+    ("namespace {\n", "__device__ long long g_split[4];\nnamespace {\n"),
+)
+_SPLIT_READ = """
+extern "C" int scan_split(long long* out, int reset) {
+  if (reset) { long long z[4] = {0, 0, 0, 0}; return (int)cudaMemcpyToSymbol(g_split, z, sizeof z); }
+  return (int)cudaMemcpyFromSymbol(out, g_split, 4 * sizeof(long long));
+}
+"""
+
+
+def _scan_split(torch, root: pathlib.Path, dev, streams: dict) -> dict:
+    """SM cycles of the one-block scan's phases (staging, parse and fuse,
+    the walk; summed over its windows) and its window count, from ``root``'s
+    ``scan_segments.cu`` with stamps added; one launch on each stream."""
+    from csnappy_tpu_torch.ops import _build
+
+    src = (root / "csnappy_tpu_torch" / "csrc" / "scan_segments.cu").read_text()
+    for old, new in _SPLIT_MARKS:
+        if src.count(old) != 1:
+            return {"not measured": "not the one-block scan"}
+        src = src.replace(old, new)
+    out_dir = ROOT / "build" / "scan_split"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu, so = out_dir / "scan_split.cu", out_dir / "libscan_split.so"
+    cu.write_text(src + _SPLIT_READ)
+    subprocess.run([_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(so), str(cu)], check=True,
+                   capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(so))
+    vp = ctypes.c_void_p
+    lib.scan_segments_launch.argtypes = [vp, ctypes.c_longlong, vp, ctypes.c_int, vp, vp]
+    lib.scan_split.argtypes = [vp, ctypes.c_int]
+    res = {}
+    for label, body in streams.items():
+        bd = torch.frombuffer(bytearray(body), dtype=torch.uint8).to(dev)
+        seg = torch.empty(4096, dtype=torch.int32, device=dev)
+        meta = torch.empty(4, dtype=torch.int64, device=dev)
+        split = (ctypes.c_longlong * 4)()
+        assert lib.scan_split(split, 1) == 0
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        assert lib.scan_segments_launch(bd.data_ptr(), bd.numel(), seg.data_ptr(), 4096,
+                                        meta.data_ptr(), stream) == 0
+        torch.cuda.synchronize()
+        assert lib.scan_split(split, 0) == 0
+        res[label] = dict(zip(("staging", "parse and fuse", "walk", "windows"), list(split)))
+    return res
 
 
 if __name__ == "__main__":
