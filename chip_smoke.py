@@ -80,7 +80,19 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              stamps), the sweep over its chunk sizes, ``decode_ws``'s device
              kernels a call, ``ptxas -v`` and shared memory, and a stream of
              the 16 MiB one's input length whose two tag chains never merge
-             (exact, timed: the worst case);
+             (exact, timed: the worst case); then ``decode_stream.cu`` (a
+             chain grid over 8 KiB chunks and a grid of 32 KiB output
+             segments) also on every stream of ``stream_adv.npz`` at its
+             three limits against the plain version and the JAX kernel, and
+             on four 16 MiB worst cases (urls.10K x 24, an offset-1 run of
+             2^24 bytes, a 2^24-byte literal, 2^21 one-byte literals) at the
+             three limits against the plain version; one call asserted with
+             torch.profiler to run ``chain_kernel`` and ``segment_kernel``
+             once each, at most one memset and no copy; then on
+             urls.10K.snappy, the unaligned vector, the 16 MiB stream and
+             the worst cases its kernels alone, launch, a call, a lone call,
+             the SM cycles of both kernels' phases (stamps), the chains'
+             spans a chunk and a segment (``%globaltimer``) and ``ptxas -v``;
 7. container — ``tools/zramsim.run`` over a 256 MiB tree (the port's
              corpus files, urls.10K among them, copied under subdirectories up
              to 268,435,456 B) at 4 KiB pages on the card, with md5 readback of
@@ -140,7 +152,9 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              trace in JAX); then each serial chain of phases 5 and 6 in units
              of one measured ``walk_smem`` step (a dependent shared load and
              four integer operations: a yardstick, not a floor; printed only,
-             never in the ``kernels`` line);
+             never in the ``kernels`` line), and for ``decode_stream.cu`` its
+             two chains' links (chunks chained, segments that waited on a
+             flag) and their measured time a link;
 13. kernel_lib — rows 15a-15b (``csrc/kernel_lib.cu`` over
              ``csrc/kernel_lib.cuh``, ``ops/kernel_lib.py``): with every count
              of ``kernel_lib.launches`` set to 0, each helper of
@@ -237,16 +251,48 @@ def _copy_starts(frag: bytes) -> list[int]:
 def _device_kernels(torch, fn) -> dict:
     """Device kernels (not copies or fills) of one ``fn()`` call on the card,
     by name, with their launch counts, from ``torch.profiler``."""
+    return {k: v for k, v in _device_ops(torch, fn).items()
+            if not k.startswith(("Memcpy", "Memset"))}
+
+
+def _device_ops(torch, fn) -> dict:
+    """Every device operation (kernels, copies and fills) of one ``fn()``
+    call on the card, by name, with its count, from ``torch.profiler``: the
+    second of two calls, after a warm-up step of its schedule (the step's
+    own annotation left out)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.key.startswith(("Memcpy", "Memset"))}
+    ops = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: ops.update(
+                     {e.key: e.count for e in p.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.key.startswith("ProfilerStep")})) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return ops
+
+
+def _stream_worst_cases(api, wire, urls: bytes) -> list:
+    """16 MiB worst cases of ``decode_stream.cu``, each cheap for its plain
+    version: (name, body, dst_len)."""
+    big = api.compress(urls * 24)
+    ulen, hdr = wire.varint_decode(big)
+    n = 1 << 24
+    run = bytearray(b"\x00a")                    # an offset-1 run: every segment hangs on the last
+    run += bytes([wire.TAG_COPY_2 | (63 << 2), 1, 0]) * ((n - 1) // 64)
+    run += bytes([wire.TAG_COPY_2 | (((n - 1) % 64 - 1) << 2), 1, 0])
+    lit = bytearray()
+    wire.emit_literal(lit, (bytes(range(256)) * (n // 256))[:n])
+    ones = b"".join(b"\x00" + bytes([i & 0xFF]) for i in range(1 << 21))
+    return [("urls.10K x 24", big[hdr:], ulen), ("offset-1 run of 2^24", bytes(run), n),
+            ("literal of 2^24", bytes(lit), n), ("2^21 one-byte literals", ones, 1 << 21)]
 
 
 def _smi(query: str) -> str:
@@ -443,8 +489,47 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
         assert jg[1:] == jc[1:] == (z["jnp_prod"][i], z["jnp_status"][i]), name
         assert sha(jg[0].tobytes()) == z["jnp_sha"][i].tolist(), name
         errs["decode_jnp"] = max(errs["decode_jnp"], err(torch.from_numpy(jg[0]), torch.from_numpy(jc[0])))
+    sadv = np.load(DATA / "torch_ref" / "stream_adv.npz")
+    for i, name in enumerate(str(s) for s in sadv["names"]):
+        body = sadv["body"][sadv["offs"][i] : sadv["offs"][i + 1]].tobytes()
+        bdev = u8(body).to(dev)
+        for j, cap in enumerate(sadv["limits"][i].tolist()):
+            got = decode_stream.decode_stream(bdev, cap, dev)
+            want = decode_stream.decode_stream(body, cap, "cpu")
+            p = int(want[1])
+            assert (int(got[1]), int(got[2])) == (p, int(want[2])), (name, cap)
+            assert (p, int(got[2])) == (sadv["jax_prod"][i][j], sadv["jax_status"][i][j]), (name, cap)
+            assert sha(got[0][:p].cpu().numpy().tobytes()) == sadv["jax_sha"][i][j].tolist(), name
+            errs["decode_stream"] = max(errs["decode_stream"], err(got[0][:p], want[0][:p]))
+            nstream += 1
+    worst = _stream_worst_cases(api, wire, urls)
+    for name, body, dst in worst:
+        bdev = u8(body).to(dev)
+        for cap in (dst, max(0, dst - 5000), dst // BS * BS):
+            got = decode_stream.decode_stream(bdev, cap, dev)
+            want = decode_stream.decode_stream(body, cap, "cpu")
+            p = int(want[1])
+            assert (int(got[1]), int(got[2])) == (p, int(want[2])), (name, cap)
+            errs["decode_stream"] = max(errs["decode_stream"], err(got[0][:p], want[0][:p]))
+            nstream += 1
     torch.cuda.synchronize()
     assert not any(errs.values()), errs
+    unaligned_stream = (DATA / "unaligned_uint64_test.snappy").read_bytes()
+    for label, stream in (("urls.10K.snappy", golden), ("unaligned_uint64_test.snappy", unaligned_stream)):
+        ulen, hdr = wire.varint_decode(stream)
+        bdev = u8(stream[hdr:]).to(dev)
+        ops = _device_ops(torch, lambda: decode_stream.decode_stream(bdev, ulen, dev))
+        kern = {k: v for k, v in ops.items() if not k.startswith(("Memcpy", "Memset"))}
+        memsets = sum(v for k, v in ops.items() if k.startswith("Memset"))
+        assert sorted(kern.values()) == [1, 1] and memsets <= 1, ops
+        assert any("chain_kernel" in k for k in kern) and any("segment_kernel" in k for k in kern)
+        assert not any(k.startswith("Memcpy") for k in ops), ops
+        print(f"[stream] one decode_stream call on {label}: device kernels {kern}, memsets "
+              f"{memsets} (torch.profiler)", flush=True)
+    print(f"[stream] {len(z['names'])} fixture streams, the {len(sadv['names'])} of stream_adv.npz "
+          f"and the 16 MiB worst cases {[w[0] for w in worst]}: decode_stream equal to plain at "
+          f"the exact, -5000 and multiple-of-32768 limits, stream_adv also to the JAX kernel",
+          flush=True)
     print(f"[stream] {len(z['names'])} fixture streams and the {len(adv['names'])} adversarial "
           f"streams of scan_adv.npz: scan_segments (seg, meta[:3]) equal to plain at nslot = nseg "
           f"+ 1, 2 and 1, and to the JAX scan; decode_ws bytes-or-None equal to the JAX pipeline; "
@@ -510,6 +595,12 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
     # times: the 702 KB reference stream and the 16 MiB stream
     rows = {}
     scan_rec = _scan_phase(torch, np, dev, golden, len(urls), big_comp, len(big))
+    unaligned_body = unaligned_stream[wire.varint_decode(unaligned_stream)[1]:]
+    stream_rec = _stream_phase(torch, np, dev, [
+        ("702KB", golden[wire.varint_decode(golden)[1]:], len(urls)),
+        ("unaligned_uint64_test.snappy", unaligned_body, wire.varint_decode(unaligned_stream)[0]),
+        ("16MiB", big_comp[wire.varint_decode(big_comp)[1]:], len(big))]
+        + [w for w in worst if w[0] != "urls.10K x 24"])
     for label, stream, dst in (("702KB", golden, len(urls)), ("16MiB", big_comp, len(big))):
         body = stream[wire.varint_decode(stream)[1]:]
         nseg = -(-dst // BS)
@@ -537,8 +628,10 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
                 ("decode_jnp", "torch-ops", "csnappy_tpu_torch/ops/decode_jnp.py",
                  "csnappy_tpu/ops/decode_jnp.py:184", len(body) + dst)):
             bound_ms, bound_by = _bound(nbytes)
-            chain = (f"{rec['visited']} chunks chained" if name == "scan_segments"
-                     else f"serial chain {tags} tags")
+            srec = stream_rec[label]
+            chain = (f"{rec['visited']} chunks chained" if name == "scan_segments" else
+                     f"{srec['visited']} chunks chained, {srec['waited']} segments waited on"
+                     if name == "decode_stream" else f"serial chain {tags} tags")
             print(f"[times] {label} {name}: {ms[name]:.4f} ms, bound {bound_ms:.5f} ms by "
                   f"{bound_by} ({nbytes} B), {chain}, {launches[name]} launches on the main "
                   f"path", flush=True)
@@ -551,17 +644,87 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
                               "ms": ms[name], "plain_ms": _host_ms(plain[name]),
                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                               "bytes": nbytes}
-                if name != "scan_segments":
+                if name == "decode_jnp":
                     rows[name]["chain_steps"] = tags
             else:
                 rows[name].update(ms_16MiB=ms[name], bound_ms_16MiB=bound_ms)
-                if name != "scan_segments":
+                if name == "decode_jnp":
                     rows[name]["chain_steps_16MiB"] = tags
         key = "" if label == "702KB" else "_16MiB"
         rows["scan_segments"].update({f"{k}{key}": v for k, v in rec.items()})
     rows["scan_segments"].update(scan_rec["shared"])
+    rows["decode_stream"].update(
+        chain_links={k: [r["visited"], r["waited"]] for k, r in stream_rec.items()},
+        streams={k: {f: r[f] for f in ("in", "out", "kernel_ms", "launch_ms", "call_ms", "lone_ms",
+                                       "chunk_us", "segment_us")} for k, r in stream_rec.items()},
+        phases_cycles={k: {"chain": r["chain_phases"], "segment": r["segment_phases"]}
+                       for k, r in stream_rec.items()},
+        ptxas=stream_rec["702KB"]["ptxas"])
     print(f"[times] card {card}", flush=True)
     return list(rows.values())
+
+
+def _stream_phase(torch, np, dev, cases) -> dict:
+    """Phase 6's measurements of ``decode_stream.cu`` on each (label, body,
+    dst_len): the kernels alone (torch.profiler), the launch and a call
+    (CUDA events), a lone call (host clock), the SM cycles of each phase of
+    both kernels (the slowest block and the median visited one, from the
+    stamps), and the chains' spans (%globaltimer): from the first chunk's
+    publish to the stop's, a chunk; from the first segment's flag to the
+    last's, a segment.  Returns a record for each label."""
+    from csnappy_tpu_torch.ops import decode_stream as ds
+    from csnappy_tpu_torch.tools.timing import device_profile, time_ms
+
+    def phases(st, names, live):
+        cyc = st[:, : len(names)]
+        slow = int(np.argmax(cyc.sum(1)))
+        live = live if live.any() else np.ones(len(st), bool)
+        return {"slowest": {"block": slow, "cycles": int(cyc[slow].sum()),
+                            **dict(zip(names, cyc[slow].tolist()))},
+                "median": dict(zip(names, np.median(cyc[live], 0).tolist()))}
+
+    frame, used = _ptxas("segment_kernel", "decode_stream")
+    cframe, cused = _ptxas("chain_kernel", "decode_stream")
+    out = {}
+    for label, body, dst in cases:
+        bdev = torch.frombuffer(bytearray(body), dtype=torch.uint8).to(dev)
+        cap, limit = ds._limits(len(body), dst)
+        reps = 20 if len(body) < 1 << 20 else 5
+        st = torch.zeros(ds.stamp_count(len(body), cap), dtype=torch.int64, device=dev)
+        got = ds._launch(bdev, cap, limit, st)
+        bare = ds.decode_stream(bdev, dst, dev)
+        assert torch.equal(got[0], bare[0]) and int(got[1]) == int(bare[1]) == dst, label
+        chain, seg = ds.split_stamps(st, len(body), cap)
+        visited = chain[:, 4] == 1
+        cns = chain[visited, 7]
+        sns = seg[seg[:, 12] > 0, 12]
+        prof = device_profile(lambda: ds.decode_stream(bdev, dst, dev), reps)
+        rec = {"in": len(body), "out": dst, "chunks": len(chain), "segments": len(seg),
+               "visited": int(visited.sum()), "waited": int((seg[:, 11] > 0).sum()),
+               "kernel_ms": prof["device_ms"] or None, "kernels": prof["kernels"],
+               "launch_ms": time_ms(lambda: ds._launch(bdev, cap, limit), n=reps),
+               "call_ms": time_ms(lambda: ds.decode_stream(bdev, dst, dev), n=reps),
+               "lone_ms": _lone_ms(torch, lambda: ds.decode_stream(bdev, dst, dev), reps),
+               "chunk_us": float(cns.max() - cns.min()) / 1e3 / max(1, len(cns) - 1),
+               "segment_us": float(sns.max() - sns.min()) / 1e3 / max(1, len(sns) - 1),
+               "chain_phases": phases(chain, ds.CHAIN_STAMPS[:4], visited),
+               "segment_phases": phases(seg, ds.SEG_STAMPS[:8], seg[:, 9] > 0),
+               "max_rounds": int(seg[:, 10].max()), "max_windows": int(seg[:, 8].max()),
+               "ptxas": {"chain_kernel": f"{cframe}; {cused}", "segment_kernel": f"{frame}; {used}"}}
+        assert rec["max_rounds"] <= 17, rec["max_rounds"]
+        out[label] = rec
+        print(f"[stream] decode_stream.cu on {label} ({len(body)} B in, {dst} B out; "
+              f"{rec['chunks']} chunks, {rec['visited']} visited; {rec['segments']} segments, "
+              f"{rec['waited']} waited on a flag): kernels alone "
+              f"{_or_not_measured(rec['kernel_ms'])} {rec['kernels']}, launched "
+              f"{rec['launch_ms']:.4f} ms, a call {rec['call_ms']:.4f} ms (CUDA events), a lone "
+              f"call {rec['lone_ms']:.4f} ms (host clock); chain {rec['chunk_us']:.3f} us a chunk, "
+              f"segments {rec['segment_us']:.3f} us a segment (%globaltimer spans); SM cycles, "
+              f"chain_kernel {rec['chain_phases']}, segment_kernel {rec['segment_phases']}; "
+              f"resolve rounds <= {rec['max_rounds']}, windows <= {rec['max_windows']}", flush=True)
+    print(f"[stream] ptxas -v: chain_kernel {cframe}; {cused}; segment_kernel {frame}; {used}; "
+          f"dynamic shared memory a block {ds.smem_bytes(0)} / {ds.smem_bytes(1)} B", flush=True)
+    return out
 
 
 def _scan_phase(torch, np, dev, golden: bytes, ulen: int, big_comp: bytes, big_len: int) -> dict:
@@ -1840,6 +2003,12 @@ def main() -> int:
     step = recs["mosaic_probe.walk_smem"]["cycles_per_iter"]
     step_ms = step / (float(clock_.split()[0]) * 1e3)     # cycles at the max SM clock
     for row in rows:
+        if "chain_links" in row:
+            print(f"[chain] {row['name']}: chunks chained and segments that waited on a flag, by "
+                  f"stream {row['chain_links']}; each link a device-memory word, "
+                  f"{ {k: [round(v['chunk_us'], 3), round(v['segment_us'], 3)] for k, v in row['streams'].items()} } "
+                  f"us a chunk and a segment; the kernels {row['ms']:.4f} ms on urls.10K.snappy",
+                  flush=True)
         if "chain_steps" in row and row["route"] == "cuda":
             print(f"[chain] {row['name']}: {row['chain_steps']} serial steps x one walk_smem step "
                   f"({step:.2f} SM cycles at {clock_}: a dependent shared load and four integer "

@@ -1,203 +1,948 @@
 // Whole-stream Snappy decode for Hopper (sm_90a): the crossing-stream decoder.
 //
-// Replaces csnappy_tpu/ops/decode_stream.py::_kernel (_compiled).  It decodes
-// ONE headerless stream whose tags and copies may cross 32 KiB output
-// boundaries, with copy offsets up to 32768, under the JAX kernel's event
-// rules (ops/decode_stream.py in this package states them).
+// Replaces csnappy_tpu/ops/decode_stream.py::_kernel (_compiled, :531).  It
+// decodes ONE headerless stream whose tags and copies may cross 32 KiB
+// output boundaries, with copy offsets up to 32768 and literals up to 2^24
+// bytes, under the JAX kernel's event rules (ops/decode_stream.py in this
+// package states them: the first event in output order, a malformed tag
+// before its own overrun, output exactly full at the limit with tags left
+// malformed).
 //
-// What bounds it on this card: not bytes.  The stream is one chain: tag N's
-// start depends on tag N-1's length, and a copy may read the bytes of the
-// copy before it, so the whole stream is one serial walk and one ordered copy
-// resolution, in one thread block (segment k's copies read segment k-1's
-// bytes, so segments are not independent as in decode_blocks.cu).  The TPU
-// kernel ran a sequential grid over 32 KiB output segments and carried walk
-// state, the straddling tag, a 32 KiB history ring and error minima across
-// grid steps; here a loop inside the block takes the place of the grid, the
-// walk stops at the first event in output order (which gives the minima by
-// construction), and the history ring lives in shared memory.
+// What bounds it on this card: two serial chains, not bytes.  Tag N's start
+// depends on tag N-1's length, and a copy may read bytes that copies before
+// it wrote, up to 32768 back.  The TPU kernel ran a sequential grid over 32
+// KiB output segments, carrying the walk, the straddling tag, a history
+// ring and the error minima from step to step; on 132 SMs that is one SM
+// doing all the work.  Here both chains are cut so that each link costs one
+// word in device memory, and all the rest runs in parallel:
 //
-// Design: the round structure of decode_blocks.cu, over an output ring.
-//   1. stage a window of kWin compressed bytes in shared memory;
-//   2. thread 0 walks up to kTags tags through it, recording each tag's
-//      output start, source and length, until the round holds kRound output
-//      bytes or an event ends the stream;
-//   3. every warp copies literals from the input into the ring (warp-strided
-//      over tags, lanes over bytes);
-//   4. warp 0 resolves copies in tag order inside the ring: byte j of a copy
-//      at os with offset off reads os - off + j % off, always before os and
-//      at most 32768 back;
-//   5. all threads flush the round's bytes from the ring to the output.
-// The ring holds kRing = 64 KiB: the 32 KiB of history a copy may reach and
-// the round's at most 32 KiB, so a round never overwrites what it reads.  A
-// literal longer than a round goes alone, straight from the input to the
-// output, and leaves its last 32 KiB in the ring.  Every header read is
-// checked against the stream's length first, every write against the
-// output limit, so no input makes the kernel read or write out of bounds.
+// chain_kernel, one thread block per chunk of C = 8,192 stream positions,
+// taken in stream order by an atomic ticket (the design of
+// scan_segments.cu under this kernel's envelope).  Each block stages its
+// chunk (plus a 16-byte halo), parses every position as if a tag started
+// there and pointer-jumps in shared memory, first inside sub-chunks of 256
+// positions, then to the chunk's end, so that every position knows where
+// its tag chain stops in the chunk (a stop: no tag of the envelope starts
+// there, the stream's end included) or which tag leaves the chunk (the exit
+// tag), and the output produced on the way.  The chain then costs one
+// lookup a chunk: the block waits for its entry (position and output start,
+// one 64-bit word published by the chunk whose exit landed in it), reads
+// the exit from its tables and publishes the next entry.  A literal that
+// skips whole chunks marks them skipped; the chunk holding the stop
+// publishes it, so no block waits on a chunk that is never entered.  Then,
+// off the chain's path, each visited chunk writes the covering tag (the
+// last chain tag whose output start is <= k * 32768: its position and
+// output start) of every output segment k whose start falls in its output
+// range.
+//
+// segment_kernel, one thread block per 32 KiB output segment, taken in
+// output order by a ticket.  Copy offsets are at most 32768 and a copy at
+// most 64 bytes, so every copy byte of segment k reads a byte at or after
+// (k - 1) * 32768: segment k needs only its own tags and segment k - 1's
+// final bytes.  Each block:
+//   1. enters its covering tag at byte k * 32768 - os (a straddling literal
+//      or copy; a segment wholly inside one literal is a plain copy);
+//   2. walks its tags in windows of 8 KiB of input as decode_blocks.cu's
+//      decode_kernel does (stage, parse every position, tables 2, 4 and 8
+//      tags ahead, one walking thread, tags listed in parallel);
+//   3. judges each tag whose output start lies in the segment (truncated
+//      header or body, a literal trailer above 2^24, offset 0, above 32768
+//      or past the output start, a start at the limit: E_DATA_MALFORMED; an
+//      end past the output: E_OUTPUT_OVERRUN) and lowers one device-wide
+//      minimum of (output start, kind), so the first event in output order
+//      wins, ties to E_DATA_MALFORMED;
+//   4. covers its bytes: literal bytes, and for each copy byte its one-hop
+//      parent os - off + j % off, counted from segment k - 1's start (16
+//      bits: every parent lies in those 64 KiB);
+//   5. pointer-jumps the parents inside the segment (at most 16 rounds); a
+//      parent before the segment stays external;
+//   6. writes every 16-byte piece with no external byte at once; only if
+//      some byte is external, waits for segment k - 1's flag, stages that
+//      segment's tail (final by then) in shared memory with 16-byte loads,
+//      fills and writes the pieces it held, and publishes its flag.
+// The flag wait is the only serial step of the bytes: one word a segment,
+// however deep copies chain (an offset-1 run over the stream is the
+// deepest), and none for a segment whose copies stay inside it.  The last
+// block to finish writes {produced, status}: produced is 0 unless no event
+// was found.  The output holds cap bytes and the overrun limit is cap (=
+// min(dst_len, cap), as no stream of n bytes produces more than cap).
+//
+// Every header read is bounded by the stream's length (bytes past it stage
+// as 0), every write by cap, so no input makes either kernel read or write
+// out of bounds.  One call is one memset of the workspace (a head, a word a
+// chunk, 16 bytes a segment) and the two launches on one stream.  With a
+// non-null `stamps`, thread 0 of each block writes its phases' SM cycles
+// and counts (kChainStamps int64 a chunk, then kSegStamps a segment).
 
+#include <atomic>
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kWin = 8192;                 // compressed bytes staged per round
-constexpr int kTags = 2048;                // tags recorded per round
-constexpr int kHist = 32768;               // farthest copy offset served
-constexpr int kRing = 2 * kHist;           // output ring: history + one round
-constexpr int kRound = kRing - kHist;      // output bytes one round may add
+constexpr int kS = 32768;                   // output segment
+constexpr uint32_t kMaxOffset = 32768;      // the envelope's farthest copy
 constexpr int E_OUTPUT_OVERRUN = -3;
 constexpr int E_DATA_MALFORMED = -5;
-constexpr int32_t kCopyBit = 1 << 30;      // literals are at most 2^24 bytes
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-stream_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict__ out,
-              int64_t dlim, int64_t limit, int64_t* __restrict__ meta) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  int32_t* t_os = reinterpret_cast<int32_t*>(smem);   // output start, from the round's start
-  int32_t* t_src = t_os + kTags;                      // literal: input pos; copy: offset
-  int32_t* t_len = t_src + kTags;                     // length | kCopyBit for copies
-  uint8_t* win = reinterpret_cast<uint8_t*>(t_len + kTags);
-  uint8_t* ring = win + kWin;                         // output byte o at ring[o % kRing]
-  __shared__ int64_t s_ip, s_op, s_o0;
-  __shared__ int s_nt, s_state, s_solo;               // state: 0 more, 1 done, <0 error
+// ------------------------------------------------------------ the workspace
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) { s_ip = 0; s_op = 0; s_state = 0; }
-  __syncthreads();
+struct Head {
+  unsigned int ticket;        // chunks taken
+  unsigned int stop;          // chunk holding the stop + 1; 0 until known
+  unsigned int seg_ticket;    // segments taken
+  unsigned int done;          // segment blocks finished
+  unsigned int pad[4];
+  unsigned long long event;   // ~(os << 1 | overrun) of the first event; 0: none
+  long long p_stop, os_stop;  // where the chain stops, and the output there
+  long long pad2;
+};
+static_assert(sizeof(Head) == 64, "the workspace's head");
 
-  while (s_state == 0) {
-    const int64_t ip0 = s_ip;
-    const int64_t wlim = (slen - ip0 > kWin) ? ip0 + kWin : slen;
-    for (int64_t i = threadIdx.x; i < wlim - ip0; i += kThreads) win[i] = in[ip0 + i];
-    __syncthreads();
+__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ unsigned int ld_relaxed(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ void st_relaxed(unsigned int* p, unsigned int v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
-    if (threadIdx.x == 0) {
-      const uint8_t* w = win - ip0;                   // w[ip] == in[ip] inside the window
-      const bool last = (wlim == slen);
-      const int64_t o0 = s_op;
-      int64_t ip = ip0, op = o0;
-      int nt = 0, state = 0, solo = 0;
-      while (nt < kTags) {
-        if (ip == slen) { state = 1; break; }                       // consumed
-        if (op >= limit) { state = E_DATA_MALFORMED; break; }       // full, tags left
-        if (!last && ip + 5 > wlim) break;            // tag may reach past the window
-        const uint32_t tag = w[ip];
-        int64_t len;
-        int hdr;
-        uint32_t off = 0;
-        const bool lit = (tag & 3) == 0;
-        if (lit) {
-          const uint32_t u = tag >> 2;
-          if (u < 60) {
-            len = u + 1;
-            hdr = 1;
-          } else {
-            const int nb = static_cast<int>(u) - 59;
-            if (ip + 1 + nb > slen) { state = E_DATA_MALFORMED; break; }
-            if (nb == 4 && w[ip + 4] != 0) { state = E_DATA_MALFORMED; break; }   // beyond 2^24
-            uint32_t v = 0;
-            for (int k = 0; k < nb && k < 3; ++k) v |= static_cast<uint32_t>(w[ip + 1 + k]) << (8 * k);
-            len = static_cast<int64_t>(v) + 1;
-            hdr = 1 + nb;
-          }
-          if (ip + hdr + len > slen) { state = E_DATA_MALFORMED; break; }
-        } else {
-          hdr = ((tag & 3) == 1) ? 2 : ((tag & 3) == 2) ? 3 : 5;
-          if (ip + hdr > slen) { state = E_DATA_MALFORMED; break; }
-          if ((tag & 3) == 1) {
-            len = ((tag >> 2) & 7) + 4;
-            off = ((tag >> 5) << 8) | w[ip + 1];
-          } else {
-            len = (tag >> 2) + 1;
-            off = w[ip + 1] | (static_cast<uint32_t>(w[ip + 2]) << 8);
-            if (hdr == 5 && (w[ip + 3] | w[ip + 4]) != 0) { state = E_DATA_MALFORMED; break; }
-          }
-          if (off == 0 || off > static_cast<uint32_t>(kHist) || off > op) {
-            state = E_DATA_MALFORMED;
-            break;
-          }
-        }
-        if (op + len > dlim) { state = E_OUTPUT_OVERRUN; break; }
-        if (nt > 0 && op + len - o0 > kRound) break;  // the round is full
-        t_os[nt] = static_cast<int32_t>(op - o0);
-        t_src[nt] = lit ? static_cast<int32_t>(ip + hdr) : static_cast<int32_t>(off);
-        t_len[nt] = static_cast<int32_t>(len) | (lit ? 0 : kCopyBit);
-        ++nt;
-        op += len;
-        ip += hdr + (lit ? len : 0);
-        if (op - o0 > kRound) { solo = 1; break; }    // one literal longer than a round
-      }
-      s_ip = ip;
-      s_o0 = o0;
-      s_op = op;
-      s_nt = nt;
-      s_solo = solo;
-      s_state = state;
-    }
-    __syncthreads();
+// A tag at b[0] (b[1..4] readable; bytes past the stream read as 0), with
+// `avail` stream bytes from it on.  bad: no tag of this kernel's envelope
+// starts here (a header or a literal's body past the stream, a 4-byte
+// literal trailer with a nonzero top byte).
+struct Tag {
+  int64_t len;      // bytes it produces (a literal's up to 2^24)
+  uint32_t off;     // a copy's offset (COPY_4's full 32 bits)
+  int hdr;          // header bytes
+  bool lit, bad;
+};
 
-    const int nt = s_nt;
-    const int64_t o0 = s_o0;
-    if (s_solo) {
-      // one literal: straight to the output, and its last kHist bytes to the ring
-      const int64_t n = t_len[0];
-      const uint8_t* s = in + t_src[0];
-      for (int64_t j = threadIdx.x; j < n; j += kThreads) out[o0 + j] = s[j];
-      for (int64_t j = n - kHist + threadIdx.x; j < n; j += kThreads)
-        ring[(o0 + j) & (kRing - 1)] = s[j];
+__device__ __forceinline__ Tag parse_tag(const uint8_t* b, int64_t avail) {
+  Tag t;
+  const uint32_t c = b[0];
+  const uint32_t u = c >> 2;
+  t.off = 0;
+  t.lit = (c & 3) == 0;
+  if (t.lit) {
+    uint32_t v = u;
+    t.hdr = 1;
+    if (u >= 60) {
+      const int nb = static_cast<int>(u) - 59;
+      v = b[1];
+      if (nb > 1) v |= static_cast<uint32_t>(b[2]) << 8;
+      if (nb > 2) v |= static_cast<uint32_t>(b[3]) << 16;
+      t.hdr = 1 + nb;
+      t.bad = nb == 4 && b[4] != 0;                     // beyond 2^24
     } else {
-      for (int t = warp; t < nt; t += kWarps) {       // literals, in parallel
-        const int32_t l = t_len[t];
-        if (l & kCopyBit) continue;
-        const uint8_t* s = in + t_src[t];
-        const int64_t d = o0 + t_os[t];
-        for (int j = lane; j < l; j += 32) ring[(d + j) & (kRing - 1)] = s[j];
-      }
-      __syncthreads();
-      if (warp == 0) {                                // copies, in tag order
-        for (int t = 0; t < nt; ++t) {
-          const int32_t l = t_len[t];
-          if (!(l & kCopyBit)) continue;
-          const int n = l & ~kCopyBit;
-          const int64_t os = o0 + t_os[t];
-          const int off = t_src[t];
-          for (int j = lane; j < n; j += 32)
-            ring[(os + j) & (kRing - 1)] = ring[(os - off + (j < off ? j : j % off)) & (kRing - 1)];
-          __syncwarp();
-        }
-      }
-      __syncthreads();
-      const int64_t end = s_op;
-      for (int64_t o = o0 + threadIdx.x; o < end; o += kThreads) out[o] = ring[o & (kRing - 1)];
+      t.bad = false;
+    }
+    t.len = static_cast<int64_t>(v) + 1;
+    t.bad = t.bad || t.hdr > avail || t.hdr + t.len > avail;
+  } else if ((c & 3) == 1) {
+    t.hdr = 2;
+    t.len = (u & 7) + 4;
+    t.off = ((u >> 3) << 8) | b[1];
+    t.bad = avail < 2;
+  } else {
+    t.hdr = (c & 3) == 2 ? 3 : 5;
+    t.len = u + 1;
+    t.off = b[1] | (static_cast<uint32_t>(b[2]) << 8);
+    if (t.hdr == 5) t.off |= (static_cast<uint32_t>(b[3]) << 16) | (static_cast<uint32_t>(b[4]) << 24);
+    t.bad = avail < t.hdr;
+  }
+  return t;
+}
+
+// ========================================================= chain_kernel
+
+constexpr int kLog = 13;
+constexpr int kChunk = 1 << kLog;            // stream positions a block
+constexpr int kPer = kChunk / kThreads;
+constexpr int kSubLog = 8;                   // sub-chunks of 256 positions
+constexpr int kPad = 16;                     // bytes staged past the chunk
+constexpr uint32_t kStop = 0x80000000u;      // P: the chain stops at J
+constexpr uint32_t kExitTag = 0x40000000u;   // P: J is the tag that leaves the chunk
+constexpr uint32_t kFlags = kStop | kExitTag;
+// word[c]: 0 until known; (os << 17) | (entry - c * kChunk) << 2 | 1 when the
+// chain enters chunk c, or 2 when it skips it
+constexpr unsigned long long kEntered = 1, kSkipped = 2;
+// stamps a chunk: the cycles of staged (staging and parse), jumped, waited,
+// covers; then visited (1 or 0), pointer-jumping rounds, cover searches and
+// the %globaltimer ns at which the chunk published its exit
+constexpr int kChainStamps = 8;
+constexpr int kChainSmem = 13 * kChunk + kPad;      // P1, P, J1, J, the bytes
+
+// One pointer-jumping round over the positions a thread owns: every position
+// whose pointer is not terminal (flagged, or at or past the end of its span
+// of 2^kSpanLog positions) takes its target's pointer and adds its target's
+// output (and flags).  Returns whether any position of the block moved.
+template <int kSpanLog>
+__device__ __forceinline__ bool jump_round(uint16_t* Jt, uint32_t* Pt) {
+  uint16_t nj[kPer];
+  uint32_t np[kPer];
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    const int j = Jt[i];
+    const uint32_t p = Pt[i];
+    const int end = ((i >> kSpanLog) + 1) << kSpanLog;
+    const bool live = !(p & kFlags) && j < end;
+    nj[k] = live ? Jt[j] : static_cast<uint16_t>(j);
+    np[k] = live ? Pt[j] : 0;
+    any |= live;
+  }
+  const bool go = __syncthreads_or(any);
+  if (go) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      Jt[i] = nj[k];
+      Pt[i] += np[k];
     }
     __syncthreads();
   }
+  return go;
+}
 
-  if (threadIdx.x == 0) {
-    meta[0] = (s_state == 1) ? s_op : 0;
-    meta[1] = (s_state == 1) ? 0 : s_state;
+// The last chain tag at or after x (on the chain, output start px <= bound)
+// whose output start is <= bound, in a chunk that owns `bound`: hops from
+// sub-chunk to sub-chunk, then tags.  Returns its position; *pq its output.
+__device__ int last_at_or_below(int x, int64_t px, int64_t bound, const uint16_t* J1,
+                                const uint32_t* P1, const uint8_t* bytes, int64_t base,
+                                int64_t slen, int64_t* pq) {
+  while (true) {
+    const uint32_t p1 = P1[x];
+    const int64_t py = px + (p1 & ~kFlags);
+    if (py > bound) break;                      // the answer lies before J1[x]
+    x = J1[x];
+    px = py;
+    if (p1 & kFlags) {                          // the stop or the exit tag
+      *pq = px;
+      return x;
+    }
+  }
+  while (true) {
+    const Tag t = parse_tag(bytes + x, slen - base - x);
+    const int64_t z = x + t.hdr + (t.lit ? t.len : 0);
+    const int64_t pz = px + t.len;
+    if (t.bad || pz > bound || z >= kChunk) break;
+    x = static_cast<int>(z);
+    px = pz;
+  }
+  *pq = px;
+  return x;
+}
+
+__global__ void __launch_bounds__(kThreads)
+chain_kernel(const uint8_t* __restrict__ src, int64_t slen, Head* __restrict__ head,
+             unsigned long long* __restrict__ word, int64_t* __restrict__ cover_os,
+             int32_t* __restrict__ cover_pos, int nseg, int64_t* __restrict__ stamps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* P1 = reinterpret_cast<uint32_t*>(smem);   // output to the sub-chunk's exit
+  uint32_t* P = P1 + kChunk;                          // output to the chunk's stop or exit tag
+  uint16_t* J1 = reinterpret_cast<uint16_t*>(P + kChunk);
+  uint16_t* J = J1 + kChunk;
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(J + kChunk);   // kChunk + kPad
+  __shared__ int s_chunk, s_state, s_entry, s_stops;
+  __shared__ long long s_pp, s_out, s_stop_at;
+  __shared__ long long s_cyc[kChainStamps];
+  const int tid = threadIdx.x;
+  const bool stamp = stamps != nullptr && tid == 0;
+  long long last = 0;
+
+  if (tid == 0) {
+    const int c = static_cast<int>(atomicAdd(&head->ticket, 1u));
+    s_chunk = c;
+    // known not to be entered already (skipped, or past the stop): no tables
+    const unsigned long long w = c == 0 ? kEntered : ld_relaxed(&word[c]);
+    const unsigned int st = c == 0 ? 0 : ld_relaxed(&head->stop);
+    s_state = (w == kSkipped || (st != 0 && static_cast<int>(st) - 1 < c)) ? 0 : 1;
+    if (stamp) {
+      for (int i = 0; i < kChainStamps; ++i) s_cyc[i] = 0;
+      last = clock64();
+    }
+  }
+  __syncthreads();
+  const int c = s_chunk;
+  const int64_t base = static_cast<int64_t>(c) << kLog;
+  int rounds = 0;
+  auto lap = [&](int i) {
+    if (!stamp) return;
+    const long long now = clock64();
+    s_cyc[i] = now - last;
+    last = now;
+  };
+
+  if (s_state) {
+    const uint8_t* s = src + base;
+    const int64_t have = slen - base;
+    if (have >= kChunk + kPad && (reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+      for (int i = tid; i < (kChunk + kPad) / 16; i += kThreads)
+        reinterpret_cast<uint4*>(bytes)[i] = reinterpret_cast<const uint4*>(s)[i];
+    } else {
+      for (int i = tid; i < kChunk + kPad; i += kThreads) bytes[i] = i < have ? s[i] : 0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = tid + k * kThreads;
+      const Tag t = parse_tag(bytes + i, slen - base - i);
+      const int64_t nxt = i + t.hdr + (t.lit ? t.len : 0);
+      const bool stop = base + i >= slen || t.bad;
+      J1[i] = static_cast<uint16_t>(stop || nxt >= kChunk ? i : nxt);
+      P1[i] = stop ? kStop : nxt >= kChunk ? kExitTag : static_cast<uint32_t>(t.len);
+    }
+    __syncthreads();
+    lap(0);
+    for (int r = 0; r < kSubLog; ++r) {
+      if (!jump_round<kSubLog>(J1, P1)) break;
+      ++rounds;
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = tid + k * kThreads;
+      J[i] = J1[i];
+      P[i] = P1[i];
+    }
+    __syncthreads();
+    for (int r = 0; r <= kLog - kSubLog; ++r) {
+      if (!jump_round<kLog>(J, P)) break;
+      ++rounds;
+    }
+    lap(1);
+
+    // the entry, then the exit published at once
+    if (tid == 0) {
+      unsigned long long w = kEntered;
+      if (c > 0) {
+        while (true) {
+          w = ld_relaxed(&word[c]);
+          if (w) break;
+          const unsigned int st = ld_relaxed(&head->stop);
+          if (st != 0 && static_cast<int>(st) - 1 < c) break;
+        }
+      }
+      s_state = (w & 3) == kEntered ? 1 : 0;
+      if (s_state) {
+        const int e = static_cast<int>((w >> 2) & 0x7FFF);
+        const int64_t pp = static_cast<int64_t>(w >> 17);
+        const uint32_t pe = P[e];
+        const int x = J[e];
+        const int64_t at = pp + (pe & ~kFlags);          // output start of x
+        s_entry = e;
+        s_pp = pp;
+        s_stops = (pe & kStop) != 0;
+        if (pe & kStop) {                                // the chain stops in this chunk
+          s_out = at;
+          s_stop_at = base + x;
+          head->p_stop = base + x;
+          head->os_stop = at;
+          st_relaxed(&head->stop, static_cast<unsigned int>(c + 1));
+        } else {                                         // x leaves the chunk
+          const Tag t = parse_tag(bytes + x, slen - base - x);
+          const int64_t exit = base + x + t.hdr + (t.lit ? t.len : 0);   // <= slen
+          const int64_t out = at + t.len;
+          const int d = static_cast<int>(exit >> kLog);
+          s_out = out;
+          st_relaxed(&word[d], (static_cast<unsigned long long>(out) << 17) |
+                                   (static_cast<unsigned long long>(exit - (static_cast<int64_t>(d) << kLog)) << 2) |
+                                   kEntered);
+          for (int t2 = c + 1; t2 < d; ++t2) st_relaxed(&word[t2], kSkipped);
+        }
+        if (stamp) s_cyc[7] = global_ns();
+      }
+    }
+    __syncthreads();
+    lap(2);
+
+    // the covering tag of each segment whose start falls in this chunk's output
+    if (s_state) {
+      const int e = s_entry;
+      const int64_t pp = s_pp, out = s_out;
+      const bool stops = s_stops;
+      const int64_t k0 = (pp + kS - 1) / kS;
+      const int64_t k1 = stops ? nseg - 1 : ((out + kS - 1) / kS - 1 < nseg - 1 ? (out + kS - 1) / kS - 1 : nseg - 1);
+      int searches = 0;
+      for (int64_t k = k0 + tid; k <= k1; k += kThreads) {
+        const int64_t bound = k * kS;
+        if (stops && bound >= out) {                     // past the stop: the stop covers it
+          cover_pos[k] = static_cast<int32_t>(s_stop_at);
+          cover_os[k] = out;
+        } else {
+          int64_t pq;
+          const int q = last_at_or_below(e, pp, bound, J1, P1, bytes, base, slen, &pq);
+          cover_pos[k] = static_cast<int32_t>(base + q);
+          cover_os[k] = pq;
+          ++searches;
+        }
+      }
+      searches = __syncthreads_count(searches > 0);
+      if (stamp) s_cyc[6] = searches;
+    }
+    lap(3);
+  }
+  if (stamp) {
+    s_cyc[4] = s_state;
+    s_cyc[5] = rounds;
+    for (int i = 0; i < kChainStamps; ++i) stamps[static_cast<int64_t>(c) * kChainStamps + i] = s_cyc[i];
   }
 }
 
-constexpr size_t kSmem = 12 * kTags + kWin + kRing;
+// ======================================================== segment_kernel
+
+constexpr int kWin = 8192;              // input bytes a window
+constexpr int kStage = kWin + 16;       // staged: a tag's header reaches 4 bytes past the window
+constexpr int kTagsPerThread = kWin / 2 / kThreads;
+constexpr int kLevels = 4;              // next-tag tables: 1, 2, 4 and 8 tags ahead
+constexpr int kStep = 1 << (kLevels - 1);
+constexpr uint16_t kExit = 0xFFFE;      // nx: the next tag starts past the window
+constexpr uint16_t kBad = 0xFFFF;       // nx: no tag of the envelope starts here
+constexpr int kMaxWindows = 6 * kS / kWin + 3;   // 6 input bytes an output byte, at most
+constexpr int kPieces = kS / 16 / kThreads;      // 16-byte pieces of the output a thread
+// stamps a segment: the cycles of entered (the covering tag), parsed (staging,
+// parse and tables), walked, judged, covered, resolved, waited, written; then
+// windows, tags walked, resolve rounds, externals (1 when it read bytes of
+// segment k - 1) and the %globaltimer ns at which it published its flag
+constexpr int kSegStamps = 13;
+
+__host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
+
+// Byte offsets of segment_kernel's shared arrays (decode_blocks.cu's layout
+// at 32 KiB): the segment's bytes, its parents, the window, the four tables
+// (after the walk, the room for segment k - 1's tail), the chain points, the
+// tags' fields and their output starts.
+struct Layout {
+  int out, par, win, nx, cp, tl, tos, total;
+};
+__host__ __device__ constexpr Layout layout() {
+  const int par = align16(kS);
+  const int win = par + 2 * kS;
+  const int nx = win + kStage;
+  const int cp = nx + kLevels * 2 * kWin;
+  const int tl = cp + 2 * (kWin / 2 / kStep);
+  const int tos = tl + kWin;
+  return Layout{0, par, win, nx, cp, tl, tos, tos + kWin};
+}
+static_assert(layout().total <= 232448 - 1024, "a block's shared memory on the H100");
+
+__device__ int block_excl_sum(int v, int* s_warp, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += n;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = s_warp[lane];
+    int wi = w;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int n = __shfl_up_sync(kFull, wi, o);
+      if (lane >= o) wi += n;
+    }
+    s_warp[lane] = wi - w;
+    if (lane == 31) *total = wi;
+  }
+  __syncthreads();
+  const int r = s_warp[warp] + incl - v;
+  __syncthreads();
+  return r;
+}
+
+__device__ void block_min(unsigned v, unsigned* s_warp, unsigned* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = __reduce_min_sync(kFull, v);
+  if (lane == 0) s_warp[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned m = __reduce_min_sync(kFull, s_warp[lane]);
+    if (lane == 0) *out = m;
+  }
+  __syncthreads();
+}
+
+// The parent of byte j of a copy at os (both counted from one origin) with
+// offset off <= 32768, shifted by kS: always below the byte, and >= 0 when
+// the origin is segment k - 1's start and the byte lies in segment k.
+__device__ __forceinline__ uint16_t parent(int os, int j, int off) {
+  return static_cast<uint16_t>(os - off + (j < off ? j : j % off) + kS);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict__ gout,
+               int64_t cap, int64_t limit, int64_t* __restrict__ meta, Head* __restrict__ head,
+               const int64_t* __restrict__ cover_os, const int32_t* __restrict__ cover_pos,
+               unsigned int* __restrict__ flag, int nseg, int64_t* __restrict__ stamps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr Layout ly = layout();
+  uint8_t* out = smem + ly.out;                                 // the segment's bytes
+  uint16_t* par = reinterpret_cast<uint16_t*>(smem + ly.par);   // cover, then parents + kS
+  uint8_t* win = smem + ly.win;
+  uint16_t* nx = reinterpret_cast<uint16_t*>(smem + ly.nx);
+  uint16_t* cp = reinterpret_cast<uint16_t*>(smem + ly.cp);
+  uint16_t* tl = reinterpret_cast<uint16_t*>(smem + ly.tl);     // tag starts, then fields
+  uint16_t* tos = reinterpret_cast<uint16_t*>(smem + ly.tos);   // output starts in the segment
+  __shared__ int s_warp[kWarps];
+  __shared__ unsigned s_first;
+  __shared__ int s_seg, s_n, s_k, s_term, s_total, s_skip, s_last;
+  __shared__ long long s_next;
+  __shared__ long long s_cyc[kSegStamps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool stamp = stamps != nullptr && tid == 0;
+  long long last = 0;
+
+  if (tid == 0) {
+    s_seg = static_cast<int>(atomicAdd(&head->seg_ticket, 1u));
+    if (stamp) {
+      for (int i = 0; i < kSegStamps; ++i) s_cyc[i] = 0;
+      last = clock64();
+    }
+    // an event already found before this segment: its bytes are not needed
+    const unsigned long long ev = ld_relaxed(&head->event);
+    s_skip = ev != 0 && static_cast<int64_t>(~ev >> 1) < static_cast<int64_t>(s_seg) * kS;
+  }
+  __syncthreads();
+  auto lap = [&](int i) {
+    if (!stamp) return;
+    const long long now = clock64();
+    s_cyc[i] += now - last;
+    last = now;
+  };
+  const int k = s_seg;
+  const int64_t base = static_cast<int64_t>(k) * kS;
+  const int hi = static_cast<int>(cap - base < kS ? cap - base : kS);           // bytes written
+  const int jhi = static_cast<int>(cap + 1 - base < kS ? cap + 1 - base : kS);  // starts judged
+  const int64_t p_stop = head->p_stop;
+  const int64_t cpos = cover_pos[k], cos = cover_os[k];
+  int state = s_skip;        // 0: ok; 1: nothing more to do; < 0: an event here
+  int op0 = 0;               // the next tag's output start, from the segment's start
+  int64_t ip0 = cpos;
+  int windows = 0, tags = 0, rounds = 0;
+
+  // 1. the covering tag, when it starts before the segment
+  if (state == 0 && cos < base) {
+    if (cpos == p_stop) {
+      state = 1;                                 // the stream ended before this segment
+    } else {
+      uint8_t h[5];
+      for (int i = 0; i < 5; ++i) h[i] = cpos + i < slen ? in[cpos + i] : 0;
+      const Tag t = parse_tag(h, slen - cpos);   // a chain tag: valid
+      const int64_t end = cos + t.len - base;    // > 0
+      const int m = static_cast<int>(end < hi ? end : hi);
+      const int64_t j0 = base - cos;
+      if (t.lit) {
+        const uint8_t* s = in + cpos + t.hdr + j0;
+        for (int i = tid; i < m; i += kThreads) {
+          out[i] = s[i];
+          par[i] = static_cast<uint16_t>(i + kS);
+        }
+      } else {
+        const int off = static_cast<int>(t.off);
+        const bool ok = t.off != 0 && t.off <= kMaxOffset && t.off <= static_cast<uint64_t>(cos);
+        for (int i = tid; i < m; i += kThreads) {   // j0 + i < 64
+          if (ok) {
+            par[i] = parent(static_cast<int>(cos - base), static_cast<int>(j0) + i, off);
+          } else {                                   // an event before this segment
+            out[i] = 0;
+            par[i] = static_cast<uint16_t>(i + kS);
+          }
+        }
+      }
+      op0 = static_cast<int>(end < kS ? end : kS);
+      ip0 = cpos + t.hdr + (t.lit ? t.len : 0);
+    }
+  }
+  __syncthreads();
+  lap(0);
+
+  // 2-4. the segment's own tags, a window of input at a time
+  while (state == 0 && op0 < jhi && ip0 < slen && windows < kMaxWindows) {
+    ++windows;
+    const int64_t avail0 = slen - ip0;
+    const int staged = avail0 < kStage ? static_cast<int>(avail0) : kStage;
+    for (int i = tid; i < kStage; i += kThreads) win[i] = i < staged ? in[ip0 + i] : 0;
+    __syncthreads();
+    const int lim = avail0 < kWin ? static_cast<int>(avail0) : kWin;   // tags start below lim
+    for (int p = tid; p < lim; p += kThreads) {
+      const Tag t = parse_tag(win + p, avail0 - p);
+      const int64_t nxt = p + t.hdr + (t.lit ? t.len : 0);
+      nx[p] = t.bad ? kBad : (nxt < kWin ? static_cast<uint16_t>(nxt) : kExit);
+    }
+    __syncthreads();
+    for (int lv = 1; lv < kLevels; ++lv) {
+      const uint16_t* a = nx + (lv - 1) * kWin;
+      uint16_t* d = nx + lv * kWin;
+      for (int p = tid; p < lim; p += kThreads) {
+        const int q = a[p];
+        d[p] = q < lim ? a[q] : static_cast<uint16_t>(q);
+      }
+      __syncthreads();
+    }
+    lap(1);
+
+    const uint16_t* nx2 = nx + kWin;
+    const uint16_t* nx4 = nx + 2 * kWin;
+    if (tid == 0) {
+      const uint16_t* nx8 = nx + 3 * kWin;
+      int q = 0, c = 0;
+      for (; c < kWin / 2 / kStep && q < lim; ++c) {
+        cp[c] = static_cast<uint16_t>(q);
+        q = nx8[q];
+      }
+      s_k = c;
+      s_term = q;                       // >= lim: the end (q == avail0), kExit or kBad
+    }
+    __syncthreads();
+    for (int c = tid; c < s_k; c += kThreads) {
+      int e[kStep];
+      const int q = cp[c];
+      e[0] = q;
+      e[1] = nx[q];
+      e[2] = nx2[q];
+      e[3] = e[2] < lim ? nx[e[2]] : e[2];
+      e[4] = nx4[q];
+      e[5] = e[4] < lim ? nx[e[4]] : e[4];
+      e[6] = e[4] < lim ? nx2[e[4]] : e[4];
+      e[7] = e[6] < lim ? nx[e[6]] : e[6];
+      int v = 0;
+#pragma unroll
+      for (int j = 0; j < kStep; ++j) {
+        if (e[j] < lim && v == j) {
+          tl[c * kStep + j] = static_cast<uint16_t>(e[j]);
+          ++v;
+        }
+      }
+      if (c == s_k - 1) s_n = c * kStep + v;
+    }
+    __syncthreads();
+    lap(2);
+
+    // judge: lengths, output starts, events; the first event wins
+    const int n = s_n, term = s_term;
+    tags += n;
+    Tag tg[kTagsPerThread];
+    int lc[kTagsPerThread], pj[kTagsPerThread];
+    int mine = 0;
+    const int t0 = tid * kTagsPerThread;
+#pragma unroll
+    for (int j = 0; j < kTagsPerThread; ++j) {
+      lc[j] = 0;
+      if (t0 + j < n) {
+        const int p = pj[j] = tl[t0 + j];
+        tg[j] = parse_tag(win + p, avail0 - p);
+        lc[j] = static_cast<int>(tg[j].len < kS + 1 ? tg[j].len : kS + 1);
+        mine += lc[j];
+      }
+    }
+    int os = op0 + block_excl_sum(mine, s_warp, &s_total);
+    unsigned ev = UINT_MAX;                                     // os * 2 + overrun
+#pragma unroll
+    for (int j = 0; j < kTagsPerThread; ++j) {
+      const int t = t0 + j;
+      if (t < n) {
+        const Tag& g = tg[j];
+        if (os < jhi && ev == UINT_MAX) {
+          const int64_t at = base + os;
+          if (g.bad || at >= limit ||
+              (!g.lit && (g.off == 0 || g.off > kMaxOffset || g.off > static_cast<uint64_t>(at))))
+            ev = static_cast<unsigned>(os) * 2;                 // malformed
+          else if (at + g.len > cap)
+            ev = static_cast<unsigned>(os) * 2 + 1;             // overrun
+        }
+        tos[t] = static_cast<uint16_t>(os < 0xFFFF ? os : 0xFFFF);
+        tl[t] = static_cast<uint16_t>(g.lit ? 0x8000 | (pj[j] + g.hdr) : (g.off - 1) & 0x7FFF);
+        if (t == n - 1 && term == kExit)                        // the next window's first tag
+          s_next = ip0 + pj[j] + g.hdr + (g.lit ? g.len : 0);
+        os += lc[j];
+      }
+    }
+    block_min(ev, reinterpret_cast<unsigned*>(s_warp), &s_first);
+    lap(3);
+    if (s_first != UINT_MAX) {
+      if (tid == 0)
+        atomicMax(&head->event, ~((static_cast<unsigned long long>(base) << 1) + s_first));
+      state = (s_first & 1) ? E_OUTPUT_OVERRUN : E_DATA_MALFORMED;
+      break;
+    }
+
+    // cover: every byte of the window's tags below hi gets its tag, then
+    // literals their bytes and copies their parents
+    const int op_end = op0 + s_total;
+    const int c_end = op_end < hi ? op_end : hi;
+    if (op0 < c_end) {
+      for (int i = op0 + tid; i < c_end; i += kThreads) par[i] = 0;
+      __syncthreads();
+      for (int t = tid; t < n; t += kThreads)
+        if (tos[t] < c_end) par[tos[t]] = static_cast<uint16_t>(t);
+      __syncthreads();
+      const int m = c_end - op0;
+      const int sg = ((m + kWarps - 1) / kWarps + 31) & ~31;   // a warp's bytes
+      const int s0 = op0 + warp * sg;
+      const int s1 = min(s0 + sg, c_end);
+      unsigned wmax = 0;
+      for (int i = s0 + lane; i < s1; i += 32) wmax = max(wmax, static_cast<unsigned>(par[i]));
+      wmax = __reduce_max_sync(kFull, wmax);
+      if (lane == 0) s_warp[warp] = static_cast<int>(wmax);
+      __syncthreads();
+      unsigned carry = __reduce_max_sync(kFull, lane < warp ? static_cast<unsigned>(s_warp[lane]) : 0u);
+      for (int i0 = s0; i0 < s1; i0 += 32) {
+        const int i = i0 + lane;
+        unsigned v = i < s1 ? par[i] : 0u;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned u = __shfl_up_sync(kFull, v, o);
+          if (lane >= o) v = max(v, u);
+        }
+        v = max(v, carry);
+        carry = __shfl_sync(kFull, v, 31);
+        if (i < s1) {
+          const int os_t = tos[v];
+          const int f = tl[v];
+          const int j = i - os_t;
+          if (f & 0x8000) {
+            const int at = (f & 0x7FFF) + j;                     // window-relative input
+            out[i] = at < staged ? win[at] : in[ip0 + at];
+            par[i] = static_cast<uint16_t>(i + kS);
+          } else {
+            par[i] = parent(os_t, j, f + 1);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    lap(4);
+    op0 = op_end;
+    if (term != kExit) break;                                    // the stream's end, or a bad tag
+    ip0 = s_next;
+  }
+
+  // 5. resolve inside the segment; parents before it stay external
+  const int covered = state == 0 ? (op0 < hi ? op0 : hi) : 0;
+  int ext = 0;
+  if (covered > 0) {
+    const int rcap = 33 - __clz(covered);
+    for (int r = 0; r < rcap; ++r) {
+      ++rounds;
+      int changed = 0;
+      for (int i = tid; i < covered; i += kThreads) {
+        const int p = par[i];
+        if (p >= kS) {
+          const int q = par[p - kS];
+          if (q != p) {                             // p is a copy byte: take its parent
+            par[i] = static_cast<uint16_t>(q);
+            changed = 1;
+          }
+        }
+      }
+      if (!__syncthreads_or(changed)) break;
+    }
+  }
+  // each thread owns 16-byte pieces of the segment: it resolves a piece in
+  // registers from 16-byte reads of its parents and bytes, and writes every
+  // piece with no external byte at once
+  uint8_t* dst = gout + base;
+  const bool vec = (reinterpret_cast<uintptr_t>(gout) & 15) == 0;
+  unsigned lo = UINT_MAX;                       // the first external byte read
+  // piece c's bytes in v, but its external bytes; true if it has any
+  auto piece = [&](int c, uint4& v) {
+    const uint4 pa = reinterpret_cast<const uint4*>(par)[2 * c];
+    const uint4 pb = reinterpret_cast<const uint4*>(par)[2 * c + 1];
+    v = reinterpret_cast<const uint4*>(out)[c];
+    const uint32_t pw[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+    uint32_t vw[4] = {v.x, v.y, v.z, v.w};
+    bool left = false;
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const int i = c * 16 + b;
+      const int p = (pw[b >> 1] >> (16 * (b & 1))) & 0xFFFF;
+      int byte = -1;
+      if (i >= covered) {
+      } else if (p >= kS) {
+        if (p - kS != i) byte = out[p - kS];    // a literal byte: never changes
+      } else {
+        left = true;
+        lo = min(lo, static_cast<unsigned>(p));
+      }
+      if (byte >= 0)
+        vw[b >> 2] = (vw[b >> 2] & ~(0xFFu << (8 * (b & 3)))) | (static_cast<uint32_t>(byte) << (8 * (b & 3)));
+    }
+    v = make_uint4(vw[0], vw[1], vw[2], vw[3]);
+    return left;
+  };
+  auto put = [&](int c, const uint4& v) {       // piece c to the output
+    if (vec && c * 16 + 16 <= covered) {
+      reinterpret_cast<uint4*>(dst)[c] = v;
+    } else {
+      const uint8_t* vb = reinterpret_cast<const uint8_t*>(&v);
+      for (int b = 0; b < 16 && c * 16 + b < covered; ++b) dst[c * 16 + b] = vb[b];
+    }
+  };
+  uint32_t held = 0;                            // bit r: piece tid + r * kThreads waits
+  for (int r = 0; r < kPieces; ++r) {
+    const int c = tid + r * kThreads;
+    if (c * 16 >= covered) break;
+    uint4 v;
+    if (piece(c, v)) {
+      held |= 1u << r;                          // its resolved bytes back, for after the wait
+      reinterpret_cast<uint4*>(out)[c] = v;     // (only copy bytes change: no reader sees them)
+    } else {
+      put(c, v);
+    }
+  }
+  block_min(lo, reinterpret_cast<unsigned*>(s_warp), &s_first);
+  if (s_first != UINT_MAX) ext = 1;
+  lap(5);
+
+  // 6. external bytes from segment k - 1, final once its flag is up: its
+  // tail from the first byte read staged in shared memory (the tables'
+  // room) by 16-byte loads, gathered a byte a thread, then the held pieces
+  if (ext > 0 && k > 0) {
+    if (tid == 0) {
+      while (ld_relaxed(&flag[k - 1]) == 0) {
+      }
+      __threadfence();                          // the flag before the bytes it covers
+    }
+    __syncthreads();
+    uint8_t* tail = reinterpret_cast<uint8_t*>(nx);
+    const uint8_t* prev = gout + base - kS;
+    const int lo16 = static_cast<int>(s_first) & ~15;
+    if (vec) {
+      for (int i = lo16 / 16 + tid; i < kS / 16; i += kThreads)
+        reinterpret_cast<uint4*>(tail)[i] = __ldcg(reinterpret_cast<const uint4*>(prev) + i);
+    } else {
+      for (int i = lo16 + tid; i < kS; i += kThreads) tail[i] = __ldcg(prev + i);
+    }
+    __syncthreads();
+    for (int i = 4 * tid; i < covered; i += 4 * kThreads) {   // 4 bytes a step
+      const uint2 pp = *reinterpret_cast<const uint2*>(par + i);
+      uint32_t w = *reinterpret_cast<const uint32_t*>(out + i);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int p = ((b < 2 ? pp.x : pp.y) >> (16 * (b & 1))) & 0xFFFF;
+        if (p < kS && i + b < covered)
+          w = (w & ~(0xFFu << (8 * b))) | (static_cast<uint32_t>(tail[p]) << (8 * b));
+      }
+      *reinterpret_cast<uint32_t*>(out + i) = w;
+    }
+    __syncthreads();
+    for (int r = 0; r < kPieces; ++r)
+      if (held >> r & 1) put(tid + r * kThreads, reinterpret_cast<const uint4*>(out)[tid + r * kThreads]);
+  }
+  lap(6);
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();                            // the block's bytes (cumulative) before the flag
+    st_relaxed(&flag[k], 1u);
+    if (stamp) s_cyc[12] = global_ns();
+    s_last = atomicAdd(&head->done, 1u) == static_cast<unsigned int>(nseg - 1);
+  }
+  __syncthreads();
+  lap(7);
+  if (s_last && tid == 0) {                      // every block has judged its tags
+    __threadfence();
+    const unsigned long long ev = ld_relaxed(&head->event);
+    meta[0] = ev == 0 ? head->os_stop : 0;
+    meta[1] = ev == 0 ? 0 : ((~ev & 1) ? E_OUTPUT_OVERRUN : E_DATA_MALFORMED);
+  }
+  if (stamp) {
+    s_cyc[8] = windows;
+    s_cyc[9] = tags;
+    s_cyc[10] = rounds;
+    s_cyc[11] = ext;
+    for (int i = 0; i < kSegStamps; ++i) stamps[static_cast<int64_t>(k) * kSegStamps + i] = s_cyc[i];
+  }
+}
+
+// Raises `fn`'s dynamic shared-memory limit to `bytes` once per device
+// (bit `slot` of a device's mask), not on every launch.
+cudaError_t raise_smem_once(const void* fn, int bytes, int slot) {
+  static std::atomic<uint32_t> raised[32];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::atomic<uint32_t>& mask = raised[dev & 31];
+  const uint32_t bit = 1u << slot;
+  if (mask.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) mask.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
+constexpr long long kWorkHead = sizeof(Head);
+
+long long chunks_of(long long slen) { return (slen >> kLog) + 1; }
+long long segments_of(long long cap) { return cap / kS + 1; }
+
+// Bytes of the workspace a stream of slen bytes and an output of cap bytes
+// take (decode_stream.work_bytes): the head, a word a chunk, then a cover
+// (int64 os, int32 position) and an int32 flag a segment.
+long long work_bytes(long long slen, long long cap) {
+  return kWorkHead + 8 * chunks_of(slen) + 16 * segments_of(cap);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Decodes in[0:slen] into out[0:dlim] on `stream` (one thread block);
-// limit = ceil(dst_len / 32768) * 32768.  meta = {produced, status}.
-// Returns cudaGetLastError().
-int decode_stream_launch(const void* in, long long slen, void* out, long long dlim,
-                         long long limit, void* meta, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(kSmem));
+// Dynamic shared memory a block of kernel 0 (chain) or 1 (segment) takes.
+int decode_stream_smem_bytes(int kernel) { return kernel == 0 ? kChainSmem : layout().total; }
+
+// Decodes in[0:slen] into out[0:cap] on `stream`: cap = min(dst_len, (slen
+// // 3 + 1) * 64) is also the overrun limit, limit = ceil(dst_len / 32768)
+// * 32768 (at least 32768); meta = {produced, status} (int64); work:
+// work_bytes(slen, cap) bytes, cleared here first; stamps:
+// null, or kChainStamps int64 a chunk followed by kSegStamps a segment.
+// Returns the first CUDA error, or 0.
+int decode_stream_launch(const void* in, long long slen, void* out, long long cap,
+                         long long limit, void* meta, void* work, void* stamps, void* stream) {
+  if (slen < 0 || slen >= (1LL << 31) || cap < 0 || cap > (slen / 3 + 1) * 64 || limit < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nchunks = chunks_of(slen), nseg = segments_of(cap);
+  if (nseg >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(work, 0, work_bytes(slen, cap), st);
+  if (e == cudaSuccess)
+    e = raise_smem_once(reinterpret_cast<const void*>(chain_kernel), kChainSmem, 0);
+  if (e == cudaSuccess)
+    e = raise_smem_once(reinterpret_cast<const void*>(segment_kernel), layout().total, 1);
   if (e != cudaSuccess) return static_cast<int>(e);
-  stream_kernel<<<1, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in), slen, static_cast<uint8_t*>(out), dlim, limit,
-      static_cast<int64_t*>(meta));
+  uint8_t* w = static_cast<uint8_t*>(work);
+  Head* head = reinterpret_cast<Head*>(w);
+  auto* word = reinterpret_cast<unsigned long long*>(w + kWorkHead);
+  auto* cover_os = reinterpret_cast<int64_t*>(w + kWorkHead + 8 * nchunks);
+  auto* cover_pos = reinterpret_cast<int32_t*>(cover_os + nseg);
+  auto* flag = reinterpret_cast<unsigned int*>(cover_pos + nseg);
+  auto* sp = static_cast<int64_t*>(stamps);
+  chain_kernel<<<static_cast<unsigned int>(nchunks), kThreads, kChainSmem, st>>>(
+      static_cast<const uint8_t*>(in), slen, head, word, cover_os, cover_pos,
+      static_cast<int>(nseg), sp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  segment_kernel<<<static_cast<unsigned int>(nseg), kThreads, layout().total, st>>>(
+      static_cast<const uint8_t*>(in), slen, static_cast<uint8_t*>(out), cap, limit,
+      static_cast<int64_t*>(meta), head, cover_os, cover_pos, flag, static_cast<int>(nseg),
+      sp == nullptr ? nullptr : sp + nchunks * kChainStamps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,7 +3,10 @@
 Port of ``csnappy_tpu/ops/decode_stream.py``.  It decodes one headerless
 stream whose tags or copies cross 32 KiB output boundaries (the host scan's
 rc 1), which the segment decoder cannot split.  ``csrc/decode_stream.cu``
-runs it in one thread block; its source comment says what bounds it and how.
+runs it as two grids after one memset of a workspace: the tag chain over
+chunks of ``2**CHUNK_LOG`` stream positions, chained one word a chunk, then
+one thread block per 32 KiB output segment, chained one flag a segment; its
+source comment says what bounds it and how.
 
 Contract, identical in both versions, and the JAX kernel's rather than the
 oracle's where the two differ:
@@ -40,9 +43,23 @@ from ..errors import E_DATA_MALFORMED, E_OK, E_OUTPUT_OVERRUN
 from ..models import wire
 from . import _build
 from .decode_fused import _u8_tensor
+from .decode_ws import _carve
+from .primitives import _stream
 
 SEG = 32768                # output segment the limit is walked in
 MAX_OFFSET = 32768         # the history the JAX kernel keeps
+CHUNK_LOG = 13             # the chain kernel's chunks: 8,192 stream positions
+WORK_HEAD = 64             # the workspace's head (csrc/decode_stream.cu ``Head``)
+# what the kernels' ``stamps`` hold (:func:`_launch`): a chunk's SM cycles of
+# each phase, then counts (visited 1 or 0, pointer-jumping rounds, cover
+# searches, the %globaltimer ns at which it published its exit); then a
+# segment's SM cycles of each phase, then counts (windows, tags walked,
+# resolve rounds, externals: 1 when it read bytes of the segment before, the
+# %globaltimer ns of its flag)
+CHAIN_STAMPS = ("staged", "jumped", "waited", "covers", "visited", "rounds", "searches",
+                "published_ns")
+SEG_STAMPS = ("entered", "parsed", "walked", "judged", "covered", "resolved", "waited", "written",
+              "windows", "tags", "rounds", "externals", "published_ns")
 
 
 def out_capacity(n: int, dst_len: int) -> int:
@@ -68,7 +85,7 @@ def decode_stream(body, dst_len: int, device=None):
     cap, limit = _limits(body.numel(), dst_len)
     if dev.type == "cpu":
         return decode_plain(body, dst_len)
-    return _launch(body, dst_len, cap, limit)
+    return _launch(body, cap, limit)
 
 
 def decompress_noheader_np(src, dst_len: int, device=None) -> tuple[np.ndarray, int, int]:
@@ -82,24 +99,72 @@ def decompress_noheader_np(src, dst_len: int, device=None) -> tuple[np.ndarray, 
 def _kernel():
     launch, check = _build.kernel("decode_stream")
     vp = ctypes.c_void_p
-    launch.argtypes = [vp, ctypes.c_longlong, vp, ctypes.c_longlong, ctypes.c_longlong, vp, vp]
+    launch.argtypes = [vp, ctypes.c_longlong, vp, ctypes.c_longlong, ctypes.c_longlong, vp, vp,
+                       vp, vp]
     return launch, check
 
 
-def _launch(body: torch.Tensor, dst_len: int, cap: int, limit: int):
-    """Launch ``decode_stream.cu`` on the current stream and count it."""
+def chunks(n: int) -> int:
+    """Thread blocks of the chain kernel for a stream of ``n`` bytes."""
+    return (n >> CHUNK_LOG) + 1
+
+
+def segments(cap: int) -> int:
+    """Thread blocks of the segment kernel for an output of ``cap`` bytes: one
+    a 32 KiB segment, and one more that judges a tag starting at ``cap``."""
+    return cap // SEG + 1
+
+
+def work_bytes(n: int, cap: int) -> int:
+    """The workspace of one call: a head, a word a chunk, 16 bytes a segment."""
+    return WORK_HEAD + 8 * chunks(n) + 16 * segments(cap)
+
+
+def stamp_count(n: int, cap: int) -> int:
+    """int64 stamps of one call: ``len(CHAIN_STAMPS)`` a chunk, then
+    ``len(SEG_STAMPS)`` a segment."""
+    return chunks(n) * len(CHAIN_STAMPS) + segments(cap) * len(SEG_STAMPS)
+
+
+def split_stamps(stamps, n: int, cap: int):
+    """The stamps of one call as (chain int64[chunks, 8], segments int64[segments, 13]) on the host."""
+    st = stamps.cpu().numpy()
+    nc = chunks(n) * len(CHAIN_STAMPS)
+    return (st[:nc].reshape(-1, len(CHAIN_STAMPS)), st[nc:].reshape(-1, len(SEG_STAMPS)))
+
+
+def _launch(body: torch.Tensor, cap: int, limit: int, stamps=None):
+    """Launch ``decode_stream.cu`` on torch's current stream and count it.
+
+    One buffer holds meta, the output and the workspace; ``stamps``: None,
+    or int64[:func:`stamp_count`] on the card for each block's phase cycles
+    and counts.  The overrun limit is ``min(dst_len, cap) = cap``: no stream
+    produces more than cap, and it bounds every write."""
     dev = body.device
-    out = torch.empty((max(cap, 1),), dtype=torch.uint8, device=dev)
-    meta = torch.empty((2,), dtype=torch.int64, device=dev)
+    n = body.numel()
+    if stamps is not None and (stamps.shape != (stamp_count(n, cap),) or stamps.dtype != torch.int64
+                               or stamps.device != dev or not stamps.is_contiguous()):
+        raise ValueError(f"stamps must be int64[{stamp_count(n, cap)}] on {dev}")
+    meta, out, work = _carve(dev, (torch.int64, 2), (torch.uint8, max(cap, 1)),
+                             (torch.uint8, work_bytes(n, cap)))
     launch, check = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        # the overrun limit is min(dst_len, cap): equal in effect, as no
-        # stream produces more than cap, and it bounds every write by cap
-        check(launch(body.data_ptr(), body.numel(), out.data_ptr(), min(dst_len, cap), limit,
-                     meta.data_ptr(), stream))
+    args = (body.data_ptr(), n, out.data_ptr(), cap, limit, meta.data_ptr(), work.data_ptr(),
+            None if stamps is None else stamps.data_ptr())
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        rc = launch(*args, _stream(dev.index))
+    else:                                           # operands on another card: launch there
+        with torch.cuda.device(dev):
+            rc = launch(*args, _stream(dev.index))
+    check(rc)
     decode_stream.launches += 1
     return out[:cap], meta[0], meta[1]
+
+
+def smem_bytes(kernel: int) -> int:
+    """Dynamic shared memory a block of kernel 0 (the chain) or 1 (a segment) takes."""
+    fn = _build.load("decode_stream").decode_stream_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(kernel)
 
 
 decode_stream.launches = 0

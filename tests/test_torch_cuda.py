@@ -517,11 +517,46 @@ def test_failed_scan_launch_raises_and_takes_no_host_scan(card, urls10k_snappy, 
     assert not host
 
 
+@pytest.fixture(scope="module")
+def stream_adv():
+    """The adversarial stream group of ``tests/data/torch_ref/stream_adv.npz``:
+    (name, body, its three limits, and at each the JAX decode_stream's
+    produced, status and sha256)."""
+    with np.load(DATA / "torch_ref" / "stream_adv.npz") as z:
+        return [(str(z["names"][i]), z["body"][z["offs"][i] : z["offs"][i + 1]].tobytes(),
+                 z["limits"][i].tolist(), z["jax_prod"][i].tolist(), z["jax_status"][i].tolist(),
+                 [bytes(h) for h in z["jax_sha"][i]]) for i in range(len(z["names"]))]
+
+
+def _stream_worst_cases(urls10k: bytes):
+    """16 MiB worst cases of the crossing-stream kernel, each cheap for the
+    plain version: (name, body, dst_len)."""
+    big = api.compress(urls10k * 24)
+    ulen, hdr = wire.varint_decode(big)
+    n = 1 << 24
+    run = bytearray(b"\x00a")                    # an offset-1 run: every segment hangs on the last
+    run += bytes([wire.TAG_COPY_2 | (63 << 2), 1, 0]) * ((n - 1) // 64)
+    run += bytes([wire.TAG_COPY_2 | (((n - 1) % 64 - 1) << 2), 1, 0])
+    lit = bytearray()
+    wire.emit_literal(lit, (bytes(range(256)) * (n // 256))[:n])
+    ones = b"".join(b"\x00" + bytes([i & 0xFF]) for i in range(1 << 21))
+    return [("urls.10K x 24", big[hdr:], ulen), ("offset-1 run of 2^24", bytes(run), n),
+            ("literal of 2^24", bytes(lit), n), ("2^21 one-byte literals", ones, 1 << 21)]
+
+
 @pytest.mark.parametrize("limit", ["exact", "short", "multiple"])
-def test_stream_kernel_equals_plain(card, streams, urls10k, limit):
+def test_stream_kernel_equals_plain(card, streams, stream_adv, urls10k, limit):
+    # streams.npz, stream_adv.npz (also against the JAX answers), the fuzz
+    # bodies and the 16 MiB worst cases, at the exact, -5000 and
+    # multiple-of-32768 limits
+    import hashlib
+
     from csnappy_tpu_torch.ops import decode_stream
 
-    cases = [(b, d) for _, b, d in streams] + [(b, 200000) for b in _fuzz_bodies(urls10k, 6)]
+    j = ["exact", "short", "multiple"].index(limit)
+    cases = ([(b, d) for _, b, d in streams] + [(b, lims[0]) for _, b, lims, _, _, _ in stream_adv]
+             + [(b, 200000) for b in _fuzz_bodies(urls10k, 6)]
+             + [(b, d) for _, b, d in _stream_worst_cases(urls10k)])
     for body, dst in cases:
         cap = {"exact": dst, "short": max(0, dst - 5000), "multiple": dst // 32768 * 32768}[limit]
         out, produced, status = decode_stream.decode_stream(_u8(body).to(card), cap, device=card)
@@ -530,11 +565,18 @@ def test_stream_kernel_equals_plain(card, streams, urls10k, limit):
         p = int(pprod)
         assert (int(produced), int(status)) == (p, int(pstatus)), (len(body), cap)
         assert torch.equal(out[:p].cpu(), pout[:p])
+    for name, body, lims, jprod, jstatus, jsha in stream_adv:
+        out, produced, status = decode_stream.decode_stream(_u8(body).to(card), lims[j], device=card)
+        p = int(produced)
+        assert (p, int(status)) == (jprod[j], jstatus[j]), name
+        assert hashlib.sha256(out[:p].cpu().numpy().tobytes()).digest() == jsha[j], name
 
 
 def test_stream_kernel_literal_envelope(card):
     # a 100000-byte literal decodes; one of 2^24 + 4096 bytes is outside the
-    # envelope, and the API re-decides it on decode_jnp on the card
+    # envelope, and the API re-decides it on decode_jnp on the card; a
+    # 4-byte trailer of 2^24 - 1 decodes, the same with its top byte set is
+    # E_DATA_MALFORMED; a literal from mid-segment across three boundaries
     from csnappy_tpu_torch.ops import decode_jnp, decode_stream
 
     raw = np.random.default_rng(4).integers(0, 256, 100000, dtype=np.uint8).tobytes()
@@ -550,6 +592,65 @@ def test_stream_kernel_literal_envelope(card):
     before = decode_jnp.decompress_noheader_np.launches
     assert api.decompress_noheader(bytes(s), n) == raw
     assert decode_jnp.decompress_noheader_np.launches == before + 1
+    body = raw[: 1 << 24]
+    four = b"\xfc" + ((1 << 24) - 1).to_bytes(4, "little") + body
+    out, produced, status = decode_stream.decode_stream(four, 1 << 24, device=card)
+    assert (int(produced), int(status)) == (1 << 24, 0) and out.cpu().numpy().tobytes() == body
+    top = b"\xfc" + ((1 << 24) - 1 + (1 << 24)).to_bytes(4, "little") + body
+    assert (int(decode_stream.decode_stream(top, 1 << 24, device=card)[2])) == -5
+    mid = bytearray()
+    wire.emit_literal(mid, raw[:20000])
+    wire.emit_literal(mid, raw[20000:120000])
+    mid += bytes([wire.TAG_COPY_2 | (63 << 2)]) + (32768).to_bytes(2, "little")
+    want = raw[:120000] + raw[120000 - 32768 : 120000 - 32768 + 64]
+    out, produced, status = decode_stream.decode_stream(bytes(mid), len(want), device=card)
+    assert (int(produced), int(status)) == (len(want), 0) and out.cpu().numpy().tobytes() == want
+
+
+def test_stream_call_runs_two_kernels_and_one_memset(card, urls10k_snappy):
+    # one decode_stream call on card tensors: chain_kernel and
+    # segment_kernel once each, one memset of the workspace, no torch-op
+    # kernel and no copy (the profiler records the second of two calls: a
+    # warm-up step first, as its schedule allows)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from csnappy_tpu_torch.ops import decode_stream
+
+    unaligned = (DATA / "unaligned_uint64_test.snappy").read_bytes()
+    for stream in (urls10k_snappy, unaligned):
+        ulen, hdr = wire.varint_decode(stream)
+        bdev = _u8(stream[hdr:]).to(card)
+        decode_stream.decode_stream(bdev, ulen, device=card)
+        torch.cuda.synchronize()
+        before = decode_stream.decode_stream.launches
+        ops = {}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: ops.update(
+                         {e.key: e.count for e in p.key_averages()
+                          if e.device_type == DeviceType.CUDA
+                          and not e.key.startswith("ProfilerStep")})) as prof:
+            for _ in range(2):
+                decode_stream.decode_stream(bdev, ulen, device=card)
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = {k: v for k, v in ops.items() if not k.startswith(("Memcpy", "Memset"))}
+        memsets = sum(v for k, v in ops.items() if k.startswith("Memset"))
+        assert sorted(kernels.values()) == [1, 1], ops
+        assert any("chain_kernel" in k for k in kernels) and any("segment_kernel" in k for k in kernels)
+        assert memsets <= 1 and not any(k.startswith("Memcpy") for k in ops), ops
+        assert decode_stream.decode_stream.launches == before + 2
+
+
+def test_failed_stream_launch_raises_and_takes_no_plain_version(card, monkeypatch):
+    from csnappy_tpu_torch.ops import decode_stream
+
+    _, check = decode_stream._kernel()
+    monkeypatch.setattr(decode_stream, "_kernel", lambda: (lambda *a: 1, check))
+    monkeypatch.setattr(decode_stream, "decode_plain", lambda *a, **k: pytest.fail("plain"))
+    with pytest.raises(RuntimeError, match="decode_stream: CUDA error 1"):
+        decode_stream.decode_stream(_u8(b"\x00a").to(card), 1, device=card)
 
 
 def test_decode_jnp_on_card_equals_cpu(card, streams):

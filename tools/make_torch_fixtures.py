@@ -22,6 +22,14 @@ Writes ``tests/data/torch_ref/``:
   JAX scan's answer (``_scan_compiled``: ``seg[:nseg]``, ``meta[:3]``, as
   for ``streams.npz``) and the port's ``decode_ws.scan_plain`` at nseg + 1
   slots;
+* ``stream_adv.npz`` — adversarial streams for a crossing-stream decoder cut
+  into 32 KiB output segments (built by :func:`build_stream_adv`: offset-1
+  runs, offset-32768 copies across every boundary, one-byte literals with
+  1- and 5-byte headers, a literal across three boundaries, chains that
+  never merge, late events), each at the three limits of
+  :func:`stream_limits` with the JAX ``decode_stream``'s answer (interpret
+  mode: ``produced``, ``status``, sha256 of the bytes) and the oracle's
+  (``models/pymodel.decompress_noheader``: status, sha256);
 * ``container.npz`` — the paged container (``runtime/container.py``) on the
   inputs of :func:`build_container_inputs`: each container's bytes and the
   compress and decompress stats, and for each malformed container of
@@ -62,9 +70,9 @@ On a CPU backend the Pallas kernels run in interpret mode, so this takes
 minutes; it is run by hand when the reference or the input set changes, never
 by the tests.  ``--far`` adds the 70000-byte-window COPY_4 vector
 (``far`` group, offset 66000 > 65535), which costs several minutes more.
-``--group blocks``, ``streams``, ``scan_adv``, ``container``, ``movebench``,
+``--group blocks``, ``streams``, ``scan_adv``, ``stream_adv``, ``container``, ``movebench``,
 ``primitives``, ``probes`` or ``kernel_lib`` (seconds) writes one file
-only; the stream, scan_adv and container groups run one process per case,
+only; the stream, scan_adv, stream_adv and container groups run one process per case,
 ``--procs`` at a time.
 """
 from __future__ import annotations
@@ -395,7 +403,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--far", action="store_true", help="add the far COPY_4 group")
     ap.add_argument("--group", default="all",
-                    choices=("all", "blocks", "streams", "scan_adv", "container", "movebench",
+                    choices=("all", "blocks", "streams", "scan_adv", "stream_adv", "container", "movebench",
                              "primitives", "probes", "kernel_lib"))
     ap.add_argument("--procs", type=int, default=4, help="processes for the stream group")
     args = ap.parse_args()
@@ -411,6 +419,8 @@ def main() -> int:
         write_streams(args.procs)
     if args.group in ("all", "scan_adv"):
         write_scan_adv(args.procs)
+    if args.group in ("all", "stream_adv"):
+        write_stream_adv(args.procs)
     if args.group in ("all", "container"):
         write_container(args.procs)
     if args.group in ("all", "movebench"):
@@ -663,6 +673,142 @@ def write_scan_adv(procs: int) -> None:
         a[key] = np.concatenate([r[key] for r in rs]).astype(np.int32)
         a[f"{key}_offs"] = np.cumsum([0] + [len(r[key]) for r in rs]).astype(np.int64)
     np.savez_compressed(OUT / "scan_adv.npz", **a)
+
+
+# ------------------------------------------------------------- stream_adv
+
+def stream_limits(dst_len: int) -> tuple[int, int, int]:
+    """The three output limits each stream_adv stream is decoded at: exact,
+    5,000 short, and cut down to a multiple of 32768."""
+    return dst_len, max(0, dst_len - 5000), dst_len // 32768 * 32768
+
+
+def build_stream_adv(urls: bytes) -> list[tuple[str, bytes, int]]:
+    """Adversarial whole streams for a crossing-stream decoder cut into 32
+    KiB output segments: (name, headerless body, dst_len) each."""
+    from csnappy_tpu.models import wire
+
+    def literal(payload: bytes) -> bytearray:
+        s = bytearray()
+        wire.emit_literal(s, payload)
+        return s
+
+    def copy(kind: int, length: int, offset: int) -> bytes:
+        width = {wire.TAG_COPY_2: 2, wire.TAG_COPY_4: 4}[kind]
+        return bytes([kind | ((length - 1) << 2)]) + offset.to_bytes(width, "little")
+
+    rng = np.random.default_rng(SEED + 4)
+    S = 32768
+    # a byte, then offset-1 copies of 64: every segment's bytes hang on the one before
+    out = [("offset1_run_9_segments", bytes(literal(b"z") + copy(wire.TAG_COPY_2, 64, 1) * 4400),
+            1 + 64 * 4400)]
+    # a 32 KiB literal, then offset-32768 copies whose lengths straddle every boundary
+    raw = rng.integers(0, 256, S, dtype=np.uint8).tobytes()
+    s, op = literal(raw), S
+    while op < 5 * S + 1000:
+        ln = int(rng.integers(2, 65))
+        if (op + ln) % S == 0:
+            ln -= 1                              # never end a copy on a boundary
+        s += copy(wire.TAG_COPY_2, ln, S)
+        op += ln
+    out.append(("offset32768_straddles", bytes(s), op))
+    # one-byte literals: 1-byte headers (2 input bytes an output byte), then
+    # 5-byte headers (6: 196,608 B of input a segment)
+    text = urls[:100000]
+    out.append(("one_byte_literals_hdr1", b"".join(b"\x00" + text[i : i + 1] for i in range(len(text))),
+                len(text)))
+    text = urls[:40000]
+    out.append(("one_byte_literals_hdr5",
+                b"".join(b"\xfc\x00\x00\x00\x00" + text[i : i + 1] for i in range(len(text))),
+                len(text)))
+    # a literal from mid-segment 0 across 3 boundaries, then copies reaching into it
+    raw = rng.integers(0, 256, 100000, dtype=np.uint8).tobytes()
+    s = literal(urls[:20000]) + literal(raw)
+    op = 120000
+    for _ in range(700):
+        ln = int(rng.integers(4, 65))
+        s += copy(wire.TAG_COPY_2, ln, int(rng.integers(1, S + 1)))
+        op += ln
+    out.append(("literal_mid_segment_then_copies", bytes(s), op))
+    # COPY_1 of 4 at offset 1 after a 1-byte literal: the odd and even chains never merge
+    n = 50000
+    out.append(("never_merging_6_segments", b"\x00a" + b"\x01\x01" * n, 1 + 4 * n))
+    # late events after 5+ segments of a valid base
+    base = literal(urls[:2000]) + copy(wire.TAG_COPY_2, 64, 2000) * 2625
+    blen = 2000 + 64 * 2625
+    for name, tail, ln in (("late_offset_0", copy(wire.TAG_COPY_2, 8, 0), 8),
+                           ("late_offset_32769", copy(wire.TAG_COPY_2, 8, 32769), 8),
+                           ("late_copy4_high_bytes", copy(wire.TAG_COPY_4, 8, 0x01000010), 8),
+                           ("late_truncated_header", b"\xf0", 1)):
+        out.append((name, bytes(base + tail), blen + ln))
+    out.append(("late_overrun_by_one", bytes(base), blen - 1))
+    # exactly full at 5 * 32768 = 163,840 (a tag boundary) with tags left
+    full = literal(urls[:2048]) + copy(wire.TAG_COPY_2, 64, 2048) * ((5 * S - 2048) // 64)
+    out.append(("full_at_163840_with_tags_left", bytes(full + literal(urls[:100])), 5 * S))
+    return out
+
+
+def load_stream_adv() -> list[tuple[str, bytes, int]]:
+    """:func:`build_stream_adv` over urls.10K."""
+    return build_stream_adv((DATA / "urls.10K").read_bytes())
+
+
+def read_stream_adv() -> tuple[list[tuple[str, bytes, int]], dict]:
+    """The stored stream_adv group: its inputs as (name, body, dst_len) and every array."""
+    with np.load(OUT / "stream_adv.npz") as z:
+        a = {k: z[k] for k in z.files}
+    inputs = [(str(a["names"][i]), a["body"][a["offs"][i] : a["offs"][i + 1]].tobytes(),
+               int(a["dst_len"][i])) for i in range(len(a["names"]))]
+    return inputs, a
+
+
+def _answer_stream_adv(i: int) -> dict:
+    """The JAX ``decode_stream`` (Pallas interpret mode) at the three limits
+    of :func:`stream_limits`, and the oracle at each, on stream ``i`` of
+    :func:`load_stream_adv` (a fresh process each, as for the streams)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from csnappy_tpu.errors import E_OK, SnappyError
+    from csnappy_tpu.models import pymodel
+    from csnappy_tpu.ops import decode_stream
+
+    name, body, dst_len = load_stream_adv()[i]
+    t0 = time.time()
+    buf = np.frombuffer(body, np.uint8)
+    r = {k: [] for k in ("jax_prod", "jax_status", "jax_sha", "oracle_status", "oracle_sha")}
+    for cap in stream_limits(dst_len):
+        out, prod, status = decode_stream.decompress_noheader_np(buf, cap)
+        r["jax_prod"].append(prod)
+        r["jax_status"].append(status)
+        r["jax_sha"].append(sha(np.asarray(out)[:prod].tobytes()))
+        try:
+            res, code = pymodel.decompress_noheader(body, cap), E_OK
+        except SnappyError as e:
+            res, code = b"", e.code
+        r["oracle_status"].append(code)
+        r["oracle_sha"].append(sha(res))
+    print(f"stream_adv {name}: {len(body)} B -> {dst_len}; JAX {r['jax_status']}, oracle "
+          f"{r['oracle_status']} ({time.time() - t0:.0f} s)", flush=True)
+    return r
+
+
+def write_stream_adv(procs: int) -> None:
+    import multiprocessing
+
+    streams = load_stream_adv()
+    with multiprocessing.get_context("spawn").Pool(procs, maxtasksperchild=1) as pool:
+        rs = pool.map(_answer_stream_adv, range(len(streams)), chunksize=1)
+    a = {"names": np.array([s[0] for s in streams]),
+         "body": np.frombuffer(b"".join(s[1] for s in streams), np.uint8),
+         "offs": np.cumsum([0] + [len(s[1]) for s in streams]).astype(np.int64),
+         "dst_len": np.array([s[2] for s in streams], np.int64),
+         "limits": np.array([stream_limits(s[2]) for s in streams], np.int64)}
+    for key in rs[0]:
+        a[key] = np.array([r[key] for r in rs])
+    for key in ("jax_prod", "jax_status", "oracle_status"):
+        a[key] = a[key].astype(np.int64)
+    np.savez_compressed(OUT / "stream_adv.npz", **a)
 
 
 # ---------------------------------------------------------------- container

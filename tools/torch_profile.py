@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's block codec and primitives spend their device time, on one CUDA card.
 
-    python3 tools/torch_profile.py [--out FILE.json] [--root TREE] [--scan-split]
+    python3 tools/torch_profile.py [--out FILE.json] [--root TREE] [--scan-split] [--stream-split]
 
 Runs the main path's batch (B=64 blocks of 32 KiB of urls.10K, block i =
 ``urls[(i % 21) * 32768 : ...]``, as bench.py and chip_smoke.py make it)
@@ -17,7 +17,8 @@ power limit; then the whole-stream slice the same way: one
 ``decode_ws.scan_segments`` and one ``decode_ws.decompress_noheader_ws``
 call on card tensors of urls.10K.snappy, of urls.10K x 24 (16 MiB,
 compressed on the card) and, for the scan, of a 16 MiB stream whose two tag
-chains never merge; then the host time of a lone call of each codec entry,
+chains never merge; one ``decode_stream.decode_stream`` call on
+urls.10K.snappy, unaligned_uint64_test.snappy and the 16 MiB stream; then the host time of a lone call of each codec entry,
 of those whole-stream calls and of the host scan (``native.scan_segments``)
 (synchronised before and after, median of 50; 10 at 16 MiB), and the host
 split of one ``decompress_noheader_ws`` call on urls.10K.snappy, step by
@@ -27,7 +28,10 @@ unpacked parent commit) to compare two versions in one run.
 the one-block walk (commit bde1c5d and before) with ``clock64()`` stamps
 added around its three phases (staging a window, parse and fuse, thread 0's
 walk) and prints each phase's SM cycles summed over the windows, on
-urls.10K.snappy and the 16 MiB stream.  Imports nothing of the JAX package.
+urls.10K.snappy and the 16 MiB stream.  ``--stream-split`` does the same
+for ``--root``'s ``csrc/decode_stream.cu`` when it is the one-block decoder
+(commit cc6d3e5 and before): staging a window, thread 0's walk, the
+literals, warp 0's copies and the flush.  Imports nothing of the JAX package.
 Exits non-zero without a card.
 """
 from __future__ import annotations
@@ -53,6 +57,8 @@ def main() -> int:
                     help="import csnappy_tpu_torch from this tree (default: this checkout)")
     ap.add_argument("--scan-split", action="store_true",
                     help="the one-block scan's phases in --root, with clock64() stamps added")
+    ap.add_argument("--stream-split", action="store_true",
+                    help="the one-block stream decoder's phases in --root, with clock64() stamps")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -123,6 +129,15 @@ def main() -> int:
                 lambda bd=bd, dst=dst: decode_ws.decompress_noheader_ws(bd, dst, dev), b, dst)
             whole[f"host scan on {label}"] = (
                 lambda b=b, dst=dst: native.scan_segments(b, dst, BS), b, dst)
+    from csnappy_tpu_torch.ops import decode_stream
+
+    unaligned = (ROOT / "tests" / "data" / "unaligned_uint64_test.snappy").read_bytes()
+    for label, b, dst in (("urls.10K.snappy", body, len(urls)),
+                          ("unaligned_uint64_test.snappy", unaligned[wire.varint_decode(unaligned)[1]:],
+                           wire.varint_decode(unaligned)[0]), ("16 MiB", bbody, len(big))):
+        bd = torch.frombuffer(bytearray(b), dtype=torch.uint8).to(dev)
+        whole[f"decode_stream on {label}"] = (
+            lambda bd=bd, dst=dst: decode_stream.decode_stream(bd, dst, dev), b, dst)
     for k, (fn, _, _) in whole.items():
         if not k.startswith("host"):
             result[f"{k} (one call)"] = device_profile(fn, args.reps)
@@ -143,6 +158,10 @@ def main() -> int:
     if hasattr(decode_ws, "_carve"):
         result["decode_ws host split, urls.10K.snappy (us)"] = _ws_split(
             torch, decode_ws, decode_fused, body_dev, len(urls))
+    if args.stream_split:
+        result["one-block stream decoder split (SM cycles)"] = _stream_split(
+            torch, pathlib.Path(args.root), dev,
+            {"urls.10K.snappy": (body, len(urls)), "16 MiB": (bbody, len(big))})
     if args.scan_split:
         result["one-block scan split (SM cycles)"] = _scan_split(
             torch, pathlib.Path(args.root), dev, {"urls.10K.snappy": body, "16 MiB": bbody})
@@ -152,7 +171,7 @@ def main() -> int:
     result["card"] = card
     print(f"tree {args.root}")
     for title, res in result.items():
-        if title.startswith(("decode_ws host split", "one-block scan split")):
+        if title.startswith(("decode_ws host split", "one-block scan split", "one-block stream")):
             print(f"{title} ({card}): {res}")
             continue
         if title == "lone_ms":
@@ -269,6 +288,76 @@ def _scan_split(torch, root: pathlib.Path, dev, streams: dict) -> dict:
         torch.cuda.synchronize()
         assert lib.scan_split(split, 0) == 0
         res[label] = dict(zip(("staging", "parse and fuse", "walk", "windows"), list(split)))
+    return res
+
+
+# where clock64() stamps go in the one-block stream decoder's loop (cc6d3e5)
+_STREAM_MARKS = (
+    ("    const int64_t ip0 = s_ip;\n",
+     "    const int64_t ip0 = s_ip;\n    long long t0_ = clock64(), t1_ = 0, t2_ = 0, t3_ = 0, t4_ = 0;\n"),
+    ("    __syncthreads();\n\n    if (threadIdx.x == 0) {\n      const uint8_t* w = win - ip0;",
+     "    __syncthreads();\n    t1_ = clock64();\n\n    if (threadIdx.x == 0) {\n"
+     "      const uint8_t* w = win - ip0;"),
+    ("    __syncthreads();\n\n    const int nt = s_nt;",
+     "    __syncthreads();\n    t2_ = t3_ = t4_ = clock64();\n\n    const int nt = s_nt;"),
+    ("      __syncthreads();\n      if (warp == 0) {",
+     "      __syncthreads();\n      t3_ = clock64();\n      if (warp == 0) {"),
+    ("      __syncthreads();\n      const int64_t end = s_op;",
+     "      __syncthreads();\n      t4_ = clock64();\n      const int64_t end = s_op;"),
+    ("    __syncthreads();\n  }\n\n  if (threadIdx.x == 0) {\n    meta[0]",
+     "    __syncthreads();\n    if (threadIdx.x == 0) {\n      const long long t5_ = clock64();\n"
+     "      g_split[0] += t1_ - t0_; g_split[1] += t2_ - t1_;\n"
+     "      if (s_solo) { g_split[2] += t5_ - t2_; } else {\n"
+     "        g_split[2] += t3_ - t2_; g_split[3] += t4_ - t3_; g_split[4] += t5_ - t4_; }\n"
+     "      g_split[5] += 1; g_split[6] += s_nt;\n    }\n  }\n\n  if (threadIdx.x == 0) {\n    meta[0]"),
+    ("namespace {\n", "__device__ long long g_split[7];\nnamespace {\n"),
+)
+_STREAM_READ = """
+extern "C" int stream_split(long long* out, int reset) {
+  if (reset) { long long z[7] = {0, 0, 0, 0, 0, 0, 0}; return (int)cudaMemcpyToSymbol(g_split, z, sizeof z); }
+  return (int)cudaMemcpyFromSymbol(out, g_split, 7 * sizeof(long long));
+}
+"""
+
+
+def _stream_split(torch, root: pathlib.Path, dev, streams: dict) -> dict:
+    """SM cycles of the one-block stream decoder's phases (staging, thread
+    0's walk, the literals, warp 0's copies, the flush; summed over its
+    rounds), its rounds and tags, from ``root``'s ``decode_stream.cu`` with
+    stamps added; one launch on each (body, dst_len)."""
+    from csnappy_tpu_torch.ops import _build
+
+    src = (root / "csnappy_tpu_torch" / "csrc" / "decode_stream.cu").read_text()
+    for old, new in _STREAM_MARKS:
+        if src.count(old) != 1:
+            return {"not measured": "not the one-block stream decoder"}
+        src = src.replace(old, new)
+    out_dir = ROOT / "build" / "stream_split"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu, so = out_dir / "stream_split.cu", out_dir / "libstream_split.so"
+    cu.write_text(src + _STREAM_READ)
+    subprocess.run([_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(so), str(cu)], check=True,
+                   capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(so))
+    vp = ctypes.c_void_p
+    lib.decode_stream_launch.argtypes = [vp, ctypes.c_longlong, vp, ctypes.c_longlong,
+                                         ctypes.c_longlong, vp, vp]
+    lib.stream_split.argtypes = [vp, ctypes.c_int]
+    res = {}
+    for label, (body, dst) in streams.items():
+        bd = torch.frombuffer(bytearray(body), dtype=torch.uint8).to(dev)
+        out = torch.empty(dst, dtype=torch.uint8, device=dev)
+        meta = torch.empty(2, dtype=torch.int64, device=dev)
+        split = (ctypes.c_longlong * 7)()
+        assert lib.stream_split(split, 1) == 0
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        assert lib.decode_stream_launch(bd.data_ptr(), bd.numel(), out.data_ptr(), dst,
+                                        -(-dst // BS) * BS, meta.data_ptr(), stream) == 0
+        torch.cuda.synchronize()
+        assert lib.stream_split(split, 0) == 0 and meta.tolist() == [dst, 0], meta.tolist()
+        res[label] = dict(zip(("staging", "walk", "literals", "copies", "flush", "rounds", "tags"),
+                              list(split)))
     return res
 
 
