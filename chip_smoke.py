@@ -111,12 +111,18 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              ``-S c``/``-S d``, ``block -c``/``-d`` at 4 KiB; exit 0 and the
              right bytes;
 10. movebench — rows 12-13 (the flat gather, ``lane_gather`` of
-             ``csrc/primitives.cu`` with one row, and the max-scan of
-             ``csrc/movebench.cu``) against their plain versions at
-             n = 32768 and 2^24 with 0 differing elements, timed beside the
-             kernel's own device time (``device_ms``, from torch.profiler),
-             the library call (``tbl.view(-1)[idx]``, ``torch.cummax``) and
-             the bound (12n and 8n bytes over 3.35 TB/s); then
+             ``csrc/primitives.cu`` with one row, and the one-pass max-scan
+             of ``csrc/movebench.cu``): the ``ptxas -v`` lines of
+             ``lane_gather_kernel``, ``lane_gather_staged_kernel`` and
+             ``scan_kernel`` (no stack, no spill: asserted); both against
+             their plain versions at n = 32768 and 2^24 with 0 differing
+             elements, timed beside the kernel's own device time
+             (``device_ms``, from torch.profiler), the library call
+             (``tbl.view(-1)[idx]``, ``torch.cummax``) and the bound (12n and
+             8n bytes over 3.35 TB/s), the device operations of one call
+             asserted (one kernel; the scan one kernel and at most one
+             memset); at 2^24 the gather's kernel also on sorted indices and
+             on a 2^22-entry table (what its random reads cost); then
              ``movebench.main()`` with their launch counts set to 0, printing
              its five strategy lines;
 11. primitives — rows 6-11 (``csrc/primitives.cu``: ``lane_gather``,
@@ -132,7 +138,15 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              the bound (bytes over 3.35 TB/s) and the library call where one
              PyTorch call computes the function (``torch.gather``,
              ``Tensor.scatter_reduce``, ``torch.index_select``,
-             ``torch.take``, given in-range int64 indices);
+             ``torch.take``, given in-range int64 indices; the wrapper and
+             its library call timed in ``KL_ROUNDS`` interleaved rounds,
+             medians), the device operations of one call asserted (one
+             kernel) and the path
+             ``lane_gather`` takes; both ``lane_gather`` kernels alone at the
+             path rule's switch points (``LANE_GATHER_SWEEP``), equal to each
+             other, beside the rule's pick; the host split of one
+             ``table_gather`` and one ``scan_max`` call
+             (``tools/torch_profile.primitive_host_split``);
 12. probes — rows 14a-14i (``csrc/probe.cu``, ``csrc/probe3.cu``,
              ``csrc/probe4.cu``, ``tools/probe.py``): with every
              count of ``probe.launches`` set to 0, ``probe.measure`` of each
@@ -257,26 +271,13 @@ def _device_kernels(torch, fn) -> dict:
 
 def _device_ops(torch, fn) -> dict:
     """Every device operation (kernels, copies and fills) of one ``fn()``
-    call on the card, by name, with its count, from ``torch.profiler``: the
-    second of two calls, after a warm-up step of its schedule (the step's
-    own annotation left out)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    call on the card, by name, with its count a call, from
+    ``torch.profiler``: ``tools/timing.device_profile`` over three calls,
+    whose trace is taken again (up to ``timing.TRACE_TRIES`` times) until
+    every operation was seen a whole number of times a call."""
+    from csnappy_tpu_torch.tools.timing import device_profile
 
-    fn()
-    torch.cuda.synchronize()
-    ops = {}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: ops.update(
-                     {e.key: e.count for e in p.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and not e.key.startswith("ProfilerStep")})) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return ops
+    return device_profile(fn, 3)["calls"]
 
 
 def _stream_worst_cases(api, wire, urls: bytes) -> list:
@@ -1020,15 +1021,50 @@ def _or_not_measured(ms) -> str:
     return "not measured (no device time in the trace)" if ms is None else f"{ms:.4f} ms"
 
 
+def _one_kernel(name: str, calls: dict, scan: bool) -> str:
+    """Assert the device operations of one call (``device_profile``'s
+    ``calls``, a count a call): one kernel, once, no copy, and a memset only
+    for the scan (at most one); return them as text."""
+    kernels = {k: c for k, c in calls.items() if not k.startswith(("Memset", "Memcpy"))}
+    memsets = sum(c for k, c in calls.items() if k.startswith("Memset"))
+    assert len(kernels) == 1 and next(iter(kernels.values())) == 1, (name, calls)
+    assert not any(k.startswith("Memcpy") for k in calls), (name, calls)
+    assert memsets <= (1.0 if scan else 0.0), (name, calls)
+    return "; ".join(f"{k.replace('(anonymous namespace)::', '').split('(')[0]} x{c:g}"
+                     for k, c in calls.items())
+
+
+def _new_ptxas() -> dict:
+    """``ptxas -v`` of the one-launch gather and scan kernels (``lane_gather_kernel`` and
+    ``lane_gather_staged_kernel`` of ``csrc/primitives.cu``, ``scan_kernel``
+    of ``csrc/movebench.cu``), each asserted free of stack and spills."""
+    from csnappy_tpu_torch.ops import _build
+
+    _build.build(("primitives", "movebench"))                 # the logs of their builds
+    out = {}
+    for kernel, lib in (("lane_gather_kernel", "primitives"),
+                        ("lane_gather_staged_kernel", "primitives"), ("scan_kernel", "movebench")):
+        frame, used = _ptxas(kernel, lib)
+        assert frame.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"), \
+            (kernel, frame)
+        out[kernel] = f"{used}; {frame}"
+    return out
+
+
 def _movebench(torch, np, dev, card: str) -> list:
     """Phase 10: rows 12-13 (``lane_gather`` of ``csrc/primitives.cu`` and
     the scan of ``csrc/movebench.cu``) against their plain
     versions at n = 32768 and 2^24 with 0 differing elements, timed beside
-    the library call and the bound; then ``movebench.main()`` with launch
-    counts set to 0."""
+    the library call and the bound, each call's device operations asserted
+    (one kernel; the scan one kernel and at most one memset); at 2^24 the
+    gather also on sorted indices and on a 2^22-entry table (the floor its
+    random reads set); then ``movebench.main()`` with launch counts set to
+    0."""
     from csnappy_tpu_torch.tools import movebench as mb
     from csnappy_tpu_torch.tools.timing import device_profile, time_ms
 
+    for kernel, line in _new_ptxas().items():
+        print(f"[movebench] ptxas -v {kernel}: {line}", flush=True)
     rows = {}
     for n in (32768, 1 << 24):
         tbl, idx = mb.inputs(n, dev)
@@ -1054,12 +1090,15 @@ def _movebench(torch, np, dev, card: str) -> list:
                  time_ms(lambda: ftbl[fidx]), plain_g, 12 * n),
                 ("scan_max", lambda: mb.scan_max(x, dev),
                  time_ms(lambda: torch.cummax(fx, 0)), plain_s, 8 * n)):
-            ms, device_ms = time_ms(call), device_profile(call)["device_ms"] or None
+            ms, prof = time_ms(call), device_profile(call)
+            device_ms = prof["device_ms"] or None
+            ops = _one_kernel(name, prof["calls"], name == "scan_max")
             bound_ms, bound_by = _bound(nbytes)
             print(f"[movebench] {name} n={n}: {ms:.4f} ms, kernel alone "
                   f"{_or_not_measured(device_ms)}, library {lib_ms:.4f} ms, plain "
                   f"{plain:.2f} ms (host CPU), bound {bound_ms:.5f} ms by {bound_by} "
-                  f"({nbytes} B); 0 of {n} elements differ", flush=True)
+                  f"({nbytes} B); 0 of {n} elements differ; device ops of a call: {ops}",
+                  flush=True)
             if n == 32768:
                 rows[name] = {"name": name, "route": "cuda",
                               "source": "csnappy_tpu_torch/csrc/"
@@ -1071,10 +1110,28 @@ def _movebench(torch, np, dev, card: str) -> list:
                               "launches": 0, "max_abs_err": err[name], "ms": ms,
                               "device_ms": device_ms, "plain_ms": plain,
                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-                              "bytes": nbytes}
+                              "bytes": nbytes, "device_ops": prof["calls"]}
             else:
                 rows[name].update(ms_n16M=ms, device_ms_n16M=device_ms, library_ms_n16M=lib_ms,
                                   plain_ms_n16M=plain, bound_ms_n16M=bound_ms)
+        if n == 1 << 24:
+            # the same kernel where its table reads cost less: indices in order
+            # (each 32-byte sector read whole), and random indices into a
+            # 2^22-entry table that stays in L2 (each read still a sector)
+            floor = {}
+            for label, t2, i2 in (("sorted indices", tbl, torch.sort(fidx).values.view_as(idx)),
+                                  ("a 2^22-entry table", tbl.reshape(-1)[: 1 << 22].clone(),
+                                   torch.remainder(idx, 1 << 22))):
+                got = mb.gather_flat(t2, i2, 16, dev)
+                want = mb.gather_flat(t2.cpu(), i2.cpu(), 16, "cpu")
+                assert torch.equal(got.cpu(), want), label
+                floor[label] = device_profile(lambda: mb.gather_flat(t2, i2, 16, dev))["device_ms"]
+            rows["gather_flat"]["device_ms_n16M_floors"] = floor
+            print(f"[movebench] gather_flat n={n}, the kernel alone where its reads cost less: "
+                  + "; ".join(f"{k} {v:.4f} ms" for k, v in floor.items())
+                  + f" (random reads of a 2^24-entry table: {rows['gather_flat']['device_ms_n16M']:.4f}"
+                  f" ms; 2^24 random 4-byte reads touch 2^24 32-byte sectors, 536,870,912 B); "
+                  f"card {card}", flush=True)
     mb.gather_flat.launches = mb.scan_max.launches = 0
     assert mb.main([]) == 0                                   # device=None: the card
     for name, w in (("gather_flat", mb.gather_flat), ("scan_max", mb.scan_max)):
@@ -1088,7 +1145,11 @@ def _movebench(torch, np, dev, card: str) -> list:
 def _primitives(torch, np, dev, card: str) -> list:
     """Phase 11: rows 6-11 (``csrc/primitives.cu``) through the six wrappers
     of ``ops/primitives.py`` on the main path's batch with launch counts,
-    against their plain versions and the JAX fixture, then timed."""
+    against their plain versions and the JAX fixture, then timed, each
+    call's device operations asserted (one kernel) and ``lane_gather``'s
+    path printed; then the two ``lane_gather`` kernels beside each other at
+    the path rule's switch points, and the host split of one
+    ``table_gather`` and one ``scan_max`` call (``tools/torch_profile.py``)."""
     from csnappy_tpu_torch.ops import primitives as prim
     from csnappy_tpu_torch.tools.movebench import primitive_inputs
     from csnappy_tpu_torch.tools.timing import device_profile, time_ms
@@ -1118,17 +1179,26 @@ def _primitives(torch, np, dev, card: str) -> list:
         assert diff == 0 and err == 0, (fn, diff, err)
         nbytes = 4 * (sum(a.numel() for a in host[fn]) + sum(g.numel() for g in got[fn]))
         bound_ms, bound_by = _bound(nbytes)
-        ms = time_ms(lambda: wrapper(*on_card[fn]))
-        device_ms = device_profile(lambda: wrapper(*on_card[fn]))["device_ms"] or None
-        library, lib_ms = None, None
+        prof = device_profile(lambda: wrapper(*on_card[fn]))
+        device_ms = prof["device_ms"] or None
+        ops = _one_kernel(fn, prof["calls"], False)
+        path = ""
+        if entry == "lane_gather":
+            src, ix = on_card[fn]
+            groups = 1 if fn == "table_gather" else src.numel() // src.shape[-1]
+            mode = prim.lane_gather_mode(groups, src.numel() // groups, ix.numel() // groups,
+                                         src.data_ptr(), ix.data_ptr())
+            path = (f", path {'staged' if mode & prim.STAGED else 'direct'}"
+                    f"{', vector indices' if mode & prim.VEC_IDX else ''}"
+                    f"{', vector table' if mode & prim.VEC_TABLE else ''} (mode {mode})")
+        library, call = None, None
         if fn == "local_scatter_or":
             m, t = on_card[fn]
             idx = t.clamp(0, 127).long()                        # set-up, not timed
             src = torch.where((t >= 0) & (t < 128), m, 0)
             library = "mask.scatter_reduce(-1, idx, src, 'amax', include_self=True)"
-            lib_ms = time_ms(lambda: m.scatter_reduce(-1, idx, src, "amax", include_self=True))
-            same = m.scatter_reduce(-1, idx, src, "amax", include_self=True)
-            assert torch.equal(same, got[fn][0]), "the library call differs from the kernel"
+            call = lambda: m.scatter_reduce(-1, idx, src, "amax", include_self=True)
+            assert torch.equal(call(), got[fn][0]), "the library call differs from the kernel"
         if fn in ("local_gather", "row_gather", "table_gather", "rowwise_gather"):
             src, ix = on_card[fn]
             width = src.shape[-1] if fn in ("local_gather", "rowwise_gather") else src.shape[0]
@@ -1142,19 +1212,29 @@ def _primitives(torch, np, dev, card: str) -> list:
                 "rowwise_gather": ("torch.gather(tables, 1, idx)",
                                    lambda: torch.gather(src, 1, ix64)),
             }[fn]
-            lib_ms = time_ms(call)
+        # the wrapper and its library call in KL_ROUNDS interleaved rounds
+        rounds, lib_rounds = [], []
+        for _ in range(KL_ROUNDS):
+            rounds.append(time_ms(lambda: wrapper(*on_card[fn])))
+            if call is not None:
+                lib_rounds.append(time_ms(call))
+        ms = statistics.median(rounds)
+        lib_ms = statistics.median(lib_rounds) if lib_rounds else None
         shapes = [tuple(a.shape) for a in host[fn]]
-        print(f"[primitives] {fn} ({entry}) {shapes}: {ms:.4f} ms, kernel alone "
+        print(f"[primitives] {fn} ({entry}) {shapes}: {ms:.4f} ms (median of {KL_ROUNDS} "
+              f"rounds, {min(rounds):.4f}-{max(rounds):.4f}), kernel alone "
               f"{_or_not_measured(device_ms)}, plain {plain_ms:.2f} ms (host "
               f"CPU), bound {bound_ms:.5f} ms by {bound_by} ({nbytes} B), library "
-              + (f"{library} {lib_ms:.4f} ms (in-range int64 indices)" if library else "none")
-              + f"; 0 of {sum(g.numel() for g in got[fn])} elements differ", flush=True)
+              + (f"{library} {lib_ms:.4f} ms ({min(lib_rounds):.4f}-{max(lib_rounds):.4f}; "
+                 f"in-range int64 indices)" if library else "none")
+              + f"; 0 of {sum(g.numel() for g in got[fn])} elements differ; device ops of a "
+              f"call: {ops}{path}", flush=True)
         rows.append({"name": fn, "route": "cuda", "source": "csnappy_tpu_torch/csrc/primitives.cu",
                      "replaces": replaces, "entry": entry, "launches": launches[fn],
                      "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms, "library": library,
-                     "bytes": nbytes})
+                     "bytes": nbytes, "device_ops": prof["calls"]})
 
     z = np.load(DATA / "torch_ref" / "primitives.npz")
     for case, fn, limbs in zip(z["cases"], z["fns"], z["limbs"]):
@@ -1166,7 +1246,58 @@ def _primitives(torch, np, dev, card: str) -> list:
             assert np.array_equal(o.cpu().numpy(), z[f"{case}__out{k}"]), (case, k)
     print(f"[primitives] {len(z['cases'])} fixture cases equal to the JAX Pallas kernels on the "
           f"card (values outside the limbs' contract included); card {card}", flush=True)
+    _lane_gather_sweep(torch, np, prim, dev, card)
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_profile",
+                                                  ROOT / "tools" / "torch_profile.py")
+    tp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tp)
+    for name, split in tp.primitive_host_split(torch, dev).items():
+        print(f"[primitives] host split of one {name} call (32768 entries; us, "
+              f"time.perf_counter_ns, 2000 runs a step): "
+              + "; ".join(f"{k} {v:.2f}" for k, v in split.items()) + f"; card {card}",
+              flush=True)
     return rows
+
+
+# (G, W, N) where lane_gather's path rule switches (ops/primitives.lane_gather_mode)
+LANE_GATHER_SWEEP = ((1, 32768, 32768), (1, 32768, 131072), (1, 32768, 262144), (1, 32768, 524288),
+                     (1, 32768, 1 << 21), (2, 32768, 32768), (4, 32768, 32768),
+                     (8, 32768, 32768), (16, 32768, 32768), (64, 32768, 32768),
+                     (64, 64, 32768), (64, 127, 32768), (64, 128, 32768), (64, 512, 32768),
+                     (64, 4096, 32768), (1, 1024, 1 << 21), (1, 58112, 1 << 21),
+                     (1000, 512, 4092), (1000, 512, 4096), (4096, 128, 512), (16384, 128, 128),
+                     (8, 58112, 58112), (64, 58112, 32768))
+
+
+def _lane_gather_sweep(torch, np, prim, dev, card: str) -> None:
+    """Each ``lane_gather`` kernel alone (``device_ms``) at the shapes of
+    ``LANE_GATHER_SWEEP``, with aligned operands, both paths forced, equal
+    to each other, beside the path the rule takes."""
+    from csnappy_tpu_torch.tools.timing import device_profile
+
+    rng = np.random.default_rng(15)
+    picked = []
+    for G, W, N in LANE_GATHER_SWEEP:
+        t = torch.from_numpy(rng.integers(0, 1 << 24, G * W, dtype=np.int32)).to(dev)
+        i = torch.from_numpy(rng.integers(-3, W + 3, G * N, dtype=np.int32)).to(dev)
+        vec = prim.VEC_IDX | (prim.VEC_TABLE if W % 4 == 0 else 0)
+        direct, staged = prim.VEC_IDX, prim.STAGED | vec
+        a = prim.launch_lane_gather(t, W, i, G, 0xFFFFFFFF, dev, mode=direct)
+        b = prim.launch_lane_gather(t, W, i, G, 0xFFFFFFFF, dev, mode=staged)
+        assert torch.equal(a, b), (G, W, N)
+        ms = [device_profile(lambda m=m: prim.launch_lane_gather(t, W, i, G, 0xFFFFFFFF, dev,
+                                                                   mode=m))["device_ms"]
+              for m in (direct, staged)]
+        rule = prim.lane_gather_mode(G, W, N, t.data_ptr(), i.data_ptr())
+        faster = "staged" if ms[1] < ms[0] else "direct"
+        took = "staged" if rule & prim.STAGED else "direct"
+        picked.append(faster == took)
+        print(f"[primitives] lane_gather G={G} W={W} N={N}: kernel alone direct {ms[0]:.5f} ms, "
+              f"staged {ms[1]:.5f} ms; faster {faster}, the rule takes {took}", flush=True)
+    print(f"[primitives] lane_gather path rule: the faster kernel at {sum(picked)} of "
+          f"{len(picked)} sweep shapes; card {card}", flush=True)
 
 
 def _probes(torch, np, dev, card: str) -> tuple[list, dict]:

@@ -44,6 +44,9 @@ SOURCES = {
 }
 CUDA_NAMES = ("decode_blocks", "encode_blocks", "scan_segments", "decode_stream", "movebench",
               "primitives", "probe", "probe3", "kernel_lib", "probe4")
+# libraries whose every entry returns at once (a launch, no wait): loaded as
+# ctypes.PyDLL, whose calls keep the GIL rather than release and retake it
+GIL_KEPT = ("primitives", "movebench")
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
@@ -119,8 +122,9 @@ def build(names=tuple(SOURCES)) -> dict[str, pathlib.Path]:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The library built from ``SOURCES[name]``, built first if missing."""
-    return ctypes.CDLL(str(build((name,))[name]))
+    """The library built from ``SOURCES[name]``, built first if missing
+    (``GIL_KEPT`` ones as ``ctypes.PyDLL``)."""
+    return (ctypes.PyDLL if name in GIL_KEPT else ctypes.CDLL)(str(build((name,))[name]))
 
 
 @functools.cache

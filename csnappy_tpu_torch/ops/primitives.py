@@ -17,11 +17,17 @@ values included.  Inside the JAX contract (``0 <= v < 2^(8 * limbs)``) the
 two JAX paths agree.  The three local ops are exact over all of int32;
 ``compose_round`` wraps ``S + S[li]`` at 32 bits, as XLA does.
 
-Each wrapper takes int32 tensors or arrays and a ``device`` (None = the card):
+Each wrapper takes int32 tensors or arrays and a ``device`` (None = the card
+its first CUDA operand lies on, else the current card):
 on the card it launches its kernel from ``csrc/primitives.cu`` on torch's
 current stream and counts the launch on ``<wrapper>.launches``; on the CPU it
 runs the plain version (``<name>_plain``); a CUDA tensor with
-``device="cpu"`` raises.  An empty batch or index returns an empty result
+``device="cpu"`` raises.  The launch reads the raw current stream and enters
+no device context unless the operands lie on another card than the current
+one.  ``lane_gather`` (the three table gathers and movebench's flat gather)
+takes one of two kernels and a vector or scalar branch by one rule,
+:func:`lane_gather_mode`, a pure function of (G, W, N) and the operands'
+addresses.  An empty batch or index returns an empty result
 without a launch.  The JAX module's shape policies are not semantics and are
 not copied: any row count (no ``RC = 8`` tiling), any ``M`` for
 ``row_gather`` (no ``M % 8 == 0``) and any table length for
@@ -80,12 +86,42 @@ def as_int32(x, dev: torch.device, what: str) -> torch.Tensor:
     return t.to(dev).contiguous()
 
 
+def card_device(device, *xs) -> torch.device:
+    """The call's device, with its index: ``device``; for None, the card the
+    first CUDA operand among ``xs`` lies on, else the current card (raising
+    without one), as :func:`resolve_device` does.  A CUDA operand with
+    ``device="cpu"`` raises (:func:`refuse_card_tensors`)."""
+    if device is None:
+        for x in xs:
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                return x.device
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        refuse_card_tensors(dev, *xs)
+        return dev
+    return dev if dev.index is not None else torch.device("cuda", torch.cuda.current_device())
+
+
+def launch_on(dev: torch.device, launch, check, *args) -> None:
+    """``launch(*args, stream)`` on torch's current stream of card ``dev``,
+    then ``check`` its return code.  The current card's launch enters no
+    device context; operands on another card are launched there."""
+    if dev.index == torch._C._cuda_getDevice():   # the current card (CUDA is initialised)
+        rc = launch(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:                                           # operands on another card: launch there
+        with torch.cuda.device(dev):
+            rc = launch(*args, _stream(dev.index))
+    check(rc)
+
+
 def _lanes(what: str, *xs: torch.Tensor) -> None:
     """The local ops' operands: one shape, last axis 128."""
-    if xs[0].ndim < 1 or xs[0].shape[-1] != L:
-        raise ValueError(f"{what}: last axis must be {L}, got shape {tuple(xs[0].shape)}")
-    if any(x.shape != xs[0].shape for x in xs[1:]):
-        raise ValueError(f"{what}: operands differ in shape: {[tuple(x.shape) for x in xs]}")
+    shape = xs[0].shape
+    if not shape or shape[-1] != L:
+        raise ValueError(f"{what}: last axis must be {L}, got shape {tuple(shape)}")
+    for x in xs[1:]:
+        if x.shape != shape:
+            raise ValueError(f"{what}: operands differ in shape: {[tuple(x.shape) for x in xs]}")
 
 
 def _stream(index: int | None) -> int:
@@ -141,17 +177,53 @@ def rowwise_gather_plain(tables: torch.Tensor, idx: torch.Tensor, limbs: int = 3
 # ------------------------------------------------------------------ wrappers
 
 
+# lane_gather's paths (the ``mode`` bits of primitives_lane_gather_launch)
+STAGED, VEC_IDX, VEC_TABLE = 1, 2, 4
+SMEM_MAX = 232448                 # shared memory a block can have (H100)
+STAGE_MAX = SMEM_MAX // 4         # the widest table row the staged kernel holds
+STAGE_MIN = 128                   # narrower rows are read through L1 (direct)
+STAGE_STEP = 4096                 # outputs of one vector step of a staged block (1,024 x 4)
+STAGE_USES = 8                    # lookups a staged table entry must serve, on average
+
+
+def lane_gather_mode(groups: int, width: int, per_row: int, tbl_addr: int, idx_addr: int) -> int:
+    """The path of a ``lane_gather`` launch, as ``mode`` bits.
+
+    ``STAGED``: each row's table in shared memory, where a row is between
+    ``STAGE_MIN`` and ``STAGE_MAX`` entries wide, has at least one staged
+    block's vector step of indices (``STAGE_STEP``), and the call makes
+    ``STAGE_USES`` lookups for every entry of one row (G * N >= 8 W), so
+    that a grid of blocks that each stage a whole row pays off.  Otherwise
+    the direct kernel, which reads the table through L1: very narrow rows,
+    rows of few indices (``local_gather``'s 128), calls of few lookups, and
+    tables too wide to stage (movebench's flat gather at 2^24).  The switch
+    points come from the H100 sweep of ``chip_smoke.py`` phase 11.
+
+    ``VEC_IDX``: 16-byte index and output vectors, for 16-byte aligned
+    indices and rows of a multiple of 4; else the kernel's scalar branch.
+    ``VEC_TABLE``: the staged rows copied as 16-byte vectors, for a 16-byte
+    aligned table and rows of a multiple of 4."""
+    mode = VEC_IDX if idx_addr % 16 == 0 and per_row % 4 == 0 else 0
+    if (STAGE_MIN <= width <= STAGE_MAX and per_row >= STAGE_STEP
+            and groups * per_row >= STAGE_USES * width):
+        mode |= STAGED | (VEC_TABLE if tbl_addr % 16 == 0 and width % 4 == 0 else 0)
+    return mode
+
+
 def launch_lane_gather(tbl: torch.Tensor, width: int, idx: torch.Tensor, groups: int,
-                       mask: int, dev: torch.device) -> torch.Tensor:
+                       mask: int, dev: torch.device, mode: int | None = None) -> torch.Tensor:
     """Launch ``lane_gather`` on card tensors: ``groups`` rows of
     ``idx.numel() / groups`` outputs, each row reading its own ``width``-wide
-    slice of ``tbl``, masked with ``mask``.  Counts no launch: the caller's
-    wrapper does."""
+    slice of ``tbl``, masked with ``mask``, by :func:`lane_gather_mode`'s
+    path (``mode`` forces one, to compare them).  Counts no launch: the
+    caller's wrapper does."""
     out = torch.empty_like(idx)
+    per_row = idx.numel() // groups
+    t, i = tbl.data_ptr(), idx.data_ptr()
+    if mode is None:
+        mode = lane_gather_mode(groups, width, per_row, t, i)
     launch, check = _kernels()["lane_gather"]
-    with torch.cuda.device(dev):
-        check(launch(tbl.data_ptr(), width, idx.data_ptr(), out.data_ptr(), groups,
-                     idx.numel() // groups, mask, _stream(dev.index)))
+    launch_on(dev, launch, check, t, width, i, out.data_ptr(), groups, per_row, mask, mode)
     return out
 
 
@@ -161,8 +233,7 @@ def local_gather(values, idx, device=None) -> torch.Tensor:
     values, idx: int32 [..., C, 128] of one shape.  Row 6 of the kernel table
     (``csnappy_tpu/ops/primitives.py:94``); on the card ``lane_gather`` with
     W = N = 128."""
-    dev = resolve_device(device)
-    refuse_card_tensors(dev, values, idx)
+    dev = card_device(device, values, idx)
     values, idx = as_int32(values, dev, "values"), as_int32(idx, dev, "idx")
     _lanes("local_gather", values, idx)
     if dev.type == "cpu":
@@ -183,8 +254,7 @@ def local_scatter_or(mask, tgt, device=None) -> torch.Tensor:
     mask, tgt: int32 [..., C, 128] of one shape; a target outside [0, 128)
     scatters nowhere.  Row 7 (``csnappy_tpu/ops/primitives.py:132``); on the
     card ``scatter_or``."""
-    dev = resolve_device(device)
-    refuse_card_tensors(dev, mask, tgt)
+    dev = card_device(device, mask, tgt)
     mask, tgt = as_int32(mask, dev, "mask"), as_int32(tgt, dev, "tgt")
     _lanes("local_scatter_or", mask, tgt)
     if dev.type == "cpu":
@@ -193,9 +263,8 @@ def local_scatter_or(mask, tgt, device=None) -> torch.Tensor:
     if mask.numel() == 0:
         return out
     launch, check = _kernels()["scatter_or"]
-    with torch.cuda.device(dev):
-        check(launch(mask.data_ptr(), tgt.data_ptr(), out.data_ptr(), mask.numel() // L,
-                     _stream(dev.index)))
+    launch_on(dev, launch, check, mask.data_ptr(), tgt.data_ptr(), out.data_ptr(),
+              mask.numel() // L)
     local_scatter_or.launches += 1
     return out
 
@@ -211,8 +280,7 @@ def compose_round(F, S, E, chunk_end, device=None):
     E' = E | E[li]; elsewhere unchanged.  Every lane reads the values before
     the round.  F, S, E, chunk_end: int32 [..., CI, 128] of one shape.  Row 8
     (``csnappy_tpu/ops/primitives.py:187``); on the card ``compose_round``."""
-    dev = resolve_device(device)
-    refuse_card_tensors(dev, F, S, E, chunk_end)
+    dev = card_device(device, F, S, E, chunk_end)
     F, S, E, ce = (as_int32(x, dev, w) for x, w in ((F, "F"), (S, "S"), (E, "E"),
                                                  (chunk_end, "chunk_end")))
     _lanes("compose_round", F, S, E, ce)
@@ -222,9 +290,8 @@ def compose_round(F, S, E, chunk_end, device=None):
     if F.numel() == 0:
         return outs
     launch, check = _kernels()["compose_round"]
-    with torch.cuda.device(dev):
-        check(launch(F.data_ptr(), S.data_ptr(), E.data_ptr(), ce.data_ptr(),
-                     *(o.data_ptr() for o in outs), F.numel() // L, _stream(dev.index)))
+    launch_on(dev, launch, check, F.data_ptr(), S.data_ptr(), E.data_ptr(), ce.data_ptr(),
+              *(o.data_ptr() for o in outs), F.numel() // L)
     compose_round.launches += 1
     return outs
 
@@ -238,8 +305,7 @@ def row_gather(table2d, rows, limbs: int = 3, device=None) -> torch.Tensor:
     table2d: int32 [CI, 128], CI > 0; rows: int32 [M], any M.  Row 9
     (``csnappy_tpu/ops/primitives.py:231``); on the card ``row_gather``."""
     mask = limb_mask(limbs)
-    dev = resolve_device(device)
-    refuse_card_tensors(dev, table2d, rows)
+    dev = card_device(device, table2d, rows)
     table2d, rows = as_int32(table2d, dev, "table2d"), as_int32(rows, dev, "rows")
     if table2d.ndim != 2 or table2d.shape[1] != L or table2d.shape[0] == 0:
         raise ValueError(f"row_gather: table must be [CI > 0, {L}], got {tuple(table2d.shape)}")
@@ -251,9 +317,8 @@ def row_gather(table2d, rows, limbs: int = 3, device=None) -> torch.Tensor:
     if rows.numel() == 0:
         return out
     launch, check = _kernels()["row_gather"]
-    with torch.cuda.device(dev):
-        check(launch(table2d.data_ptr(), table2d.shape[0], rows.data_ptr(), out.data_ptr(),
-                     rows.numel(), mask, _stream(dev.index)))
+    launch_on(dev, launch, check, table2d.data_ptr(), table2d.shape[0], rows.data_ptr(),
+              out.data_ptr(), rows.numel(), mask)
     row_gather.launches += 1
     return out
 
@@ -268,8 +333,7 @@ def table_gather(table, idx, limbs: int = 2, device=None) -> torch.Tensor:
     (``csnappy_tpu/ops/primitives.py:283``); on the card ``lane_gather`` with
     one row."""
     mask = limb_mask(limbs)
-    dev = resolve_device(device)
-    refuse_card_tensors(dev, table, idx)
+    dev = card_device(device, table, idx)
     table, idx = as_int32(table, dev, "table"), as_int32(idx, dev, "idx")
     if table.ndim != 1 or table.numel() == 0:
         raise ValueError(f"table_gather: table must be [T > 0], got {tuple(table.shape)}")
@@ -293,8 +357,7 @@ def rowwise_gather(tables, idx, limbs: int = 3, device=None) -> torch.Tensor:
     tables: int32 [G, W], W > 0; idx: int32 [G, N].  Row 11
     (``csnappy_tpu/ops/primitives.py:328``); on the card ``lane_gather``."""
     mask = limb_mask(limbs)
-    dev = resolve_device(device)
-    refuse_card_tensors(dev, tables, idx)
+    dev = card_device(device, tables, idx)
     tables, idx = as_int32(tables, dev, "tables"), as_int32(idx, dev, "idx")
     if tables.ndim != 2 or tables.shape[1] == 0:
         raise ValueError(f"rowwise_gather: tables must be [G, W > 0], got {tuple(tables.shape)}")
@@ -342,7 +405,7 @@ def _kernels() -> dict:
     """The four launch functions of ``csrc/primitives.cu``, each as (launch, check)."""
     vp, ll, u = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint
     argtypes = {
-        "lane_gather": [vp, ll, vp, vp, ll, ll, u, vp],
+        "lane_gather": [vp, ll, vp, vp, ll, ll, u, ctypes.c_int, vp],
         "row_gather": [vp, ll, vp, vp, ll, u, vp],
         "scatter_or": [vp, vp, vp, ll, vp],
         "compose_round": [vp, vp, vp, vp, vp, vp, vp, ll, vp],

@@ -10,13 +10,14 @@ TPU strategy it stands in for:
                   call (``xla_gather``, the jnp gather XLA:TPU serializes)
   gather_kernel — :func:`gather_flat`, ``lane_gather`` of
                   ``csrc/primitives.cu`` with one row: clip, load and mask,
-                  one thread an element (``onehot_mxu``, the one-hot limb
+                  four elements a lane (``onehot_mxu``, the one-hot limb
                   matmul gather ``kernel_lib.gather_rows_multi``,
                   movebench.py:62)
   sort          — ``torch.sort`` keys/s (``sort``, the encoder's match index)
   dense         — elementwise ops/s, the ceiling (``dense_vpu``)
   scan_kernel   — :func:`scan_max`, ``csrc/movebench.cu``: inclusive
-                  max-scan (``scan_mxu``, the permutation-matmul scan
+                  max-scan in one pass, tiles chained by a decoupled
+                  look-back (``scan_mxu``, the permutation-matmul scan
                   ``kernel_lib.scan2d_mm``, movebench.py:92)
 
 Run:  python -m csnappy_tpu_torch.tools.movebench [N] [--device cpu]
@@ -25,9 +26,12 @@ makes the six ``ops/primitives.py`` functions' seeded arguments at the main
 path's batch, for ``chip_smoke.py`` and ``tools/torch_profile.py``.
 
 The two kernels' wrappers take an int32 tensor: on a CUDA tensor they launch
-the kernel and count the launch on ``<wrapper>.launches``; on a CPU tensor
-they run the plain version (:func:`gather_flat_plain`,
-:func:`scan_max_plain`); a CUDA tensor with ``device="cpu"`` raises.
+the kernel on the raw current stream (no device context for operands on the
+current card) and count the launch on ``<wrapper>.launches``; on a CPU
+tensor they run the plain version (:func:`gather_flat_plain`,
+:func:`scan_max_plain`); a CUDA tensor with ``device="cpu"`` raises.  A
+``scan_max`` call is one allocation (the output with the kernel's workspace
+behind it), one memset of the workspace and one kernel.
 """
 from __future__ import annotations
 
@@ -40,9 +44,9 @@ import sys
 import numpy as np
 import torch
 
-from ..config import refuse_card_tensors, resolve_device
+from ..config import resolve_device
 from ..ops import _build
-from ..ops.primitives import L, as_int32, launch_lane_gather, limb_mask
+from ..ops.primitives import L, as_int32, card_device, launch_lane_gather, launch_on, limb_mask
 
 
 def _mask(bits: int) -> int:
@@ -66,8 +70,7 @@ def gather_flat(tbl, idx, bits: int = 16, device=None) -> torch.Tensor:
     Row 12 of the kernel table (``csnappy_tpu/tools/movebench.py:62``); on
     the card ``lane_gather`` of ``csrc/primitives.cu`` with one row, the
     kernel of ``primitives.table_gather``."""
-    dev = resolve_device(device)
-    refuse_card_tensors(dev, tbl, idx)
+    dev = card_device(device, tbl, idx)
     tbl, idx = as_int32(tbl, dev, "tbl"), as_int32(idx, dev, "idx")
     if tbl.numel() == 0:
         raise ValueError("empty table")
@@ -95,23 +98,32 @@ def scan_max_plain(x: torch.Tensor) -> torch.Tensor:
     return s.reshape(x.shape)
 
 
+SCAN_TILE = 8192                  # elements a tile of the scan kernel (movebench_scan_tile)
+
+
+def scan_words(n: int) -> int:
+    """int32 elements of a scan call's buffer: the output padded to 16
+    bytes, then the workspace (the ticket and one 64-bit word a tile)."""
+    return ((n + 3) & ~3) + 2 * (1 + -(-n // SCAN_TILE))
+
+
 def scan_max(x, device=None) -> torch.Tensor:
     """Inclusive max-scan of int32 ``x`` in row-major flat order, shaped like ``x``.
 
-    Row 13 of the kernel table (``csnappy_tpu/tools/movebench.py:92``)."""
-    dev = resolve_device(device)
-    refuse_card_tensors(dev, x)
+    Row 13 of the kernel table (``csnappy_tpu/tools/movebench.py:92``).  An
+    empty ``x`` returns an empty result without a launch."""
+    dev = card_device(device, x)
     x = as_int32(x, dev, "x")
     if dev.type == "cpu":
         return scan_max_plain(x)
-    out = torch.empty_like(x)
-    launch, check, scratch_len = _scan_kernel()
-    scratch = torch.empty((max(int(scratch_len(x.numel())), 1),), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        check(launch(x.data_ptr(), out.data_ptr(), x.numel(), scratch.data_ptr(), stream))
+    n = x.numel()
+    if n == 0:
+        return torch.empty_like(x)
+    buf = x.new_empty((scan_words(n),))
+    launch, check = _scan_kernel()
+    launch_on(dev, launch, check, x.data_ptr(), buf.data_ptr(), n)
     scan_max.launches += 1
-    return out
+    return buf.as_strided(x.shape, x.stride())
 
 
 scan_max.launches = 0
@@ -121,11 +133,13 @@ scan_max.launches = 0
 def _scan_kernel():
     launch, check = _build.kernel("movebench", "scan")
     vp = ctypes.c_void_p
-    launch.argtypes = [vp, vp, ctypes.c_longlong, vp, vp]
-    scratch_len = _build.load("movebench").movebench_scan_scratch
-    scratch_len.restype = ctypes.c_longlong
-    scratch_len.argtypes = [ctypes.c_longlong]
-    return launch, check, scratch_len
+    launch.argtypes = [vp, vp, ctypes.c_longlong, vp]
+    lib = _build.load("movebench")
+    lib.movebench_scan_tile.restype = lib.movebench_scan_words.restype = ctypes.c_longlong
+    lib.movebench_scan_tile.argtypes, lib.movebench_scan_words.argtypes = [], [ctypes.c_longlong]
+    if lib.movebench_scan_tile() != SCAN_TILE or lib.movebench_scan_words(5000) != scan_words(5000):
+        raise RuntimeError("movebench.cu's tile differs from SCAN_TILE")
+    return launch, check
 
 
 def inputs(n: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:

@@ -8,7 +8,9 @@ card two honest clocks exist, and both are used here:
   ``warm`` warm-up calls (a host clock around each call on the CPU);
 * :func:`device_profile` — the device time of each kernel a call runs, from
   ``torch.profiler``, beside the call's CUDA-event time (their gap is the
-  card idle while the host prepares and launches);
+  card idle while the host prepares and launches); a trace that lost
+  records is taken again (:func:`fullest_trace`, measured by
+  ``tools/profiler_loss.py``);
 * :func:`slope_time` / :func:`slope_time_keyed` — the JAX contract, seconds
   per step from the slope between K = ``k_lo`` and K = ``k_hi`` steps, each
   loop timed on a host clock that starts after and ends with a
@@ -62,14 +64,92 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
-def device_profile(fn, reps: int = 10) -> dict:
-    """Device time per call of each kernel (and copy or fill) ``fn`` runs on
-    the card, their sum (``device_ms``) and the call's CUDA-event time
-    (``event_ms``), after three warm-up calls.  ``kernels`` is empty where
-    the trace holds no device time: then the device time is not measured."""
+# traces one device_profile takes at most, a pause before each retake, the
+# host time a trace is held open before its first call and after its last,
+# and the sentinel kernels (``torch.cuda._sleep``) that open and close it
+TRACE_TRIES = 8
+TRACE_PAUSE_S = 0.05
+TRACE_PAD_S = 0.02
+TRACE_LEAD = 8
+SENTINEL = "spin_kernel"
+SENTINEL_CYCLES = 2000
+
+
+def device_trace(fn, reps: int) -> dict:
+    """One ``torch.profiler`` session over ``reps`` calls of ``fn``: each
+    device operation's device time (us) and count.  The session opens with
+    ``TRACE_LEAD`` sentinel kernels and closes with one, and is held open
+    ``TRACE_PAD_S`` on the host before the first call and after the last.  The
+    card's profiler can lose the first records of a session (in some long
+    processes in every session), so a trace counts only where a sentinel's
+    record comes before the calls' first device record and another after
+    their last; else it is empty, as is one that lost every record."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(TRACE_LEAD):
+            torch.cuda._sleep(SENTINEL_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SENTINEL_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    order = [SENTINEL in name for _, name in sorted(
+        (e.time_range.start, e.name) for e in p.events() if e.device_type == DeviceType.CUDA)]
+    if not bracketed(order):
+        return {}
+    trace = {}
+    for evt in p.key_averages():
+        us = _self_device_us(evt)
+        if evt.device_type == DeviceType.CUDA and us > 0 and SENTINEL not in evt.key:
+            trace[evt.key] = (us, evt.count)
+    return trace
+
+
+def bracketed(order: list) -> bool:
+    """Whether a trace's device records, in the order they started (True
+    for a sentinel's), hold a sentinel before the first of the others and
+    one after the last (or, with no other record, a sentinel at all)."""
+    own = [i for i, sentinel in enumerate(order) if not sentinel]
+    if not own:
+        return any(order)
+    return any(order[: own[0]]) and any(order[own[-1] + 1:])
+
+
+def fullest_trace(take, reps: int, sleep=time.sleep) -> dict:
+    """Call ``take()`` (a trace of ``reps`` calls: {operation: (device us,
+    count)}) until some operation was seen and every one a whole number of
+    times a call, at most ``TRACE_TRIES`` times, pausing ``TRACE_PAUSE_S``,
+    then twice as long, before each retake; return the trace with the most
+    records."""
+    best = {}
+    for attempt in range(TRACE_TRIES):
+        if attempt:
+            sleep(TRACE_PAUSE_S * 2 ** (attempt - 1))
+        trace = take()
+        if sum(c for _, c in trace.values()) > sum(c for _, c in best.values()):
+            best = trace
+        if best and all(c % reps == 0 for _, c in best.values()):
+            break                       # every operation seen a whole number of times a call
+    return best
+
+
+def device_profile(fn, reps: int = 10) -> dict:
+    """Device time per call of each kernel (and copy or fill) ``fn`` runs on
+    the card, their sum (``device_ms``), how many times a call runs each
+    (``calls``) and the call's CUDA-event time (``event_ms``), after three
+    warm-up calls.  A trace is one profiler session over ``reps`` calls.
+    The card's profiler now and then returns a trace with no device record,
+    in bursts of about a second (a scheduled session, warm-up step first,
+    also loses some records of a trace), so a trace in which some operation
+    was not seen a whole number of times a call is taken again after a
+    pause that doubles, up to ``TRACE_TRIES`` traces, and the fullest is
+    kept.  ``kernels`` is empty where no trace held device time: then the
+    device time is not measured."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -79,18 +159,12 @@ def device_profile(fn, reps: int = 10) -> dict:
         fn()
     b.record()
     b.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = {}
-    for evt in p.key_averages():
-        us = _self_device_us(evt)
-        if evt.device_type == DeviceType.CUDA and us > 0:
-            rows[evt.key] = us / reps / 1e3
+    best = fullest_trace(lambda: device_trace(fn, reps), reps)
+    rows = {k: us / reps / 1e3 for k, (us, _) in best.items()}
+    calls = {k: c / reps for k, (_, c) in best.items()}
     rows = dict(sorted(rows.items(), key=lambda kv: -kv[1]))
     return {"event_ms": a.elapsed_time(b) / reps, "device_ms": sum(rows.values()),
-            "kernels": rows}
+            "kernels": rows, "calls": calls}
 
 
 def _slope(run, k_lo: int, k_hi: int, reps: int, dev: torch.device) -> float:

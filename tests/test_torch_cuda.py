@@ -471,10 +471,8 @@ def test_decode_ws_on_card_runs_two_kernels_and_equals_jax(card):
     # as the JAX pipeline answered on every fixture stream
     import hashlib
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from csnappy_tpu_torch.ops import decode_ws
+    from csnappy_tpu_torch.tools.timing import device_profile
 
     with np.load(DATA / "torch_ref" / "streams.npz") as z:
         for i in range(len(z["names"])):
@@ -486,18 +484,19 @@ def test_decode_ws_on_card_runs_two_kernels_and_equals_jax(card):
     golden = (DATA / "urls.10K.snappy").read_bytes()
     ulen, hdr = wire.varint_decode(golden)
     bdev = _u8(golden[hdr:]).to(card)
-    decode_ws.decompress_noheader_ws(bdev, ulen, device=card)
-    torch.cuda.synchronize()
-    before = (decode_ws.scan_segments.launches, decode_fused.decode_segments.launches)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    calls = [0]
+
+    def call():
+        calls[0] += 1
         decode_ws.decompress_noheader_ws(bdev, ulen, device=card)
-        torch.cuda.synchronize()
-    kernels = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.key.startswith(("Memcpy", "Memset"))}
+
+    before = (decode_ws.scan_segments.launches, decode_fused.decode_segments.launches)
+    ops = device_profile(call, reps=3)["calls"]
+    kernels = {k: c for k, c in ops.items() if not k.startswith(("Memcpy", "Memset"))}
     assert sorted(kernels.values()) == [1, 1], kernels
     assert any("scan_kernel" in k for k in kernels) and any("decode_kernel" in k for k in kernels)
     assert (decode_ws.scan_segments.launches, decode_fused.decode_segments.launches) == \
-        (before[0] + 1, before[1] + 1)
+        (before[0] + calls[0], before[1] + calls[0])
 
 
 def test_failed_scan_launch_raises_and_takes_no_host_scan(card, urls10k_snappy, monkeypatch):
@@ -610,37 +609,29 @@ def test_stream_kernel_literal_envelope(card):
 def test_stream_call_runs_two_kernels_and_one_memset(card, urls10k_snappy):
     # one decode_stream call on card tensors: chain_kernel and
     # segment_kernel once each, one memset of the workspace, no torch-op
-    # kernel and no copy (the profiler records the second of two calls: a
-    # warm-up step first, as its schedule allows)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
+    # kernel and no copy (tools/timing.device_profile, its trace taken again
+    # until every operation was seen a whole number of times a call)
     from csnappy_tpu_torch.ops import decode_stream
+    from csnappy_tpu_torch.tools.timing import device_profile
 
     unaligned = (DATA / "unaligned_uint64_test.snappy").read_bytes()
     for stream in (urls10k_snappy, unaligned):
         ulen, hdr = wire.varint_decode(stream)
         bdev = _u8(stream[hdr:]).to(card)
-        decode_stream.decode_stream(bdev, ulen, device=card)
-        torch.cuda.synchronize()
+        calls = [0]
+
+        def call():
+            calls[0] += 1
+            decode_stream.decode_stream(bdev, ulen, device=card)
+
         before = decode_stream.decode_stream.launches
-        ops = {}
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: ops.update(
-                         {e.key: e.count for e in p.key_averages()
-                          if e.device_type == DeviceType.CUDA
-                          and not e.key.startswith("ProfilerStep")})) as prof:
-            for _ in range(2):
-                decode_stream.decode_stream(bdev, ulen, device=card)
-                torch.cuda.synchronize()
-                prof.step()
+        ops = device_profile(call, reps=3)["calls"]
         kernels = {k: v for k, v in ops.items() if not k.startswith(("Memcpy", "Memset"))}
         memsets = sum(v for k, v in ops.items() if k.startswith("Memset"))
         assert sorted(kernels.values()) == [1, 1], ops
         assert any("chain_kernel" in k for k in kernels) and any("segment_kernel" in k for k in kernels)
         assert memsets <= 1 and not any(k.startswith("Memcpy") for k in ops), ops
-        assert decode_stream.decode_stream.launches == before + 2
+        assert decode_stream.decode_stream.launches == before + calls[0]
 
 
 def test_failed_stream_launch_raises_and_takes_no_plain_version(card, monkeypatch):
@@ -756,16 +747,26 @@ def test_gather_kernel_equals_plain(card, n):
         assert torch.equal(got.cpu(), mb.gather_flat(tbl, idx, bits, device="cpu")), bits
 
 
-@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 32768, 4096 * 4096 + 5, 1 << 24])
+@pytest.mark.parametrize("n", [1, 127, 4095, 4096, 4097, 8191, 8192, 8193, 32768,
+                               4096 * 4096 + 5, 1 << 24])
 def test_movebench_scan_kernel_equals_plain(card, n):
+    # random, descending and all-INT32_MIN inputs, each also as a view at a
+    # 4-byte offset (the kernel's scalar loads); the one-pass scan's tiles of 8,192
     from csnappy_tpu_torch.tools import movebench as mb
 
+    assert mb.SCAN_TILE == 8192
     x = np.random.default_rng(n).integers(-(1 << 31), 1 << 31, n, dtype=np.int64).astype(np.int32)
-    got = mb.scan_max(torch.from_numpy(x).to(card), device=card)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), torch.cummax(torch.from_numpy(x), 0).values)
-    if n <= 32768:
-        assert torch.equal(got.cpu(), mb.scan_max(x, device="cpu"))
+    kinds = {"random": x, "descending": (np.arange(n, 0, -1) - (1 << 30)).astype(np.int32),
+             "INT32_MIN": np.full(n, -(1 << 31), np.int32)}
+    for kind, a in kinds.items():
+        want = torch.cummax(torch.from_numpy(a), 0).values
+        on_card = torch.from_numpy(np.concatenate([a[:1], a])).to(card)
+        for xd in (on_card[1:].clone(), on_card[1:]):           # aligned, then 4 bytes off
+            got = mb.scan_max(xd, device=card)
+            torch.cuda.synchronize()
+            assert got.shape == (n,) and torch.equal(got.cpu(), want), kind
+        if n <= 32768:
+            assert torch.equal(got.cpu(), mb.scan_max(a, device="cpu"))
 
 
 def test_movebench_runs_its_kernels(card, capsys):
@@ -922,6 +923,111 @@ def test_primitives_never_take_the_plain_version(card, monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensor"):
         prim.row_gather(x, x[0], device="cpu")
 
+
+
+def _lane_gather_cases(card):
+    """(wrapper, args, expected path) for every path of lane_gather and each
+    switch between them: table widths on both sides of the staging limits,
+    rows whose length is not a multiple of 4 or 8, views at a 4-byte offset,
+    G = 1 at 2^24, indices past both ends, full-range values."""
+    rng = np.random.default_rng(15)
+    S, V, T = prim.STAGED, prim.VEC_IDX, prim.VEC_TABLE
+
+    def ints(lo, hi, n):
+        return torch.from_numpy(rng.integers(lo, hi, n, dtype=np.int64).astype(np.int32)).to(card)
+
+    def table(g, w, off=0):
+        return ints(-(1 << 31), 1 << 31, g * w + off)[off:].view(g, w)
+
+    def index(g, w, n, off=0):
+        return ints(-9, w + 9, g * n + off)[off:].view(g, n)
+
+    big = 1 << 24
+    return [
+        ("rowwise_gather", (table(64, 4096), index(64, 4096, 4096)), S | V | T),
+        ("rowwise_gather", (table(8, prim.STAGE_MAX), index(8, prim.STAGE_MAX, prim.STAGE_MAX)),
+         S | V | T),
+        ("rowwise_gather", (table(8, prim.STAGE_MAX + 1),
+                            index(8, prim.STAGE_MAX + 1, prim.STAGE_MAX + 4)), V),
+        ("rowwise_gather", (table(64, prim.STAGE_MIN), index(64, prim.STAGE_MIN, 4096)), S | V | T),
+        ("rowwise_gather", (table(64, prim.STAGE_MIN - 1), index(64, prim.STAGE_MIN - 1, 4096)),
+         V),
+        ("rowwise_gather", (table(64, 4096), index(64, 4096, 4097)), S | T),          # odd rows
+        ("rowwise_gather", (table(64, 4096), index(64, 4096, 4100)), S | V | T),      # 4, not 8
+        ("rowwise_gather", (table(64, 4096), index(64, 4096, 4096, 1)), S | T),       # idx view
+        ("rowwise_gather", (table(64, 4096, 1), index(64, 4096, 4096)), S | V),       # table view
+        ("rowwise_gather", (table(64, 4099), index(64, 4099, 4100)), S | V),          # odd width
+        ("rowwise_gather", (table(3, 77), index(3, 77, 1001)), 0),
+        ("rowwise_gather", (table(3, 77), index(3, 77, 1004, 1)), 0),
+        ("local_gather", (table(300, 128), index(300, 128, 128)), V),
+        ("local_gather", (table(300, 128), index(300, 128, 128, 3)), 0),
+        ("table_gather", (table(1, 32768)[0], index(1, 32768, 1 << 21)[0]), S | V | T),
+        ("table_gather", (table(1, 32768)[0], index(1, 32768, (1 << 21) - 1, 1)[0]), S | T),
+        ("table_gather", (table(1, 32768)[0], index(1, 32768, 32768)[0]), V),
+        ("table_gather", (table(1, big)[0], index(1, big, big)[0]), V),
+        ("table_gather", (table(1, big, 1)[0], index(1, big, big - 3, 1)[0]), 0),
+    ]
+
+
+def test_lane_gather_every_path_equals_plain(card):
+    for fn, args, path in _lane_gather_cases(card):
+        tbl, idx = args
+        groups, width = (1, tbl.numel()) if fn == "table_gather" else tbl.shape
+        assert prim.lane_gather_mode(groups, width, idx.numel() // groups, tbl.data_ptr(),
+                                     idx.data_ptr()) == path, (fn, tuple(tbl.shape), path)
+        host = [a.cpu() for a in args]
+        for limbs in ((0,) if fn == "local_gather" else (1, 2, 3, 4)):
+            before = prim.PRIMITIVES[fn].wrapper.launches
+            got = _prim_call(fn, args, limbs, None)                     # device=None: the card
+            torch.cuda.synchronize()
+            assert prim.PRIMITIVES[fn].wrapper.launches == before + 1
+            want = _prim_call(fn, host, limbs, "cpu")
+            assert torch.equal(got[0].cpu(), want[0]), (fn, tuple(tbl.shape), path, limbs)
+
+
+def test_each_call_runs_one_kernel(card):
+    # the device operations of one call (tools/timing.device_profile): one
+    # kernel a wrapper of ops/primitives.py and a movebench gather, one
+    # kernel and at most one memset a scan, no copy
+    from csnappy_tpu_torch.tools import movebench as mb
+    from csnappy_tpu_torch.tools.movebench import primitive_inputs
+    from csnappy_tpu_torch.tools.timing import device_profile
+
+    calls = {fn: (lambda fn=fn, a=[torch.from_numpy(x).to(card) for x in args]:
+                  prim.PRIMITIVES[fn].wrapper(*a))
+             for fn, args in primitive_inputs(64).items()}
+    tbl, idx = mb.inputs(32768, card)
+    calls["gather_flat"] = lambda: mb.gather_flat(tbl, idx)
+    for n in (32768, 1 << 24):
+        x = torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32, device=card)
+        calls[f"scan_max {n}"] = lambda x=x: mb.scan_max(x)
+    for name, fn in calls.items():
+        ops = device_profile(fn, reps=4)["calls"]
+        kernels = {k: c for k, c in ops.items() if not k.startswith(("Memset", "Memcpy"))}
+        memsets = sum(c for k, c in ops.items() if k.startswith("Memset"))
+        assert len(kernels) == 1 and next(iter(kernels.values())) == 1, (name, ops)
+        assert not any(k.startswith("Memcpy") for k in ops), (name, ops)
+        if name.startswith("scan_max"):
+            assert "scan_kernel" in next(iter(kernels)) and memsets <= 1.0, (name, ops)
+        else:
+            assert memsets == 0, (name, ops)
+
+
+def test_failed_gather_and_scan_launches_raise(card, monkeypatch):
+    # a launch that fails raises; no wrapper answers with its plain version
+    from csnappy_tpu_torch.tools import movebench as mb
+
+    monkeypatch.setattr(prim, "table_gather_plain", lambda *a, **k: pytest.fail("plain"))
+    monkeypatch.setattr(mb, "scan_max_plain", lambda *a, **k: pytest.fail("plain"))
+    launch, check = prim._kernels()["lane_gather"]
+    monkeypatch.setitem(prim._kernels(), "lane_gather", (lambda *a: 1, check))
+    x = torch.zeros(64, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="primitives: CUDA error 1"):
+        prim.table_gather(x, x)
+    _, scheck = mb._scan_kernel()
+    monkeypatch.setattr(mb, "_scan_kernel", lambda: (lambda *a: 1, scheck))
+    with pytest.raises(RuntimeError, match="movebench: CUDA error 1"):
+        mb.scan_max(x)
 
 
 # ------------------------------------------------------------- the probes slice

@@ -8,7 +8,9 @@
   contract, function by function and for the slice as a whole at B = 2
   blocks of 32 KiB;
 * batch dims, empty inputs, the errors, and a tensor on the card with
-  ``device="cpu"``.
+  ``device="cpu"``;
+* ``lane_gather``'s path rule (``lane_gather_mode``, a pure function) at
+  its switch points.
 
 Every comparison is exact: 0 differing elements.
 """
@@ -213,3 +215,50 @@ def test_card_tensor_with_cpu_device_raises(fn):
     args = [torch.from_numpy(a).as_subclass(_OnCard) for a in arrays]
     with pytest.raises(ValueError, match="CUDA tensor"):
         getattr(prim, fn)(*args, device="cpu")
+
+
+S, V, T = prim.STAGED, prim.VEC_IDX, prim.VEC_TABLE
+
+
+@pytest.mark.parametrize("groups, width, per_row, tbl_addr, idx_addr, want", [
+    (16384, 128, 128, 0, 0, V),                           # row 6: narrow rows, direct
+    (1, 32768, 1 << 21, 0, 0, S | V | T),                 # row 10: one table, many lookups
+    (64, 32768, 32768, 0, 0, S | V | T),                  # row 11
+    (1, 1 << 24, 1 << 24, 0, 0, V),                       # row 12 at 2^24: too wide to stage
+    (1, 32768, 32768, 0, 0, V),                           # row 12 at 32768: few lookups
+    (64, prim.STAGE_MIN - 1, 32768, 0, 0, V),             # just narrower than staging takes
+    (64, prim.STAGE_MIN, 32768, 0, 0, S | V | T),
+    (8, prim.STAGE_MAX, prim.STAGE_MAX, 0, 0, S | V | T),  # the widest row that fits, 8 uses
+    (8, prim.STAGE_MAX + 1, prim.STAGE_MAX + 4, 0, 0, V),
+    (1000, 512, prim.STAGE_STEP - 4, 0, 0, V),            # less than one staged vector step
+    (1000, 512, prim.STAGE_STEP, 0, 0, S | V | T),
+    (1, 32768, 8 * 32768 - 4, 0, 0, V),                   # one lookup short of 8 an entry
+    (1, 32768, 8 * 32768, 0, 0, S | V | T),
+    (64, 4096, 4097, 0, 0, S | T),                        # rows of an odd length: scalar indices
+    (64, 4096, 4096, 0, 4, S | T),                        # indices at a 4-byte offset
+    (64, 4096, 4096, 0, 8, S | T),
+    (64, 4096, 4096, 4, 0, S | V),                        # the table at a 4-byte offset
+    (64, 4099, 4100, 0, 0, S | V),                        # rows of a width not a multiple of 4
+    (3, 77, 1001, 0, 0, 0),                               # direct, scalar
+    (16384, 128, 128, 0, 12, 0),
+    (16384, 128, 128, 12, 16, V),                         # the direct path ignores the table's
+])
+def test_lane_gather_path_rule(groups, width, per_row, tbl_addr, idx_addr, want):
+    base = 1 << 20                                        # a 16-byte aligned address
+    got = prim.lane_gather_mode(groups, width, per_row, base + tbl_addr, base + idx_addr)
+    assert got == want
+    assert prim.lane_gather_mode(groups, width, per_row, base + tbl_addr,
+                                 base + idx_addr) == got          # a pure function
+
+
+def test_card_device_takes_the_operands_card():
+    # device=None: the card of the first CUDA operand, else the current card
+    # (which raises without one); an explicit device is taken as it is, and
+    # a CUDA operand with device="cpu" raises
+    x = torch.zeros((1, 128), dtype=torch.int32)
+    assert prim.card_device("cpu", x) == torch.device("cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        prim.card_device("cpu", x, x.as_subclass(_OnCard))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            prim.card_device(None, x, np.zeros(3, np.int32))

@@ -5,6 +5,11 @@ the CPU.  The corpus is compared file by file with the JAX package's
 generator (numpy only); movebench's plain versions are compared with the
 frozen outputs of the JAX package's Pallas kernels (rows 12-13 of the
 kernel table, ``tests/data/torch_ref/movebench.npz``), at R = 16 and 64.
+A numpy model of the scan kernel's one pass (tiles by ticket, a decoupled
+look-back over 64-bit status words) is held to ``np.maximum.accumulate``
+and to the same fixture, in seeded orders of completion.  The profiler's
+retake rule (``timing.fullest_trace``) and its sentinels' bracket
+(``timing.bracketed``) are held to traces made up here.
 """
 import json
 import pathlib
@@ -166,3 +171,134 @@ def test_slope_time_is_seconds_per_step():
                                        (torch.ones(3),), device="cpu")
     assert sec > 0 and torch.equal(aux, torch.full((3,), 2.0))
     assert timing.time_ms(lambda: None, n=3, device="cpu") >= 0
+
+
+@pytest.mark.parametrize("order, kept", [
+    ([True] * 8 + [False, False, True], True),             # every record
+    ([True] * 6 + [False, False, True], True),             # the first two records lost
+    ([False, True], False),                    # no sentinel before the calls' first record
+    ([True, False], False),                    # no sentinel after the calls' last record
+    ([True] * 9, True),                                    # calls that run nothing on the card
+    ([], False),                                           # every record lost
+])
+def test_a_trace_counts_only_between_sentinels(order, kept):
+    assert timing.bracketed(order) is kept
+
+
+WHOLE, PART = {"k": (9.0, 10), "m": (1.0, 20)}, {"k": (5.0, 7), "m": (1.0, 20)}
+
+
+NEVER = [{}] * timing.TRACE_TRIES
+
+
+@pytest.mark.parametrize("traces, takes, want", [
+    ([WHOLE], 1, WHOLE),                                   # whole at once: no retake
+    ([{}, PART, WHOLE], 3, WHOLE),                         # empty, then partial, then whole
+    ([PART] + NEVER[1:], timing.TRACE_TRIES, PART),        # never whole: the fullest kept
+    (NEVER, timing.TRACE_TRIES, {}),                       # nothing seen: not measured
+    ([{"k": (1.0, 3)}, PART] + NEVER[2:], timing.TRACE_TRIES, PART),  # a fuller partial wins
+])
+def test_fullest_trace_retakes_until_every_count_is_whole(traces, takes, want):
+    it, slept = iter(traces), []
+    assert timing.fullest_trace(lambda: next(it), reps=10, sleep=slept.append) == want
+    # a pause that doubles before each retake
+    assert slept == [timing.TRACE_PAUSE_S * 2 ** i for i in range(takes - 1)]
+    assert len(list(it)) == len(traces) - takes
+
+
+# ------------------------------------------- the one-pass scan, modelled
+
+AGGREGATE, PREFIX = 1, 2
+INT_MIN = -(1 << 31)
+
+
+def one_pass_scan_model(x: np.ndarray, tile: int, window: int, rng) -> tuple[np.ndarray, dict]:
+    """A numpy model of ``csrc/movebench.cu``'s scan on int32 ``x``: tiles
+    of ``tile`` elements take tickets in order; a tile that has scanned its
+    elements publishes its aggregate (tile 0 its inclusive prefix), then
+    looks back ``window`` words at a time (the kernel: 32, one a lane), each
+    word read as unpublished (the window waits), aggregate or inclusive
+    prefix, takes the maximum of the aggregates up to the nearest prefix, and
+    publishes its own prefix.  ``rng`` picks which tile moves next: the
+    next ticket, a tile that publishes its aggregate, or a window step of a
+    tile that is looking back.  Returns the output and counts of what the
+    windows saw."""
+    n = x.size
+    nt = -(-n // tile)
+    local = [np.maximum.accumulate(x[t * tile : (t + 1) * tile]) for t in range(nt)]
+    words = [None] * nt                          # (status, value), None = all zero
+    scanning = []                                # tiles with a ticket, aggregate unpublished
+    looking = {}                                 # tile -> (next predecessor, prefix so far)
+    out = np.empty_like(x)
+    seen = {"windows": 0, "waited": 0, "aggregates": 0, "prefixes": 0}
+    started = done = 0
+    while done < nt:
+        moves = ([("start", started)] if started < nt else []) + \
+            [("publish", t) for t in scanning] + [("look", t) for t in looking]
+        kind, t = moves[int(rng.integers(len(moves)))]
+        if kind == "start":
+            started += 1
+            scanning.append(t)
+            continue
+        if kind == "publish":
+            scanning.remove(t)
+            words[t] = (PREFIX if t == 0 else AGGREGATE, int(local[t][-1]))
+            if t == 0:
+                out[:tile] = local[0]
+                done += 1
+            else:
+                looking[t] = (t - 1, INT_MIN)
+            continue
+        j, prefix = looking[t]
+        read = [words[p] if p >= 0 else (PREFIX, INT_MIN) for p in range(j, j - window, -1)]
+        seen["windows"] += 1
+        if any(w is None for w in read):
+            seen["waited"] += 1                  # a lane spins: the window waits
+            continue
+        stop = next((k for k, w in enumerate(read) if w[0] == PREFIX), None)
+        upto = read if stop is None else read[: stop + 1]
+        seen["aggregates"] += sum(w[0] == AGGREGATE for w in upto)
+        prefix = max([prefix] + [w[1] for w in upto])
+        if stop is None:
+            looking[t] = (j - window, prefix)
+            continue
+        seen["prefixes"] += 1
+        del looking[t]
+        words[t] = (PREFIX, max(prefix, int(local[t][-1])))
+        out[t * tile : (t + 1) * tile] = np.maximum(local[t], prefix)
+        done += 1
+    return out, seen
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_one_pass_scan_model_equals_maximum_accumulate(seed):
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 3000))
+    kinds = [rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64).astype(np.int32),
+             np.arange(n, 0, -1, dtype=np.int32) - (1 << 30),          # descending
+             np.full(n, INT_MIN, np.int32)]
+    total = {"waited": 0, "aggregates": 0, "prefixes": 0}
+    for x in kinds:
+        for tile, window in ((7, 3), (64, 32), (1, 4)):
+            got, seen = one_pass_scan_model(x, tile, window, rng)
+            assert np.array_equal(got, np.maximum.accumulate(x)), (tile, window)
+            for k in total:
+                total[k] += seen[k]
+    # the seeded orders reach every state a word can be read in
+    assert all(v > 0 for v in total.values()), total
+
+
+@pytest.mark.parametrize("R", [16, 64])
+def test_one_pass_scan_model_equals_jax(mb_ref, R):
+    flat = mb_ref[f"scan{R}"].reshape(-1)
+    got, _ = one_pass_scan_model(flat, 100, 32, np.random.default_rng(R))
+    assert np.array_equal(got.reshape(R, 128), mb_ref[f"scanned{R}"])
+
+
+def test_scan_buffer_holds_the_output_and_the_workspace():
+    # the output padded to 16 bytes, then the ticket and one word a tile
+    tile = movebench.SCAN_TILE
+    assert movebench.scan_words(1) == 4 + 2 * 2
+    assert movebench.scan_words(tile) == tile + 2 * 2
+    assert movebench.scan_words(tile + 1) == tile + 4 + 2 * 3
+    assert movebench.scan_words(1 << 24) == (1 << 24) + 2 * (1 + (1 << 24) // tile)

@@ -8,10 +8,11 @@ Runs the main path's batch (B=64 blocks of 32 KiB of urls.10K, block i =
 through ``encode_fused.encode_blocks`` and ``decode_fused.decode_blocks``
 (one call each on card tensors, as a user makes it, and the decoder's
 launch alone), ``decode_fused.decode_segments`` over urls.10K.snappy's 22
-segments (one call), and the six wrappers of ``ops/primitives.py`` on their
+segments (one call), the six wrappers of ``ops/primitives.py`` on their
 inputs at the same batch (``movebench.primitive_inputs(64)``, on the card)
-under ``torch.profiler`` after a warm-up, and prints for each the device
-time per call of every kernel, copy and fill it ran, their sum, and the
+and movebench's two kernels (``gather_flat``, ``scan_max``) at n = 32768
+and 2^24 under ``torch.profiler`` after a warm-up, and prints for each the
+device time per call of every kernel, copy and fill it ran, their sum, and the
 call's CUDA-event time (the gap is device idle), with the card's name and
 power limit; then the whole-stream slice the same way: one
 ``decode_ws.scan_segments`` and one ``decode_ws.decompress_noheader_ws``
@@ -22,8 +23,11 @@ urls.10K.snappy, unaligned_uint64_test.snappy and the 16 MiB stream; then the ho
 of those whole-stream calls and of the host scan (``native.scan_segments``)
 (synchronised before and after, median of 50; 10 at 16 MiB), and the host
 split of one ``decompress_noheader_ws`` call on urls.10K.snappy, step by
-step (µs).  ``--root`` imports ``csnappy_tpu_torch`` from another tree (an
-unpacked parent commit) to compare two versions in one run.
+step (µs), and of one ``table_gather`` and one ``scan_max`` call
+(:func:`primitive_host_split`); last, phases 10 and 11 of the tree's own
+``chip_smoke.py`` (movebench's kernels and the primitives).  ``--root``
+imports ``csnappy_tpu_torch`` from another tree (an unpacked parent commit)
+to compare two versions in one run.
 ``--scan-split`` builds ``--root``'s ``csrc/scan_segments.cu`` when it is
 the one-block walk (commit bde1c5d and before) with ``clock64()`` stamps
 added around its three phases (staging a window, parse and fuse, thread 0's
@@ -111,6 +115,16 @@ def main() -> int:
     for name, arrays in primitive_inputs(B).items():
         on_card = [torch.from_numpy(a).to(dev) for a in arrays]
         result[name] = device_profile(lambda: PRIMITIVES[name].wrapper(*on_card), args.reps)
+    from csnappy_tpu_torch.tools import movebench as mb
+
+    for n in (32768, 1 << 24):
+        tbl, idx = mb.inputs(n, dev)
+        x = torch.from_numpy(np.random.default_rng(n).integers(0, 1 << 31, (n // 128, 128),
+                                                                dtype=np.int32)).to(dev)
+        result[f"gather_flat n={n}"] = device_profile(
+            lambda tbl=tbl, idx=idx: mb.gather_flat(tbl, idx, 16, dev), args.reps)
+        result[f"scan_max n={n}"] = device_profile(lambda x=x: mb.scan_max(x, dev), args.reps)
+    result["primitives host split (us)"] = primitive_host_split(torch, dev)
     from csnappy_tpu_torch.ops import decode_ws
 
     big = urls * 24
@@ -171,7 +185,8 @@ def main() -> int:
     result["card"] = card
     print(f"tree {args.root}")
     for title, res in result.items():
-        if title.startswith(("decode_ws host split", "one-block scan split", "one-block stream")):
+        if title.startswith(("decode_ws host split", "one-block scan split", "one-block stream",
+                             "primitives host split")):
             print(f"{title} ({card}): {res}")
             continue
         if title == "lone_ms":
@@ -182,17 +197,33 @@ def main() -> int:
             continue
         if title == "card":
             continue
-        print(f"{title}  ({'B=64 x 32 KiB; ' if ' on ' not in title else ''}{card}): CUDA events {res['event_ms']:.4f} ms, "
+        batch = "B=64 x 32 KiB; " if " on " not in title and " n=" not in title else ""
+        print(f"{title}  ({batch}{card}): CUDA events {res['event_ms']:.4f} ms, "
               f"kernels {res['device_ms']:.4f} ms")
         for k, ms in res["kernels"].items():
             print(f"  {ms:10.4f}  {k[:110]}")
         if not res["kernels"]:
             print("  no device time in the trace: not measured")
     print(json.dumps(result))
+    _smoke_phases(torch, np, pathlib.Path(args.root), dev, card)
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
     return 0
+
+
+def _smoke_phases(torch, np, root: pathlib.Path, dev, card: str) -> None:
+    """Phases 10 and 11 of ``root``'s own ``chip_smoke.py`` (movebench's
+    kernels and the primitives: each call beside its library call, the
+    kernels alone, launch counts), which print their lines."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("smoke_of_root", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    print(f"chip_smoke.py phases 10-11 of {root}", flush=True)
+    smoke._movebench(torch, np, dev, card)
+    smoke._primitives(torch, np, dev, card)
 
 
 def _ws_split(torch, decode_ws, decode_fused, bdev, dst: int, n: int = 200) -> dict:
@@ -229,6 +260,96 @@ def _ws_split(torch, decode_ws, decode_fused, bdev, dst: int, n: int = 200) -> d
             fn()
             times[k].append((time.perf_counter() - t0) * 1e6)
     return {k: round(statistics.median(v), 1) for k, v in times.items()}
+
+
+def primitive_host_split(torch, dev, n: int = 2000, size: int = 32768) -> dict:
+    """Host microseconds of each step of one ``primitives.table_gather`` call
+    (a ``size``-entry table, ``size`` indices) and one ``movebench.scan_max``
+    call (``size`` elements) on card tensors, as the imported tree's
+    wrappers take them: each step alone ``n`` times on
+    ``time.perf_counter_ns`` after a synchronise, then the whole call.
+    Small inputs, so that the launches do not fill the card's queue.  The
+    trees from a7e6e8b back enter a device context and build a Stream
+    object; the later trees' wrappers take the path rule and launch on the
+    raw stream, the scan with one allocation."""
+    from csnappy_tpu_torch.ops import primitives as prim
+    from csnappy_tpu_torch.tools import movebench as mb
+
+    def us(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter_ns() - t0) / n / 1e3
+
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randint(0, 1 << 16, (size,), dtype=torch.int32, generator=gen).to(dev)
+    idx = torch.randint(-9, size + 9, (size,), dtype=torch.int32, generator=gen).to(dev)
+    x = torch.randint(-(1 << 31), 1 << 31, (size // 128, 128), dtype=torch.int32,
+                      generator=gen).to(dev)
+    new = hasattr(prim, "lane_gather_mode")
+    launch, check = prim._kernels()["lane_gather"]
+
+    def ctx():
+        with torch.cuda.device(dev):
+            pass
+
+    gather = {"device": (lambda: prim.card_device(None, table, idx)) if new
+              else (lambda: prim.resolve_device(None)),
+              "operand checks": (lambda: (prim.as_int32(table, dev, "table"),
+                                          prim.as_int32(idx, dev, "idx"), prim.limb_mask(2)))
+              if new else (lambda: (prim.refuse_card_tensors(dev, table, idx),
+                                    prim.as_int32(table, dev, "table"),
+                                    prim.as_int32(idx, dev, "idx"), prim.limb_mask(2))),
+              "allocation": lambda: torch.empty_like(idx)}
+    out = torch.empty_like(idx)
+    if new:
+        mode = prim.lane_gather_mode(1, size, size, table.data_ptr(), idx.data_ptr())
+        gather["path rule"] = lambda: prim.lane_gather_mode(1, size, size, table.data_ptr(),
+                                                            idx.data_ptr())
+        gather["current card and stream"] = lambda: (torch._C._cuda_getDevice(),
+                                                     prim._stream(dev.index))
+        args = (table.data_ptr(), size, idx.data_ptr(), out.data_ptr(), 1, size, 0xFFFF, mode)
+    else:
+        gather["device context"] = ctx
+        gather["stream"] = lambda: prim._stream(dev.index)
+        args = (table.data_ptr(), size, idx.data_ptr(), out.data_ptr(), 1, size, 0xFFFF)
+    gather["launch entry"] = lambda: check(launch(*args, prim._stream(dev.index)))
+    gather["the whole call"] = lambda: prim.table_gather(table, idx)
+
+    scan = {"device": (lambda: prim.card_device(None, x)) if new
+            else (lambda: prim.resolve_device(None)),
+            "operand checks": (lambda: prim.as_int32(x, dev, "x")) if new
+            else (lambda: (prim.refuse_card_tensors(dev, x), prim.as_int32(x, dev, "x")))}
+    if hasattr(mb, "scan_words"):
+        slaunch, scheck = mb._scan_kernel()
+        buf = torch.empty((mb.scan_words(x.numel()),), dtype=torch.int32, device=dev)
+        scan["allocation"] = lambda: x.new_empty((mb.scan_words(x.numel()),))
+        scan["current card and stream"] = gather["current card and stream"]
+        scan["launch entry (memset and kernel)"] = lambda: scheck(
+            slaunch(x.data_ptr(), buf.data_ptr(), x.numel(), prim._stream(dev.index)))
+        scan["output view"] = lambda: buf.as_strided(x.shape, x.stride())
+    else:
+        slaunch, scheck, scratch_len = mb._scan_kernel()
+        out2 = torch.empty_like(x)
+        scratch = torch.empty((max(int(scratch_len(x.numel())), 1),), dtype=torch.int32,
+                              device=dev)
+        scan["allocation (output, scratch length, scratch)"] = lambda: (
+            torch.empty_like(x), torch.empty((max(int(scratch_len(x.numel())), 1),),
+                                             dtype=torch.int32, device=dev))
+        scan["device context"] = ctx
+        scan["Stream object"] = lambda: torch.cuda.current_stream(dev).cuda_stream
+        scan["launch entry (three kernels)"] = lambda: scheck(
+            slaunch(x.data_ptr(), out2.data_ptr(), x.numel(), scratch.data_ptr(),
+                    prim._stream(dev.index)))
+    scan["the whole call"] = lambda: mb.scan_max(x)
+    res = {}
+    for name, steps in (("table_gather", gather), ("scan_max", scan)):
+        split = {k: round(us(fn), 2) for k, fn in steps.items()}
+        split["the steps"] = round(sum(v for k, v in split.items() if k != "the whole call"), 2)
+        res[name] = split
+    return res
 
 
 # where clock64() stamps go in the one-block scan's loop (bde1c5d)
