@@ -195,7 +195,28 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              (``gather_harness``'s stack frame asserted 0 bytes); and the
              host split of one call of each scatter, of ``gather_rows_multi``
              on ``grm_dec_ci256_t8`` and of ``lane_gather``, step by step;
-14. the ``kernels`` JSON line, the card's name and power limit, and the
+14. scale-out — ``csnappy_tpu_torch/parallel`` over ``torch.distributed``:
+             NCCL present (its version printed); a 1-rank NCCL group
+             (``multihost.init``, 60 s timeout) on the card; with every
+             launch count set to 0, ``mesh.compress_sharded(urls.10K)``
+             byte-identical to the JAX fixture, ``decompress_fragments_sharded``
+             of the oracle's 22 fragments joined to urls.10K, a fragment one
+             byte over its own limit raising ``E_OUTPUT_OVERRUN``,
+             ``multihost.compress_blocks_multihost`` offsets equal to the
+             exclusive cumsum of its lengths, and the launch counts exact;
+             ``torch.profiler``: one sharded compress runs ``encode_kernel``
+             once and one sharded decompress ``decode_kernel`` once (every
+             device operation printed, NCCL's by name); the median host ms of
+             20 sharded calls beside ``api.compress`` and
+             ``api.decompress_noheader`` on the same bytes (two readings each,
+             in turns), their gap, and each all-gather alone; then the
+             2-process ``--worker`` loopback on the one card over gloo (NCCL
+             refuses two ranks on one card), byte-identical to one
+             ``encode_blocks`` on the card, with its wall time and the time of
+             the host copy gloo needs of a rank's lengths and rows;
+             ``launches_sharded`` in rows 1-3 (row 1: ``decode_kernel``, the
+             kernel rows 1 and 2 share);
+15. the ``kernels`` JSON line, the card's name and power limit, and the
    result line.
 
 Any failure raises and exits non-zero; with no card, or without the
@@ -1792,6 +1813,137 @@ def _host_split(torch, kl, helper: str, a: dict, params: dict, n: int = 1000) ->
     return {"steps_us": split, "steps_total_us": total, "call_us": whole}
 
 
+def _scaleout(torch, np, urls: bytes, fixture: bytes, card: str) -> dict:
+    """Phase 14: the sharded codec on a 1-rank NCCL group, then the 2-rank
+    gloo loopback on the one card.  Returns rows 1-3's ``launches_sharded``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from csnappy_tpu_torch import api
+    from csnappy_tpu_torch.errors import E_OUTPUT_OVERRUN, SnappyError
+    from csnappy_tpu_torch.models import pymodel
+    from csnappy_tpu_torch.ops import decode_fused, encode_fused
+    from csnappy_tpu_torch.parallel import mesh, multihost
+
+    assert dist.is_nccl_available(), "this torch has no NCCL"
+    print(f"[scaleout] torch.distributed with NCCL {torch.cuda.nccl.version()}", flush=True)
+    blocks = [urls[i : i + BS] for i in range(0, len(urls), BS)]
+    frags = [pymodel.compress_fragment(b) for b in blocks]
+    olens = [len(b) for b in blocks]
+    body = b"".join(frags)
+    data, ps = urls[:65536], PAGE                 # the local-data API: 16 pages of 4 KiB
+    pages = np.frombuffer(data, np.uint8).reshape(-1, ps).copy()
+    plens = np.full((len(pages),), ps, np.int32)
+
+    multihost.init(f"localhost:{multihost.free_port()}", 1, 0, timeout=60)
+    try:
+        group = mesh.default_mesh()
+        assert dist.get_backend(group) == "nccl" and dist.get_world_size(group) == 1
+        wrappers = {"decode_blocks": decode_fused.decode_blocks,
+                    "decode_segments": decode_fused.decode_segments,
+                    "encode_blocks": encode_fused.encode_blocks}
+        for w in wrappers.values():
+            w.launches = 0
+        decode_fused.launches_by_kernel.update(dict.fromkeys(decode_fused.KERNELS, 0))
+        assert mesh.compress_sharded(urls) == fixture, "compress_sharded differs from the fixture"
+        assert b"".join(mesh.decompress_fragments_sharded(frags, olens)) == urls
+        code = None
+        try:
+            mesh.decompress_fragments_sharded(frags[:2], [olens[0], olens[1] - 1])
+        except SnappyError as e:
+            code = e.code
+        assert code == E_OUTPUT_OVERRUN, code
+        comp, clens, offs = multihost.compress_blocks_multihost(pages, plens)
+        cl = clens.cpu().to(torch.int64)
+        assert torch.equal(offs, torch.cumsum(cl, 0) - cl), offs
+        launches = {k: w.launches for k, w in wrappers.items()}
+        by_kernel = dict(decode_fused.launches_by_kernel)
+        # one encode a compress, one decode_segments a decompress (two calls each)
+        assert launches == {"decode_blocks": 0, "decode_segments": 2, "encode_blocks": 2}, launches
+        assert by_kernel == {"decode_kernel": 2, "decode_wide_kernel": 0}, by_kernel
+        print(f"[scaleout] 1-rank NCCL group on the card: compress_sharded(urls.10K) "
+              f"byte-identical to the JAX fixture ({len(fixture)} B); decompress_fragments_sharded "
+              f"of the oracle's {len(frags)} fragments joined to urls.10K; a fragment one byte over "
+              f"its own limit raised E_OUTPUT_OVERRUN; compress_blocks_multihost offsets equal "
+              f"to the exclusive cumsum; launches {launches}, decoder kernels {by_kernel}",
+              flush=True)
+
+        ops_c = _device_ops(torch, lambda: mesh.compress_sharded(urls))
+        ops_d = _device_ops(torch, lambda: mesh.decompress_fragments_sharded(frags, olens))
+        for what, ops, name in (("compress_sharded", ops_c, "encode_kernel"),
+                                ("decompress_fragments_sharded", ops_d, "decode_kernel")):
+            codec = {k: v for k, v in ops.items() if name in k}
+            assert list(codec.values()) == [1], (what, ops)
+            nccl = {k: v for k, v in ops.items() if "nccl" in k.lower()}
+            print(f"[scaleout] one {what} call runs {name} once; its device operations "
+                  f"(torch.profiler, a call): {ops}; NCCL's: {nccl or 'none named nccl'}",
+                  flush=True)
+
+        comm = mesh.comm_device(group)
+        pad = np.zeros((len(blocks) * BS,), np.uint8)
+        pad[: len(urls)] = np.frombuffer(urls, np.uint8)
+        ec, el = encode_fused.encode_blocks(pad.reshape(-1, BS), np.array(olens, np.int32))
+        width = int(el.max())
+        rows_dev = ec[:, :width].contiguous()
+        calls = {"compress_sharded": lambda: mesh.compress_sharded(urls),
+                 "api.compress": lambda: api.compress(urls),
+                 "decompress_fragments_sharded":
+                     lambda: mesh.decompress_fragments_sharded(frags, olens),
+                 "api.decompress_noheader": lambda: api.decompress_noheader(body, len(urls))}
+        times = {k: [] for k in calls}
+        for order in (list(calls), list(calls)[::-1]):        # in turns
+            for k in order:
+                times[k].append(_lone_ms(torch, calls[k]))
+        gather_lens = _lone_ms(torch, lambda: mesh.all_gather(el, group, comm))
+        gather_rows = _lone_ms(torch, lambda: mesh.all_gather(rows_dev, group, comm))
+        gap_c = [a - b for a, b in zip(times["compress_sharded"], times["api.compress"])]
+        gap_d = [a - b for a, b in zip(times["decompress_fragments_sharded"],
+                                       times["api.decompress_noheader"])]
+        print(f"[scaleout] host ms, median of 20 lone calls (two readings, in turns) on urls.10K: "
+              f"{ {k: [round(x, 4) for x in v] for k, v in times.items()} }; the sharded calls' "
+              f"gap, compress {[round(x, 4) for x in gap_c]}, decompress "
+              f"{[round(x, 4) for x in gap_d]}; NCCL all_gather alone at one rank: lengths "
+              f"int32[{len(el)}] {gather_lens:.4f} ms, rows uint8[{len(el)}, {width}] "
+              f"{gather_rows:.4f} ms; card {card}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    # two ranks on the one card: gloo, each rank's lengths copied to the host
+    per = len(pages) // 2
+    copy_lens = _lone_ms(torch, lambda: clens[:per].to("cpu"))
+    copy_rows = _lone_ms(torch, lambda: rows_dev[: -(-len(blocks) // 2)].to("cpu"))
+    with tempfile.TemporaryDirectory(prefix="scaleout_") as tmp:
+        port = multihost.free_port()
+        t0 = time.perf_counter()
+        multihost.launch([["-m", "csnappy_tpu_torch.parallel.multihost", "--worker",
+                           "--rank", str(r), "--nprocs", "2", "--port", str(port),
+                           "--out", f"{tmp}/part{r}.npz", "--nbytes", str(len(data)),
+                           "--device", "cuda", "--backend", "gloo"]
+                          for r in range(2)], 180)
+        wall = time.perf_counter() - t0
+        parts = []
+        for r in range(2):
+            with np.load(f"{tmp}/part{r}.npz") as z:
+                parts.append({k: z[k] for k in z.files})
+    assert np.array_equal(parts[0]["offsets"], parts[1]["offsets"])
+    lc = np.concatenate([p["comp"] for p in parts])
+    ll = np.concatenate([p["clens"] for p in parts])
+    assert np.array_equal(ll, clens.cpu().numpy()) and np.array_equal(lc, comp.cpu().numpy()), \
+        "the loopback's rows differ from one card's encode_blocks"
+    assert np.array_equal(parts[0]["offsets"], offs.numpy())
+    print(f"[scaleout] 2-process --worker loopback on the one card (gloo): {len(ll)} pages of "
+          f"{ps} B byte-identical to one encode_blocks on the card, the same offsets on both "
+          f"ranks; wall {wall:.2f} s (two processes' start-up included)", flush=True)
+    print(f"[scaleout] the host copy gloo needs on the card: a rank's lengths int32[{per}] "
+          f"{copy_lens:.4f} ms, a 2-rank compress_sharded shard's rows uint8["
+          f"{-(-len(blocks) // 2)}, {width}] {copy_rows:.4f} ms (host clock, synchronised)",
+          flush=True)
+    return {"decode_blocks": by_kernel["decode_kernel"],
+            "decode_segments": launches["decode_segments"],
+            "encode_blocks": launches["encode_blocks"]}
+
+
 def main() -> int:
     import torch
 
@@ -2149,7 +2301,13 @@ def main() -> int:
     # ------------------------------------------------------- 13. kernel_lib
     rows += _kernel_lib(torch, np, dev, card)
 
-    # --------------------------------------------------------- 14. result
+    # -------------------------------------------------------- 14. scale-out
+    sharded = _scaleout(torch, np, urls, fixture, card)
+    for row in rows:
+        if row["name"] in sharded:
+            row["launches_sharded"] = sharded[row["name"]]
+
+    # --------------------------------------------------------- 15. result
     print(json.dumps({"kernels": rows}), flush=True)
     print(_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

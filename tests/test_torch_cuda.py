@@ -1259,3 +1259,32 @@ def test_kernel_lib_never_takes_the_plain_version(card, monkeypatch):
     assert sum(kl.launches.values()) == before + 5
     with pytest.raises(ValueError, match="CUDA tensor"):
         kl.scan2d(x, device="cpu")
+
+
+# ---------------------------------------------------------------- scale-out
+
+
+def test_sharded_roundtrip_on_a_one_rank_nccl_group(card, urls10k):
+    import torch.distributed as dist
+
+    from csnappy_tpu_torch.errors import E_OUTPUT_OVERRUN
+    from csnappy_tpu_torch.parallel import mesh, multihost
+
+    assert dist.is_nccl_available()
+    multihost.init(f"localhost:{multihost.free_port()}", 1, 0, timeout=60)
+    try:
+        assert dist.get_backend() == "nccl"
+        before = encode_fused.encode_blocks.launches, decode_fused.decode_segments.launches
+        fixture = (DATA / "torch_ref" / "urls.10K.jax.snappy").read_bytes()
+        assert mesh.compress_sharded(urls10k) == fixture
+        blocks = [urls10k[i : i + 32768] for i in range(0, len(urls10k), 32768)]
+        frags = [pymodel.compress_fragment(b) for b in blocks]
+        outs = mesh.decompress_fragments_sharded(frags, [len(b) for b in blocks])
+        assert b"".join(outs) == urls10k
+        assert (encode_fused.encode_blocks.launches, decode_fused.decode_segments.launches) == \
+            (before[0] + 1, before[1] + 1)
+        with pytest.raises(SnappyError) as ei:
+            mesh.decompress_fragments_sharded(frags[:2], [len(blocks[0]), len(blocks[1]) - 1])
+        assert ei.value.code == E_OUTPUT_OVERRUN
+    finally:
+        dist.destroy_process_group()

@@ -174,6 +174,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " encode_fused, kernel_lib, primitives\n"
         "from csnappy_tpu_torch.runtime import container, native\n"
         "from csnappy_tpu_torch import cli\n"
+        "from csnappy_tpu_torch.parallel import dryrun, mesh, multihost\n"
         "from csnappy_tpu_torch.tools import benchtable, corpus, movebench, probe, timing,"
         " zramsim\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -71,8 +71,9 @@ minutes; it is run by hand when the reference or the input set changes, never
 by the tests.  ``--far`` adds the 70000-byte-window COPY_4 vector
 (``far`` group, offset 66000 > 65535), which costs several minutes more.
 ``--group blocks``, ``streams``, ``scan_adv``, ``stream_adv``, ``container``, ``movebench``,
-``primitives``, ``probes`` or ``kernel_lib`` (seconds) writes one file
-only; the stream, scan_adv, stream_adv and container groups run one process per case,
+``primitives``, ``probes``, ``kernel_lib`` or ``sharded`` (seconds) writes one
+file only (``sharded`` sets ``XLA_FLAGS`` for its 8-device mesh before JAX is
+imported); the stream, scan_adv, stream_adv and container groups run one process per case,
 ``--procs`` at a time.
 """
 from __future__ import annotations
@@ -404,11 +405,16 @@ def main() -> int:
     ap.add_argument("--far", action="store_true", help="add the far COPY_4 group")
     ap.add_argument("--group", default="all",
                     choices=("all", "blocks", "streams", "scan_adv", "stream_adv", "container", "movebench",
-                             "primitives", "probes", "kernel_lib"))
+                             "primitives", "probes", "kernel_lib", "sharded"))
     ap.add_argument("--procs", type=int, default=4, help="processes for the stream group")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(JAX_CACHE))
+    if args.group in ("all", "sharded"):
+        flags = os.environ.get("XLA_FLAGS", "")
+        if "xla_force_host_platform_device_count" not in flags:
+            os.environ["XLA_FLAGS"] = (
+                f"{flags} --xla_force_host_platform_device_count={SHARDED_DEVICES}").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -431,6 +437,8 @@ def main() -> int:
         write_probes()
     if args.group in ("all", "kernel_lib"):
         write_kernel_lib()
+    if args.group in ("all", "sharded"):
+        write_sharded()
     print(f"wrote {OUT}", flush=True)
     return 0
 
@@ -1667,6 +1675,72 @@ def write_kernel_lib() -> None:
         a.update({f"{case}__out{k}": v for k, v in enumerate(outs[case])})
     np.savez_compressed(OUT / "kernel_lib.npz", **a)
     print(f"kernel_lib: {len(cases)} cases ({time.time() - t0:.0f} s)", flush=True)
+
+
+
+# ------------------------------------------------------------------ sharded
+
+SHARDED_DEVICES = 8       # the JAX tests' virtual CPU mesh (tests/conftest.py)
+
+
+def sharded_dryrun_input(n: int, bs: int = 1024) -> bytes:
+    """The input ``__graft_entry__.dryrun_multichip(n)`` builds (:59-62)."""
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 64, size=bs // 2, dtype=np.uint8).tobytes()
+    return (base * (4 * n + 1))[: bs * (2 * n) + 123]
+
+
+def sharded_odd_input() -> bytes:
+    """``tests/test_advice_r2.py::test_sharded_fragment_odd_out_cap``'s 4,608 bytes."""
+    return bytes(np.random.default_rng(7).integers(65, 91, 4608, dtype=np.uint8))
+
+
+def write_sharded() -> None:
+    import jax
+
+    from csnappy_tpu import errors
+    from csnappy_tpu.models import pymodel
+    from csnappy_tpu.ops import encode_fused
+    from csnappy_tpu.parallel import mesh as pmesh
+
+    assert len(jax.devices()) == SHARDED_DEVICES, jax.devices()
+    t0 = time.time()
+    mesh = pmesh.default_mesh()
+    urls = (DATA / "urls.10K").read_bytes()
+    a = {}
+    for name, data, bs in (("urls", urls, 32768), ("two", urls[: 32768 + 100], 32768),
+                           ("uneven", urls[: 32768 * 4 + 777], 32768),
+                           ("dryrun3", sharded_dryrun_input(3), 1024)):
+        comp = pmesh.compress_sharded(data, mesh, bs=bs)
+        if name == "urls":            # the stream of urls.10K.jax.snappy: its digest only
+            a["urls_sha256"] = sha(comp)
+        else:
+            a[f"{name}_comp"] = np.frombuffer(comp, np.uint8)
+        print(f"compress_sharded {name}: {len(data)} B -> {len(comp)} B "
+              f"({time.time() - t0:.0f} s)", flush=True)
+    a["dryrun3_data"] = np.frombuffer(sharded_dryrun_input(3), np.uint8)   # drift check
+    odd = sharded_odd_input()
+    frag = pymodel.compress_fragment(odd)
+    a["odd_frag"] = np.frombuffer(frag, np.uint8)
+    a["odd_out"] = np.frombuffer(pmesh.decompress_fragments_sharded([frag], [4608], mesh)[0],
+                                 np.uint8)
+    good = urls[:32768]
+    try:
+        pmesh.decompress_fragments_sharded([pymodel.compress_fragment(good)] * 2,
+                                           [len(good), len(good) - 1], mesh)
+    except errors.SnappyError as e:
+        a["limit_code"] = np.int32(e.code)
+    else:
+        raise AssertionError("the one-byte-short limit decoded")
+    data = urls[:65536]
+    bs = 4096
+    pages = np.frombuffer(data, np.uint8).reshape(-1, bs)
+    comp, lens = encode_fused.encode_blocks(pages, np.full((len(pages),), bs, np.int32))
+    lens = np.asarray(lens, np.int32)
+    a["enc4k_lens"] = lens
+    a["enc4k_comp"] = np.asarray(comp, np.uint8)[:, : int(lens.max())]
+    np.savez_compressed(OUT / "sharded.npz", **a)
+    print(f"sharded: {len(a)} arrays ({time.time() - t0:.0f} s)", flush=True)
 
 
 if __name__ == "__main__":
