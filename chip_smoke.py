@@ -192,9 +192,22 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              indices) beside one ``index_select`` over the stacked tables,
              each case with its launches in the main-path run (asserted 1),
              its kernel alone and bound, and the harness's ``ptxas -v`` lines
-             (``gather_harness``'s stack frame asserted 0 bytes); and the
-             host split of one call of each scatter, of ``gather_rows_multi``
-             on ``grm_dec_ci256_t8`` and of ``lane_gather``, step by step;
+             (``gather_harness``'s stack frame asserted 0 bytes); each shift
+             and scan at its JAX call site's tile (``CALL_SITES``: the
+             fixture's 12 cases of 256-2,048 rows, past what one block's
+             shared memory holds) timed beside its PyTorch
+             call where one computes it (``SITE_LIBRARY``: ``F.pad``,
+             ``torch.cumsum``; none for ``fill_max_rows`` and the case
+             outside the contract), with its kernels alone, its kernels a
+             call (from a bracketed trace where it holds device records,
+             asserted: one a shift, what the entry reports a scan), the
+             bound and its launch in the main-path run; every shift and
+             scan at each configuration of ``kernel_lib.SHIFT_SCAN_RUNS``
+             on a (65,536, 128) tile of random int32 equal to its plain
+             version (the scans' row rounds at all rounds as grid passes
+             there); and the host
+             split of one call of each scatter, of ``gather_rows_multi`` on
+             ``grm_dec_ci256_t8`` and of ``lane_gather``, step by step;
 14. scale-out — ``csnappy_tpu_torch/parallel`` over ``torch.distributed``:
              NCCL present (its version printed); a 1-rank NCCL group
              (``multihost.init``, 60 s timeout) on the card; with every
@@ -1446,56 +1459,10 @@ def _kernel_lib(torch, np, dev, card: str) -> list:
           f"outside the contracts, the helpers no JAX test runs), equal to the JAX helpers and "
           f"the plain versions; launches {launches}", flush=True)
 
-    def library(helper, a, params):
-        """One PyTorch call computing the helper inside its contract, or None."""
-        x = next(iter(a.values()))
-        d, k = params.get("d", 0), params.get("k", 0) % 128
-        flat = x.reshape(-1)
-        pad = torch.nn.functional.pad
-        calls = {
-            "stream_shift_down": ("F.pad(x.flat[:n - d], (d, 0), value=fill)",
-                                  lambda: pad(flat[: flat.numel() - d], (d, 0),
-                                              value=params.get("fill", 0))),
-            "stream_shift_up": ("F.pad(x.flat[d:], (0, d), value=fill)",
-                                lambda: pad(flat[d:], (0, d), value=params.get("fill", 0))),
-            "stream_shift_up_mm": ("F.pad(x.flat[d:], (0, d))", lambda: pad(flat[d:], (0, d))),
-            "stream_shift_down_mm": ("F.pad(x.flat[:n - d], (d, 0))",
-                                     lambda: pad(flat[: flat.numel() - d], (d, 0))),
-            "lane_shift_down": ("F.pad(x[:, :128 - k], (k, 0))",
-                                lambda: pad(x[:, : 128 - k], (k, 0))),
-            "lane_shift_up": ("F.pad(x[:, k:], (0, k))", lambda: pad(x[:, k:], (0, k))),
-            "row_shift_down": ("F.pad(x[:R - k], (0, 0, k, 0), value=fill)",
-                               lambda: pad(x[: max(x.shape[0] - k, 0)],
-                                           (0, 0, min(k, x.shape[0]), 0),
-                                           value=params.get("fill", 0))),
-            "row_shift_up": ("F.pad(x[k:], (0, 0, 0, k), value=fill)",
-                             lambda: pad(x[k:], (0, 0, 0, min(k, x.shape[0])),
-                                         value=params.get("fill", 0))),
-            "scan2d": ("torch.cummax / torch.cumsum of x.flat", lambda: torch.cummax(flat, 0)
-                       if params["op"] == "max" else torch.cumsum(flat, 0, dtype=torch.int32)),
-            "scan2d_mm": ("torch.cummax / torch.cumsum of x.flat", lambda: torch.cummax(flat, 0)
-                          if params["op"] == "max" else torch.cumsum(flat, 0, dtype=torch.int32)),
-            "scan2d_tril": ("torch.cumsum(x.flat)",
-                            lambda: torch.cumsum(flat, 0, dtype=torch.int32)),
-            "flip2d": ("torch.flip(x.flat, (0,))", lambda: torch.flip(flat, (0,))),
-        }
-        if helper in ("gather_flat", "local_gather_rows", "lane_gather"):
-            tbl, ix = a.values()
-            ix64 = ix.long().clamp(0, (tbl.numel() if helper == "gather_flat" else 128) - 1)
-            calls[helper] = (("torch.take(table, idx)", lambda: torch.take(tbl, ix64))
-                             if helper == "gather_flat" else
-                             ("torch.gather(x, 1, idx)", lambda: torch.gather(tbl, 1, ix64)))
-        if helper == "gather_rows_multi":
-            calls[helper] = _index_select(torch, a, params)
-        if helper == "scatter_rows_multi":
-            calls[helper] = _index_add(torch, kl, a, params)
-        if helper == "scatter_sum_tile":
-            pos, val, mask = a.values()
-            calls[helper] = _tile_index_add(torch, pos, val, 128 * params["out_rows"], mask != 0)
-        return calls.get(helper, (None, None))
 
     first = {helper: next(c for c in cases if c[1] == helper) for helper in kl.HELPERS}
-    libs = {helper: library(helper, on_card[c[0]], c[3]) for helper, c in first.items()}
+    libs = {helper: _library(torch, kl, helper, on_card[c[0]], c[3])
+            for helper, c in first.items()}
     # scatter_rows_multi's yardstick is the stacked tables' index_add_ over rows
     # r0..r0+nrows-1 (_index_add); the one table's index_add_ over the whole
     # position tile, which earlier runs divided by, is timed beside it
@@ -1557,6 +1524,8 @@ def _kernel_lib(torch, np, dev, card: str) -> list:
                                    case_launches, card)
               for helper, main in (("scatter_rows_multi", MAIN_SCATTERS),
                                    ("gather_rows_multi", MAIN_GATHERS))}
+    sites = _call_sites(torch, kl, by_case, on_card, case_launches, card)
+    wide = _wide_tile(torch, np, kl, dev, card)
     split = {helper: _host_split(torch, kl, helper, on_card[case], by_case[case][3])
              for helper, case in (("scatter_rows_multi", MAIN_SCATTERS[0]),
                                   ("scatter_sum_tile", first["scatter_sum_tile"][0]),
@@ -1578,7 +1547,8 @@ def _kernel_lib(torch, np, dev, card: str) -> list:
                      "bound_ms": sum(r["bound_ms"] for r in sub),
                      "bound_by": max(sub, key=lambda r: r["bound_ms"])["bound_by"],
                      "library_ms": library_ms, "helpers": sub})
-    rows[0].update(scatter_main_shapes=shapes["scatter_rows_multi"],
+    rows[0].update(call_sites=sites, wide_tile=wide,
+                   scatter_main_shapes=shapes["scatter_rows_multi"],
                    scatter_host_split={h: split[h] for h in ("scatter_rows_multi",
                                                              "scatter_sum_tile")})
     rows[1].update(gather_main_shapes=shapes["gather_rows_multi"],
@@ -1587,12 +1557,196 @@ def _kernel_lib(torch, np, dev, card: str) -> list:
     return rows
 
 
+def _library(torch, kl, helper: str, a: dict, params: dict):
+    """One PyTorch call computing ``helper`` on the arrays ``a`` inside its
+    contract: (its name, a function), or (None, None)."""
+    x = next(iter(a.values()))
+    d, k = params.get("d", 0), params.get("k", 0) % 128
+    flat = x.reshape(-1)
+    pad = torch.nn.functional.pad
+    calls = {
+        "stream_shift_down": ("F.pad(x.flat[:n - d], (d, 0), value=fill)",
+                              lambda: pad(flat[: flat.numel() - d], (d, 0),
+                                          value=params.get("fill", 0))),
+        "stream_shift_up": ("F.pad(x.flat[d:], (0, d), value=fill)",
+                            lambda: pad(flat[d:], (0, d), value=params.get("fill", 0))),
+        "stream_shift_up_mm": ("F.pad(x.flat[d:], (0, d))", lambda: pad(flat[d:], (0, d))),
+        "stream_shift_down_mm": ("F.pad(x.flat[:n - d], (d, 0))",
+                                 lambda: pad(flat[: flat.numel() - d], (d, 0))),
+        "lane_shift_down": ("F.pad(x[:, :128 - k], (k, 0))",
+                            lambda: pad(x[:, : 128 - k], (k, 0))),
+        "lane_shift_up": ("F.pad(x[:, k:], (0, k))", lambda: pad(x[:, k:], (0, k))),
+        "row_shift_down": ("F.pad(x[:R - k], (0, 0, k, 0), value=fill)",
+                           lambda: pad(x[: max(x.shape[0] - k, 0)],
+                                       (0, 0, min(k, x.shape[0]), 0),
+                                       value=params.get("fill", 0))),
+        "row_shift_up": ("F.pad(x[k:], (0, 0, 0, k), value=fill)",
+                         lambda: pad(x[k:], (0, 0, 0, min(k, x.shape[0])),
+                                     value=params.get("fill", 0))),
+        "scan2d": ("torch.cummax / torch.cumsum of x.flat", lambda: torch.cummax(flat, 0)
+                   if params["op"] == "max" else torch.cumsum(flat, 0, dtype=torch.int32)),
+        "scan2d_mm": ("torch.cummax / torch.cumsum of x.flat", lambda: torch.cummax(flat, 0)
+                      if params["op"] == "max" else torch.cumsum(flat, 0, dtype=torch.int32)),
+        "scan2d_tril": ("torch.cumsum(x.flat)",
+                        lambda: torch.cumsum(flat, 0, dtype=torch.int32)),
+        "flip2d": ("torch.flip(x.flat, (0,))", lambda: torch.flip(flat, (0,))),
+    }
+    if helper in ("gather_flat", "local_gather_rows", "lane_gather"):
+        tbl, ix = a.values()
+        ix64 = ix.long().clamp(0, (tbl.numel() if helper == "gather_flat" else 128) - 1)
+        calls[helper] = (("torch.take(table, idx)", lambda: torch.take(tbl, ix64))
+                         if helper == "gather_flat" else
+                         ("torch.gather(x, 1, idx)", lambda: torch.gather(tbl, 1, ix64)))
+    if helper == "gather_rows_multi":
+        calls[helper] = _index_select(torch, a, params)
+    if helper == "scatter_rows_multi":
+        calls[helper] = _index_add(torch, kl, a, params)
+    if helper == "scatter_sum_tile":
+        pos, val, mask = a.values()
+        calls[helper] = _tile_index_add(torch, pos, val, 128 * params["out_rows"], mask != 0)
+    return calls.get(helper, (None, None))
+
+
 # scatter_rows_multi at the shapes of csnappy_tpu/ops/decode_fused.py:470,
 # decode_stream.py:315 and encode_fused.py:375, gather_rows_multi at those of
 # decode_fused.py:387, decode_stream.py:255 and :270, then with clipped
 # indices (fixture cases of kernel_lib.npz)
 MAIN_SCATTERS = ("srm_dec_co256", "srm_stream_co256_t3", "srm_enc_ocr304_t3")
 MAIN_GATHERS = ("grm_dec_ci256_t8", "grm_stream_r1664_t2", "grm_stream_r1664_t1", "grm_r1664_clip")
+
+
+# the shifts and scans at the JAX fused kernels' tiles (fixture cases of
+# kernel_lib.npz, tools/make_torch_fixtures.py _kernel_lib_call_sites) and
+# the call site of each
+CALL_SITES = {
+    "ssumm_dec_ci512_d1": "decode_fused.py:200-203, P = 65,536",
+    "ssumm_dadv_ci2048_d4": "decode_fused.py:200-203, P = 262,144 (dadv)",
+    "ssumm_stream_r1664_d2": "decode_stream.py:116-119, WINR",
+    "rsu_dec_ci512": "decode_fused.py:245, :253, :254, :272, P = 65,536",
+    "rsu_dadv_ci2048": "decode_fused.py:245, :253, :254, :272, P = 262,144 (dadv)",
+    "tril_dadv_tr528": "decode_fused.py:424, TROWS at P = 262,144",
+    "scanmm_stream_addsat_tr256": "decode_stream.py:282",
+    "fmr_dec_co256_b31": "decode_fused.py:494",
+    "fmr_dec_co256_b18": "decode_fused.py:495",
+    "fmr_stream_co256_b31": "decode_stream.py:330-332",
+    "fmr_enc_ocr304_b31": "encode_fused.py:394-396",
+    "scanmm_addsat_order_tr256": "decode_stream.py:282's tile outside the contract",
+}
+# the cases inside their helper's contract where no mask or saturation
+# bites on the data (bytes, advances under 2^16, sums under 2^23), so that
+# one PyTorch call (_library) computes the same answer
+SITE_LIBRARY = ("ssumm_dec_ci512_d1", "ssumm_dadv_ci2048_d4", "ssumm_stream_r1664_d2",
+                "rsu_dec_ci512", "rsu_dadv_ci2048", "tril_dadv_tr528",
+                "scanmm_stream_addsat_tr256")
+
+
+def _call_sites(torch, kl, by_case: dict, on_card: dict, case_launches: dict, card: str) -> list:
+    """Each shift and scan at its JAX call site's tile (``CALL_SITES``): a
+    call timed in ``KL_ROUNDS`` interleaved rounds beside its PyTorch call
+    (``_library`` on the ``SITE_LIBRARY`` cases, asserted equal to the
+    helper's answer; none for ``fill_max_rows`` and the case outside the
+    contract), the kernels alone (``device_ms``) and a call's kernels from
+    a bracketed trace (asserted equal to one for a shift, to what the entry
+    reports for a scan, where the trace holds device records: after
+    ``device_profile``'s retakes a trace without them leaves the count not
+    measured), the bound (``kernel_lib.traffic`` bytes over 3.35 TB/s) and
+    the case's launches in the main-path run (asserted 1)."""
+    from csnappy_tpu_torch.tools.timing import (HBM_BYTES_PER_S, OPS_PER_S, device_profile,
+                                                time_ms)
+
+    libs = {case: _library(torch, kl, by_case[case][1], on_card[case], by_case[case][3])
+            for case in SITE_LIBRARY}
+    for case, (_, lib) in libs.items():
+        got = kl.call(by_case[case][1], on_card[case], by_case[case][3])[0]
+        assert torch.equal(lib().reshape(got.shape), got), case
+    call_ms = {case: [] for case in CALL_SITES}
+    lib_ms = {case: [] for case in libs}
+    for _ in range(KL_ROUNDS):
+        for case in CALL_SITES:
+            _, helper, _, params, _ = by_case[case]
+            call_ms[case].append(time_ms(lambda: kl.call(helper, on_card[case], params)))
+            if case in libs:
+                lib_ms[case].append(time_ms(libs[case][1]))
+    out = []
+    for case, site in CALL_SITES.items():
+        _, helper, arrays, params, _ = by_case[case]
+        assert case_launches[case] == 1, (case, case_launches[case])
+        prof = device_profile(lambda: kl.call(helper, on_card[case], params))
+        kernels = {k: c for k, c in prof["calls"].items()
+                   if not k.startswith(("Memcpy", "Memset"))}
+        rows = arrays["x"].shape[0]
+        want = 1 if kl.HELPERS[helper].kind == "shift" else kl.scan_kernels[helper]
+        assert not kernels or sum(kernels.values()) == want, (case, prof["calls"], want)
+        nbytes, nops = kl.traffic(helper, arrays, params)
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / OPS_PER_S) * 1e3
+        ms = statistics.median(call_ms[case])
+        lms = statistics.median(lib_ms[case]) if case in libs else None
+        rec = {"case": case, "helper": helper, "site": site, "shape": [rows, 128],
+               "ms": ms, "ms_rounds": call_ms[case], "device_ms": prof["device_ms"] or None,
+               "kernels_per_call": sum(kernels.values()) if kernels else None,
+               "kernels": prof["kernels"], "bound_ms": bound, "bound_bytes": nbytes,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= nops / OPS_PER_S
+               else "operations",
+               "library": libs[case][0] if case in libs else None, "library_ms": lms,
+               "library_ms_rounds": lib_ms.get(case), "launches": case_launches[case]}
+        out.append(rec)
+        print(f"[kernel_lib] {helper} on {case} ({rows}, 128) at {site}: {ms:.4f} ms a call "
+              f"(median of {KL_ROUNDS} rounds, {min(call_ms[case]):.4f}-{max(call_ms[case]):.4f}), "
+              f"kernels alone {_or_not_measured(prof['device_ms'] or None)}, "
+              f"{rec['kernels_per_call'] or 'not measured'} kernel(s) a call, bound "
+              f"{bound:.7f} ms ({nbytes} B / 3.35 TB/s), library "
+              + (f"{libs[case][0]} {lms:.4f} ms ({min(lib_ms[case]):.4f}-"
+                 f"{max(lib_ms[case]):.4f})" if lms is not None else "none")
+              + f"; {case_launches[case]} launch in the main-path run; card {card}", flush=True)
+    return out
+
+
+WIDE_ROWS = 65536               # a tile past every one-block limit: 2^23 elements, 32 MiB
+
+
+def _wide_tile(torch, np, kl, dev, card: str) -> list:
+    """Every shift and scan helper at each configuration of
+    ``kernel_lib.SHIFT_SCAN_RUNS`` on a (``WIDE_ROWS``, 128) tile random over
+    all of int32 on the card, equal to the plain version (0 differing
+    elements), with a call's time, its kernels alone (``device_ms``) and
+    its kernels a call from a bracketed trace (asserted equal to one for a
+    shift, to what the entry reports for a scan, where the trace holds
+    device records: after ``device_profile``'s retakes a trace without them
+    leaves the count not measured; at all rounds the row rounds run as grid
+    passes), beside the bound (``kernel_lib.traffic`` bytes over 3.35
+    TB/s)."""
+    from csnappy_tpu_torch.tools.timing import HBM_BYTES_PER_S, device_profile, time_ms
+
+    x = np.random.default_rng(WIDE_ROWS).integers(-(2**31), 2**31, (WIDE_ROWS, 128),
+                                                   dtype=np.int64).astype(np.int32)
+    xd = torch.from_numpy(x).to(dev)
+    out = []
+    for helper, args, kw in kl.SHIFT_SCAN_RUNS:
+        fn = kl.HELPERS[helper].wrapper
+        got = fn(xd, *args, **kw)
+        torch.cuda.synchronize()
+        want = fn(x, *args, **kw, device="cpu")
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), (helper, args, kw, WIDE_ROWS)
+        ms = time_ms(lambda: fn(xd, *args, **kw))
+        prof = device_profile(lambda: fn(xd, *args, **kw), 3)
+        want_kernels = 1 if kl.HELPERS[helper].kind == "shift" else kl.scan_kernels[helper]
+        seen = sum(c for k, c in prof["calls"].items() if not k.startswith(("Memcpy", "Memset")))
+        assert not seen or seen == want_kernels, (helper, prof["calls"], want_kernels)
+        shift = {("d" if helper.startswith("stream") else "k"): args[0]} if args and \
+            kl.HELPERS[helper].kind == "shift" else {}
+        nbytes = kl.traffic(helper, {"x": x}, shift)[0]
+        out.append({"helper": helper, "args": list(args), "kw": kw, "ms": ms,
+                    "device_ms": prof["device_ms"] or None, "kernels_per_call": seen or None,
+                    "entry_kernels": want_kernels, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    print(f"[kernel_lib] ({WIDE_ROWS}, 128), random int32: every shift and scan equal to its "
+          f"plain version; ms a call / kernels alone / bound (kernels a call): "
+          + ", ".join(f"{r['helper']}{tuple(r['args'])}{r['kw'] or ''} {r['ms']:.4f} / "
+                      f"{_or_not_measured(r['device_ms'])} / {r['bound_ms']:.4f} "
+                      f"({r['kernels_per_call'] or 'not measured'})" for r in out)
+          + f"; card {card}", flush=True)
+    return out
 
 
 def _index_add(torch, kl, a, params):

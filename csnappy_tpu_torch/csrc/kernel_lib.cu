@@ -1,41 +1,56 @@
 // The kernel_lib harness for Hopper (sm_90a): each helper of
-// csnappy_tpu/ops/kernel_lib.py run on one tile, as one kernel launch.
+// csnappy_tpu/ops/kernel_lib.py on one tile, at any tile while int32
+// indexing holds.
 //
 // Replaces the Pallas harness of tests/test_kernel_lib.py: `_run` (the
 // pl.pallas_call at :16, one helper on (1..24, 128) int32 VMEM tiles a
 // test) and the two-output call of test_gather_rows_multi (:137).  Each
-// entry kernel_lib_<kind>_launch launches one harness kernel, which stages
-// its operands in shared memory, calls that one of the four device
-// functions of kernel_lib.cuh (shift, scan, gather, scatter) and writes the
-// result; the 19 helpers share these four entries.  The parameters that make a
-// helper of a device function (the segment and offset of a shift, the
-// masks, fill and rounds of a scan, the gather mode, the limb count of a
-// scatter, a scatter block's slice) are computed by
-// csnappy_tpu_torch/ops/kernel_lib.py.
+// entry kernel_lib_<kind>_launch launches the kernels of one of the four
+// device functions of kernel_lib.cuh (shift, scan, gather, scatter); the
+// 19 helpers share these four entries.  The parameters that make a helper
+// of a device function (the segment and offset of a shift, the masks, fill
+// and rounds of a scan, the gather mode, the limb count of a scatter, a
+// scatter block's slice) are computed by csnappy_tpu_torch/ops/kernel_lib.py.
 //
-// What bounds them on this card: the launch.  A tile is a few thousand
-// operations; one block of 1024 threads does the work in microseconds,
-// against a launch cost of the same order.  The shift and scan are
-// therefore the plain design: one block, every operand staged into shared
-// memory once with coalesced loads (at most the 232,448 bytes a block
-// has), results written straight to global memory.  The gather stages
-// nothing: its tables (at most 1.7 MB at the JAX fused kernels' shapes,
-// csnappy_tpu/ops/decode_fused.py:387, decode_stream.py:255) sit in the
-// 50 MB L2 and each entry it needs is read about once, so a grid of
-// threads, one an index of one table, reads them in place.  The scatter is not
-// bound by a block: the JAX fused kernels scatter into 2-3 histograms of
-// 32,768-38,912 entries (csnappy_tpu/ops/decode_fused.py:470,
-// decode_stream.py:315, encode_fused.py:375), more than one block holds.
-// Its grid is (slices, tables): a block owns one slice of one table's
-// output positions, reads every position (a few thousand words, from L2),
-// adds those in its slice into shared memory and writes its slice once.
-// No global atomic, no memset launch, one launch a call.
+// What bounds them on this card: the launch, at the JAX tests' tiles (a
+// few thousand operations) and at the JAX fused kernels' too (tiles of
+// 256-2,048 rows, csnappy_tpu/ops/decode_fused.py:200-272, :424, :494,
+// decode_stream.py:116, :282, :330, encode_fused.py:394: under a
+// microsecond of bytes); the bytes only on tiles far past those.  No tile
+// may be refused for want of one block's shared memory.  So:
+//   * the shift is one grid kernel that reads x in place: y[f] = x[f + off]
+//     is a gather at a fixed offset and needs no staging (four elements a
+//     thread, coalesced);
+//   * the scan is two grid kernels, one warp a row in registers.  The lane
+//     rounds never cross a row, only the R row totals do.  scan_totals
+//     scans each row and writes its masked total; scan_finish scans each
+//     row again (cheaper than writing and reading s back), runs the JAX
+//     row rounds over the window of totals its rows depend on (rows
+//     r0 - 2^rounds .. r1 - 1, in shared memory, every block for itself)
+//     and combines.  Where that window passes kWindowMax rows (all rounds
+//     on more than 6,144 rows), the rounds run first as grid passes over
+//     the totals, one kernel a round, and scan_finish takes the last
+//     pass's totals.  Never an associative scan of the totals: addsat is
+//     not associative once operands are negative, and fill_max_rows runs 5
+//     rounds, a 32-row window max;
+//   * the gather stages nothing: its tables (at most 1.7 MB at the JAX
+//     fused kernels' shapes, csnappy_tpu/ops/decode_fused.py:387,
+//     decode_stream.py:255) sit in the 50 MB L2 and each entry it needs is
+//     read about once, so a grid of threads, one an index of one table,
+//     reads them in place;
+//   * the scatter's grid is (slices, tables): the JAX fused kernels scatter
+//     into 2-3 histograms of 32,768-38,912 entries (decode_fused.py:470,
+//     decode_stream.py:315, encode_fused.py:375), more than one block
+//     holds.  A block owns one slice of one table's output positions, reads
+//     every position (a few thousand words, from L2), adds those in its
+//     slice into shared memory and writes its slice once.  No global
+//     atomic, no memset launch, one launch a call.
 //
-// The launch path is thin: cudaFuncSetAttribute runs at most once per
-// kernel and device, and only for a block above the default 48 KB of
-// dynamic shared memory (a scatter slice stays below it).
+// The launch path is thin: no kernel asks for more than the default 48 KB
+// of dynamic shared memory, so no cudaFuncSetAttribute is needed.
 
-#include <atomic>
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -48,32 +63,93 @@ using namespace kernel_lib;
 constexpr int kBlock = 1024;
 constexpr int kGatherBlock = 128;              // a gather's threads a block: one an index
 constexpr int kMaxTables = 8;                  // decode_fused.py:387 gathers from eight
-constexpr int kSmemMax = 232448;               // a block's shared memory on the H100 (measured)
 constexpr int kSmemDefault = 48 * 1024;        // dynamic shared memory a launch takes unasked
+constexpr int kShiftBlock = 256;               // a shift's threads a block
+constexpr int kShiftPer = 4;                   // elements a shift thread writes
+constexpr int kScanBlock = 256;                // a scan's threads a block: one warp a row
+constexpr int kScanRows = kScanBlock / 32;     // rows a scan block owns
+constexpr int kRoundBlock = 256;               // threads a block of a row-round pass
+constexpr int kWindowMax = kSmemDefault / 8;   // totals scan_finish holds (two arrays of them)
 
-__global__ void __launch_bounds__(kBlock)
-shift_harness(const int32_t* __restrict__ x, int n, int span, int off, int32_t fill,
-              uint32_t vmask, int32_t* __restrict__ out) {
-  extern __shared__ __align__(16) int32_t tile[];
-  for (int f = threadIdx.x; f < n; f += kBlock) tile[f] = x[f];
-  __syncthreads();
-  shift(tile, out, n, span, off, fill, vmask);
+__global__ void __launch_bounds__(kShiftBlock)
+shift_kernel(const int32_t* __restrict__ x, int n, int span, int off, int32_t fill,
+             uint32_t vmask, int32_t* __restrict__ out) {
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * (kShiftBlock * kShiftPer) + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < kShiftPer; ++j) {
+    const int64_t f = base + j * kShiftBlock;
+    if (f < n) out[f] = shift(x, static_cast<int>(f), span, off, fill, vmask);
+  }
 }
 
-__global__ void __launch_bounds__(kBlock)
-scan_harness(const int32_t* __restrict__ x, ScanArgs a, int32_t* __restrict__ out,
-             int32_t* __restrict__ s_out, int32_t* __restrict__ t_out) {
-  extern __shared__ __align__(16) int32_t smem[];
-  const int n = a.rows * L;
-  int32_t* s = smem;
-  int32_t* tot = s + n;
-  int32_t* tbuf = tot + a.rows;
-  int32_t* buf = tbuf + a.rows;                  // rounds mode only
-  for (int f = threadIdx.x; f < n; f += kBlock) s[f] = x[f];
-  scan(s, buf, tot, tbuf, out, a);
-  for (int f = threadIdx.x; f < n; f += kBlock) {
-    if (s_out != nullptr) s_out[f] = s[f];
-    if (t_out != nullptr) t_out[f] = tot[f / L];
+// Row r of x, & in_mask, scanned in place by the calling warp (scan_row):
+// lane `lane` gets lanes 4 * lane .. 4 * lane + 3.
+__device__ __forceinline__ void scan_of_row(const int32_t* __restrict__ x, int r, int lane,
+                                            const ScanArgs& a, int32_t (&v)[4]) {
+  const int32_t* xr = x + static_cast<size_t>(r) * L + 4 * lane;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = static_cast<int32_t>(static_cast<uint32_t>(__ldg(xr + j)) & a.in_mask);
+  scan_row(v, lane, a);
+}
+
+// Phase 1: tot[r] = (the in-row scan's last lane) & tot_mask, a warp a row.
+__global__ void __launch_bounds__(kScanBlock)
+scan_totals(const int32_t* __restrict__ x, ScanArgs a, int32_t* __restrict__ tot) {
+  const int lane = threadIdx.x & 31, r = blockIdx.x * kScanRows + (threadIdx.x >> 5);
+  if (r >= a.rows) return;
+  int32_t v[4];
+  scan_of_row(x, r, lane, a, v);
+  if (lane == 31) tot[r] = static_cast<int32_t>(static_cast<uint32_t>(v[3]) & a.tot_mask);
+}
+
+// One row round as a grid pass (rounds past kWindowMax rows):
+// u[r] = op(t[r], r >= k ? t[r - k] : fill).
+__global__ void __launch_bounds__(kRoundBlock)
+scan_round(const int32_t* __restrict__ t, int32_t* __restrict__ u, int rows, int k, int op,
+           int32_t fill) {
+  const int r = blockIdx.x * kRoundBlock + threadIdx.x;
+  if (r < rows) u[r] = combine(op, t[r], r >= k ? t[r - k] : fill);
+}
+
+// Phase 2, block b owning rows [r0, r1): the totals of rows lo .. r1 - 1
+// (lo = r0 - 2^rounds, at least 0) into shared memory, `rounds` row rounds
+// over them (row lo + i reading row lo + i - k; above row 0 the fill, below
+// the window a value no needed total depends on: a row's total after round
+// j depends only on the 2^j rows up to it), then each row scanned again and
+// combined with the total of the row before; s_out and t_out (each may be
+// null) get the in-row scan and the row's total broadcast over the row.
+__global__ void __launch_bounds__(kScanBlock)
+scan_finish(const int32_t* __restrict__ x, ScanArgs a, const int32_t* __restrict__ tot,
+            int rounds, int32_t* __restrict__ out, int32_t* __restrict__ s_out,
+            int32_t* __restrict__ t_out) {
+  extern __shared__ __align__(16) int32_t win[];
+  const int r0 = blockIdx.x * kScanRows, r1 = min(a.rows, r0 + kScanRows);
+  const int lo = max(0, r0 - (1 << rounds)), nw = r1 - lo;
+  int32_t* cur = win;
+  int32_t* nxt = win + nw;
+  for (int i = threadIdx.x; i < nw; i += kScanBlock) cur[i] = tot[lo + i];
+  __syncthreads();
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int k = 1 << rd;
+    for (int i = threadIdx.x; i < nw; i += kScanBlock)
+      nxt[i] = combine(a.op, cur[i], i >= k ? cur[i - k] : a.fill);
+    __syncthreads();
+    int32_t* w = cur;
+    cur = nxt;
+    nxt = w;
+  }
+  const int lane = threadIdx.x & 31, r = r0 + (threadIdx.x >> 5);
+  if (r >= r1) return;
+  int32_t v[4];
+  scan_of_row(x, r, lane, a, v);
+  const int32_t before = r >= 1 ? cur[r - 1 - lo] : a.fill, t = cur[r - lo];
+  const size_t f = static_cast<size_t>(r) * L + 4 * lane;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    out[f + j] = combine(a.op, v[j], before);
+    if (s_out != nullptr) s_out[f + j] = v[j];
+    if (t_out != nullptr) t_out[f + j] = t;
   }
 }
 
@@ -148,27 +224,12 @@ scatter_harness(Values v, const int32_t* __restrict__ pos, const void* __restric
   scatter_finish(hist, n, limbs, out + static_cast<size_t>(j) * n_out + lo);
 }
 
-// Launch `kernel` on `grid` blocks of `threads` threads with `smem` bytes of
-// dynamic shared memory; returns the first CUDA error (cleared), or 0.  Above
-// the default 48 KB, the kernel's limit is raised to a block's maximum once
-// per device (a bit a device), not on every launch.
+// Launch `kernel` on `grid` blocks of `threads` threads with `smem` bytes
+// (at most the default 48 KB) of dynamic shared memory; returns the first
+// CUDA error (cleared), or 0.
 template <auto kernel, int threads = kBlock, typename... Args>
 int run(dim3 grid, size_t smem, void* stream, Args... args) {
-  if (smem > static_cast<size_t>(kSmemMax)) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > static_cast<size_t>(kSmemDefault)) {
-    static std::atomic<uint32_t> raised{0};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    const uint32_t bit = 1u << (dev & 31);
-    if (e == cudaSuccess && !(raised.load(std::memory_order_relaxed) & bit)) {
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-      if (e == cudaSuccess) raised.fetch_or(bit, std::memory_order_relaxed);
-    }
-    if (e != cudaSuccess) {
-      cudaGetLastError();
-      return static_cast<int>(e);
-    }
-  }
+  if (smem > static_cast<size_t>(kSmemDefault)) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
@@ -187,22 +248,54 @@ extern "C" {
 int kernel_lib_shift_launch(const void* x, int n, int span, int off, int fill,
                             unsigned vmask, void* out, void* stream) {
   if (n <= 0 || span <= 0 || n % span) return static_cast<int>(cudaErrorInvalidValue);
-  return run<shift_harness>(dim3(1), static_cast<size_t>(n) * 4, stream,
-                            static_cast<const int32_t*>(x), n, span, off,
-                            static_cast<int32_t>(fill), vmask, static_cast<int32_t*>(out));
+  const int per = kShiftBlock * kShiftPer;
+  return run<shift_kernel, kShiftBlock>(dim3((n - 1) / per + 1), 0, stream,
+                                        static_cast<const int32_t*>(x), n, span, off,
+                                        static_cast<int32_t>(fill), vmask,
+                                        static_cast<int32_t*>(out));
 }
 
+// The scan of a (rows, 128) tile: scan_totals, then the row rounds (those
+// that 2^r < rows leaves of row_rounds) in scan_finish's blocks, or, where
+// their window passes kWindowMax rows, as one scan_round pass each before
+// scan_finish.  `tot` is scratch of 2 x rows words; *kernels gets the
+// kernels launched.
 int kernel_lib_scan_launch(const void* x, int rows, int op, int rounds,
                            unsigned in_mask, unsigned lane_mask, unsigned tot_mask,
                            int fill, int row_rounds, void* out, void* s_out,
-                           void* t_out, void* stream) {
-  if (rows <= 0 || op < kMax || op > kAddSat) return static_cast<int>(cudaErrorInvalidValue);
+                           void* t_out, void* tot, int* kernels, void* stream) {
+  *kernels = 0;
+  if (rows <= 0 || rows > INT_MAX / L || op < kMax || op > kAddSat)
+    return static_cast<int>(cudaErrorInvalidValue);
   const ScanArgs a{rows, op, rounds != 0, in_mask, lane_mask, tot_mask,
-                   static_cast<int32_t>(fill), row_rounds};
-  const size_t smem = (static_cast<size_t>(rows) * L * (rounds ? 2 : 1) + 2 * rows) * 4;
-  return run<scan_harness>(dim3(1), smem, stream, static_cast<const int32_t*>(x), a,
-                           static_cast<int32_t*>(out), static_cast<int32_t*>(s_out),
-                           static_cast<int32_t*>(t_out));
+                   static_cast<int32_t>(fill)};
+  int rr = 0;
+  while (rr < row_rounds && (1 << rr) < rows) ++rr;
+  const bool passes = std::min(rows, kScanRows + (1 << rr)) > kWindowMax;
+  const dim3 grid((rows - 1) / kScanRows + 1);
+  const auto* xs = static_cast<const int32_t*>(x);
+  int32_t* t = static_cast<int32_t*>(tot);
+  int32_t* u = t + rows;
+  int e = run<scan_totals, kScanBlock>(grid, 0, stream, xs, a, t);
+  if (e != 0) return e;
+  ++*kernels;
+  for (int rd = 0; passes && rd < rr; ++rd) {
+    e = run<scan_round, kRoundBlock>(dim3((rows - 1) / kRoundBlock + 1), 0, stream,
+                                     static_cast<const int32_t*>(t), u, rows, 1 << rd, op,
+                                     static_cast<int32_t>(fill));
+    if (e != 0) return e;
+    ++*kernels;
+    int32_t* w = t;
+    t = u;
+    u = w;
+  }
+  const int in_block = passes ? 0 : rr;
+  const size_t smem = 2 * static_cast<size_t>(std::min(rows, kScanRows + (1 << in_block))) * 4;
+  e = run<scan_finish, kScanBlock>(grid, smem, stream, xs, a, static_cast<const int32_t*>(t),
+                                   in_block, static_cast<int32_t*>(out),
+                                   static_cast<int32_t*>(s_out), static_cast<int32_t*>(t_out));
+  if (e == 0) ++*kernels;
+  return e;
 }
 
 // The ntab outputs are one array of ntab x nidx words.

@@ -8,11 +8,12 @@
 // loads and stores shared memory at any address, so here:
 //   * a shift is index arithmetic: y[f] = x[f + off] inside a segment of
 //     `span` elements (128 for a lane shift, the whole tile for a stream or
-//     row shift), `fill` outside it;
-//   * a scan is an inclusive row-major scan: warp shuffles along a row and
-//     one pass over the row totals when the operation is associative and no
-//     mask can bite, else the JAX helper's own rounds (7 doubling lane
-//     rounds, then log2(R) row rounds), with the mask where the limbs put it;
+//     row shift), `fill` outside it, each element read where it lies;
+//   * a scan is an inclusive row-major scan: one warp a row in registers
+//     (warp shuffles along the row when the operation is associative and no
+//     mask can bite, else the JAX helper's own 7 doubling lane rounds, with
+//     the mask where the limbs put it), then the JAX helper's row rounds
+//     over the row totals (kernel_lib.cu);
 //   * a gather is a load by address, by flat index or by in-row index, from
 //     a table kept in shared memory as uint8, uint16 or int32;
 //   * a scatter is a shared atomicAdd, of the whole value or of each 8-bit
@@ -23,9 +24,10 @@
 // range, a value wider than its bits, a sum that passes the mask, duplicate
 // scatter positions).
 //
-// Every function is called by all threads of one block (blockDim.x a
-// multiple of 32) and synchronises where it says so.  Sums wrap at 32 bits
-// (uint32 arithmetic, cast back), as XLA's int32 arithmetic does.
+// shift and gather answer for one element, scan_row is called by a whole
+// warp, scatter_finish by all threads of a block (after a barrier).  Sums
+// wrap at 32 bits (uint32 arithmetic, cast back), as XLA's int32
+// arithmetic does.
 
 #pragma once
 
@@ -41,16 +43,14 @@ constexpr int32_t kSat = 1 << 23;                // kernel_lib.SAT
 // ------------------------------------------------------------------ shift
 
 // y[f] = x[f + off] & vmask where f + off lies in f's segment of `span`
-// elements (span divides n), else `fill`.  x is a tile in shared memory; y
-// may be shared or global memory, but not x.
-__device__ __forceinline__ void shift(const int32_t* x, int32_t* y, int n, int span, int off,
-                                      int32_t fill, uint32_t vmask) {
-  for (int f = threadIdx.x; f < n; f += blockDim.x) {
-    const int src = f + off, seg = f - f % span;
-    y[f] = src >= seg && src < seg + span
-               ? static_cast<int32_t>(static_cast<uint32_t>(x[src]) & vmask)
-               : fill;
-  }
+// elements (span divides n), else `fill`: one output element, x read where
+// it lies.
+__device__ __forceinline__ int32_t shift(const int32_t* __restrict__ x, int f, int span, int off,
+                                         int32_t fill, uint32_t vmask) {
+  const int64_t src = static_cast<int64_t>(f) + off, seg = f - f % span;
+  return src >= seg && src < seg + span
+             ? static_cast<int32_t>(static_cast<uint32_t>(x[src]) & vmask)
+             : fill;
 }
 
 // ------------------------------------------------------------------- scan
@@ -75,80 +75,50 @@ struct ScanArgs {
   uint32_t lane_mask;   // applied to each lane round's shifted operand (scan2d_mm's limbs)
   uint32_t tot_mask;    // applied to the row totals (lane_shift_up(s, 127, bits))
   int32_t fill;         // the shifted-in value of max / min lane rounds and of every row round
-  int row_rounds;       // row-doubling rounds (round r runs while 2^r < rows)
 };
 
-// The inclusive row-major scan of the (rows, 128) tile `s` in shared
-// memory, in place.  `buf` is scratch of rows * 128 words (rounds mode
-// only), `tot` and `tbuf` scratch of `rows` words each.  Afterwards `s`
-// holds the in-row scan, `tot` the row totals after the row rounds (t of
-// fill_max_rows) and `out` (shared or global; may be s) the result.
-// Starts and ends with a barrier.
-__device__ void scan(int32_t* s, int32_t* buf, int32_t* tot, int32_t* tbuf, int32_t* out,
-                     const ScanArgs& a) {
-  const int n = a.rows * L, t = threadIdx.x;
-  for (int f = t; f < n; f += blockDim.x)
-    s[f] = static_cast<int32_t>(static_cast<uint32_t>(s[f]) & a.in_mask);
-  __syncthreads();
+// The inclusive scan of one 128-lane row, by one warp in registers: lane
+// `lane` holds v[0..3] = lanes 4 * lane .. 4 * lane + 3 of the row, already
+// & in_mask.  Without rounds (an associative op no mask can bite): a
+// sequential scan of four, a shuffle scan of the 32 partial totals, the
+// exclusive prefix.  With rounds: kernel_lib.scan2d_mm's seven doubling
+// lane rounds, s = op(s, shifted), where the shifted operand is
+// (s[l - k] & lane_mask) for l >= k, and for l < k the fill (max, min) or 0
+// (add, addsat: a zero-fill shift); each round reads the round before's
+// values, as the JAX rounds do.  The row total is v[3] of lane 31.
+__device__ __forceinline__ void scan_row(int32_t (&v)[4], int lane, const ScanArgs& a) {
   if (!a.rounds) {
-    // one warp a row, four consecutive lanes a thread: a sequential scan of
-    // four, a shuffle scan of the 32 partial totals, the exclusive prefix
-    const int lane = t & 31, nwarps = blockDim.x >> 5;
-    for (int r = t >> 5; r < a.rows; r += nwarps) {
-      int32_t v[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = s[r * L + lane * 4 + j];
+    for (int j = 1; j < 4; ++j) v[j] = combine(a.op, v[j - 1], v[j]);
+    int32_t inc = v[3];
 #pragma unroll
-      for (int j = 1; j < 4; ++j) v[j] = combine(a.op, v[j - 1], v[j]);
-      int32_t inc = v[3];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int32_t up = __shfl_up_sync(0xFFFFFFFFu, inc, o);
-        if (lane >= o) inc = combine(a.op, up, inc);
-      }
-      const int32_t before = __shfl_up_sync(0xFFFFFFFFu, inc, 1);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s[r * L + lane * 4 + j] = lane == 0 ? v[j] : combine(a.op, before, v[j]);
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t up = __shfl_up_sync(0xFFFFFFFFu, inc, o);
+      if (lane >= o) inc = combine(a.op, up, inc);
     }
-  } else {
-    // kernel_lib.scan2d_mm's lane rounds: s = op(s, shifted), where the
-    // shifted operand is (s[l - k] & lane_mask) for l >= k, and for l < k
-    // the fill (max, min) or 0 (add, addsat: a zero-fill shift)
-    const int32_t low = a.op == kMax || a.op == kMin ? a.fill : 0;
-    int32_t* cur = s;
-    int32_t* nxt = buf;
-    for (int k = 1; k < L; k <<= 1) {
-      for (int f = t; f < n; f += blockDim.x) {
-        const int32_t sh = (f & (L - 1)) >= k
-            ? static_cast<int32_t>(static_cast<uint32_t>(cur[f - k]) & a.lane_mask) : low;
-        nxt[f] = combine(a.op, cur[f], sh);
-      }
-      __syncthreads();
-      int32_t* w = cur;
-      cur = nxt;
-      nxt = w;
+    const int32_t before = __shfl_up_sync(0xFFFFFFFFu, inc, 1);
+    if (lane > 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = combine(a.op, before, v[j]);
     }
-    if (cur != s)                                // seven rounds: the result is in buf
-      for (int f = t; f < n; f += blockDim.x) s[f] = cur[f];
+    return;
   }
-  __syncthreads();
-  for (int r = t; r < a.rows; r += blockDim.x)
-    tot[r] = static_cast<int32_t>(static_cast<uint32_t>(s[r * L + L - 1]) & a.tot_mask);
-  __syncthreads();
-  for (int rd = 0; rd < a.row_rounds && (1 << rd) < a.rows; ++rd) {
-    const int k = 1 << rd;
-    for (int r = t; r < a.rows; r += blockDim.x)
-      tbuf[r] = combine(a.op, tot[r], r >= k ? tot[r - k] : a.fill);
-    __syncthreads();
-    for (int r = t; r < a.rows; r += blockDim.x) tot[r] = tbuf[r];
-    __syncthreads();
+  const int32_t low = a.op == kMax || a.op == kMin ? a.fill : 0;
+#pragma unroll
+  for (int round = 0; round < 7; ++round) {     // a constant trip count: v stays in registers
+    const int k = 1 << round;
+    int32_t sh[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // lane l = 4 * lane + j reads l - k: word (l - k) & 3 (the same for
+      // every lane) of lane (l - k) >> 2
+      const int src = 4 * lane + j - k;
+      const int32_t got = __shfl_sync(0xFFFFFFFFu, v[(j - k) & 3], src >= 0 ? src >> 2 : 0);
+      sh[j] = src >= 0 ? static_cast<int32_t>(static_cast<uint32_t>(got) & a.lane_mask) : low;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = combine(a.op, v[j], sh[j]);
   }
-  for (int f = t; f < n; f += blockDim.x) {
-    const int r = f / L;
-    out[f] = combine(a.op, s[f], r >= 1 ? tot[r - 1] : a.fill);
-  }
-  __syncthreads();
 }
 
 // ----------------------------------------------------------------- gather

@@ -37,16 +37,19 @@ have no counterpart.
 
 Each helper takes int32 tensors or arrays and a ``device`` (None = the
 card, on the device its CUDA operands lie on): on the card it launches its
-harness on torch's current stream and counts the launch in
+kernels on torch's current stream and counts the call in
 ``launches[helper]``; on the CPU it runs the plain version; a CUDA tensor
-with ``device="cpu"`` raises.  On the card the shifts and scans stage a
-tile in one block's shared memory, so it must fit (``SMEM_MAX`` bytes).
-The gathers read their 1 to 8 tables in place, one thread an index, and
-take any size while int32 indexing holds.  The two scatters take any
-``out_rows`` and rows, 1 to 8 value tiles and limbs 0-4, while int32
-indexing holds: their blocks each own a slice of one table's output
-(``scatter_plan``).  ``scatter_sum_tile`` takes its mask as bool, uint8,
-int8 or int32 without a conversion.
+with ``device="cpu"`` raises.  On the card every helper takes any tile
+while int32 indexing holds.  The shifts are one grid kernel that reads
+the tile in place.  The scans are two grid kernels, one warp a row, with
+the row rounds in the second one's blocks (or, past 6,144 rows of totals,
+as a grid pass each between them; the entry chooses and reports its
+kernels in ``scan_kernels``).  The gathers
+read their 1 to 8 tables in place, one thread an index.  The two scatters
+take any ``out_rows`` and rows, 1 to 8 value tiles and limbs 0-4: their
+blocks each own a slice of one table's output (``scatter_plan``).
+``scatter_sum_tile`` takes its mask as bool, uint8, int8 or int32 without
+a conversion.
 """
 from __future__ import annotations
 
@@ -68,7 +71,6 @@ NEG = -(1 << 31)                # kernel_lib.NEG
 SAT = 1 << 23                   # kernel_lib.SAT, the saturating add's ceiling
 BIGV = 1 << 20                  # kernel_lib.BIGV, the min scan's fill
 FULL = 0xFFFFFFFF
-SMEM_MAX = 232448               # shared memory of a block on the H100, as the capacity probe measures it
 SCATTER_SLICE = 1024            # output positions a scatter block owns: at 4 limbs 16 KB of shared memory
 ALL_ROUNDS = 30                 # row rounds: every one while 2^r < R
 OPS = {"max": 0, "min": 1, "add": 2, "addsat": 3}
@@ -200,12 +202,7 @@ def _scatter_plain(pos: torch.Tensor, vals: list[torch.Tensor], vmasks: list[int
 # ------------------------------------------------------------------ the card
 
 launches: dict[str, int] = {}
-
-
-def _fits(helper: str, nbytes: int) -> None:
-    if nbytes > SMEM_MAX:
-        raise ValueError(f"{helper}: needs {nbytes} B of shared memory, more than a block's "
-                         f"{SMEM_MAX}")
+scan_kernels: dict[str, int] = {}      # a scan's kernels on its last call on the card (its entry's count)
 
 
 @functools.cache
@@ -214,7 +211,7 @@ def _entry(kind: str):
     vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     launch.argtypes = {
         "shift": [vp, i, i, i, i, u, vp, vp],
-        "scan": [vp, i, i, i, u, u, u, i, i, vp, vp, vp, vp],
+        "scan": [vp, i, i, i, u, u, u, i, i, vp, vp, vp, vp, ctypes.POINTER(i), vp],
         "gather": [vp, vp, i, i, vp, i, i, i, vp, vp],
         "scatter": [vp, vp, i, i, vp, vp, i, i, i, i, vp, vp],
     }[kind]
@@ -222,6 +219,8 @@ def _entry(kind: str):
 
 
 def _run(helper: str, dev: torch.device, *args) -> None:
+    """Launch ``helper``'s entry on ``dev`` (torch's current stream there),
+    raise on a CUDA error, count the call."""
     launch, check = _entry(HELPERS[helper].kind)
     if dev.index == torch.cuda.current_device():
         rc = launch(*args, _stream(dev.index))
@@ -241,14 +240,20 @@ def _uints(values: tuple[int, ...]) -> ctypes.Array:
     return (ctypes.c_uint * len(values))(*values)
 
 
+def _int32_tile(helper: str, x: torch.Tensor) -> None:
+    if x.numel() >= 1 << 31:
+        raise ValueError(f"{helper}: a tile of {x.numel()} elements, outside int32 indexing")
+
+
 def _shift(helper: str, x, device, params: Callable[[int], tuple[int, int, int, int]]):
     dev = _operands(device, x)
     x = _tile(x, dev, "x")
     span, off, fill, vmask = params(x.shape[0])
     if dev.type == "cpu":
         return _shift_plain(x, span, off, fill, vmask)
-    _fits(helper, 4 * x.numel())
+    _int32_tile(helper, x)
     out = torch.empty_like(x)
+    off = max(-span, min(off, span))                # past the segment: all fill, in an int
     _run(helper, dev, x.data_ptr(), x.numel(), span, off, fill, vmask, out.data_ptr())
     return out
 
@@ -263,11 +268,14 @@ def _scan(helper: str, x, device, op: str, rounds: bool, in_mask: int, lane_mask
         got = _scan_plain(x, op, in_mask, lane_mask, tot_mask, fill, row_rounds)
         return got if parts else got[0]
     rows = x.shape[0]
-    _fits(helper, 4 * (x.numel() * (2 if rounds else 1) + 2 * rows))
+    _int32_tile(helper, x)
     outs = [torch.empty_like(x) for _ in range(3 if parts else 1)]
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
+    tot = x.new_empty(2 * rows)                     # the row totals, twice for grid passes
+    kernels = ctypes.c_int(0)
     _run(helper, dev, x.data_ptr(), rows, OPS[op], int(rounds), in_mask, lane_mask, tot_mask,
-         fill, row_rounds, *ptrs)
+         fill, row_rounds, *ptrs, tot.data_ptr(), ctypes.byref(kernels))
+    scan_kernels[helper] = kernels.value
     return tuple(outs) if parts else outs[0]
 
 
@@ -724,3 +732,18 @@ HELPERS: dict[str, Helper] = {
     "flip2d": Helper(flip2d, "gather", f"{_K}:367", None, "15a"),
 }
 launches.update({name: 0 for name in HELPERS})
+
+# every shift and scan helper with arguments that make each part of its
+# kernels count: a fill that differs from the data, masks that bite, row
+# rounds stopped short, rounds past a tile's rows; the configurations the
+# card checks run on wide tiles (tests/test_torch_cuda.py, chip_smoke.py)
+SHIFT_SCAN_RUNS: list[tuple[str, tuple, dict]] = [
+    ("stream_shift_down", (5000,), {"fill": 3}), ("stream_shift_up", (129,), {"fill": -2}),
+    ("stream_shift_up_mm", (77,), {"bits": 24}), ("stream_shift_down_mm", (3,), {"bits": 8}),
+    ("lane_shift_down", (5,), {"bits": 16}), ("lane_shift_up", (300,), {"bits": 8}),
+    ("row_shift_down", (40,), {"fill": -1}), ("row_shift_up", (1,), {}),
+    ("scan2d", (), {"op": "add"}), ("scan2d", (), {"op": "max"}),
+    ("scan2d_mm", (), {"op": "addsat", "bits": 20}), ("scan2d_mm", (), {"op": "min", "bits": 24}),
+    ("scan2d_tril", (), {"bits": 24}), ("fill_max_rows", (18, 5), {}),
+    ("fill_max_rows", (31, 30), {}),
+]

@@ -1155,7 +1155,8 @@ def test_kernel_lib_kernel_equals_fixture(card, kl_cases, helper):
 def test_kernel_lib_kernels_on_wide_tiles(card):
     # tiles larger than the JAX tests', random over all of int32, against the
     # plain versions; the scatters and gathers at the JAX fused kernels'
-    # shapes and past one block's shared memory; a scan tile past it raises
+    # shapes and past one block's shared memory; every shift and scan past
+    # it too, with its kernels a call (_shifts_and_scans_take_the_tile)
     rng = np.random.default_rng(11)
 
     def ints(lo, hi, shape):
@@ -1241,8 +1242,54 @@ def test_kernel_lib_kernels_on_wide_tiles(card):
         got = fn(*(torch.from_numpy(a).to(card) if isinstance(a, np.ndarray) else a for a in args))
         assert kl.launches[helper] == before + 1, helper
         assert got.is_cuda and torch.equal(got.cpu(), fn(*args, device="cpu")), helper
-    with pytest.raises(ValueError, match="shared memory"):
-        kl.scan2d_mm(torch.zeros((300, 128), dtype=torch.int32, device=card))
+
+    for rows in (300, 2048, 65536):
+        _shifts_and_scans_take_the_tile(card, rows)
+
+
+def _scan_passes(rows: int, rounds: int) -> int:
+    """The scan_round grid passes the scan entry should launch: every row
+    round that runs (2^r < rows, at most ``rounds``) once the totals a
+    scan_finish block of 8 rows depends on (8 + 2^rounds) pass the 6,144 its
+    48 KB hold."""
+    rr = min(rounds, (rows - 1).bit_length())
+    return rr if min(rows, 8 + (1 << rr)) > 6144 else 0
+
+
+def _shifts_and_scans_take_the_tile(card, rows: int) -> None:
+    """Every shift and scan helper on a (rows, 128) tile random over all of
+    int32, equal to the plain version, one counted call each; one call's
+    kernels from a bracketed trace (timing.device_profile): one for a
+    shift; for a scan scan_totals, scan_finish and, past the window, a
+    scan_round pass a round (``_scan_passes``), as many as the entry
+    reports (``kl.scan_kernels``)."""
+    from csnappy_tpu_torch.tools.timing import device_profile
+
+    x = np.random.default_rng(rows).integers(-(2**31), 2**31, (rows, 128),
+                                             dtype=np.int64).astype(np.int32)
+    xd = torch.from_numpy(x).to(card)
+    for helper, args, kw in kl.SHIFT_SCAN_RUNS:
+        fn, kind = kl.HELPERS[helper].wrapper, kl.HELPERS[helper].kind
+        before = kl.launches[helper]
+        got = fn(xd, *args, **kw)
+        torch.cuda.synchronize()
+        assert kl.launches[helper] == before + 1, helper
+        want = fn(x, *args, **kw, device="cpu")
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w), (helper, rows, kw)
+        calls = device_profile(lambda: fn(xd, *args, **kw), 3)["calls"]
+        kernels = {k: c for k, c in calls.items() if not k.startswith(("Memcpy", "Memset"))}
+        if kind == "shift":
+            assert len(kernels) == 1 and "shift_kernel" in next(iter(kernels)), calls
+            assert next(iter(kernels.values())) == 1, calls
+            continue
+        passes = _scan_passes(rows, args[1] if helper == "fill_max_rows" else kl.ALL_ROUNDS)
+        count = {name: sum(c for k, c in kernels.items() if name in k)
+                 for name in ("scan_totals", "scan_round", "scan_finish")}
+        assert count == {"scan_totals": 1, "scan_round": passes, "scan_finish": 1}, calls
+        assert sum(kernels.values()) == kl.scan_kernels[helper] == 2 + passes, \
+            (helper, rows, calls)
 
 
 def test_kernel_lib_never_takes_the_plain_version(card, monkeypatch):

@@ -11,7 +11,11 @@
 * those answers outside the contracts, one by one;
 * the ``HELPERS`` table against the JAX functions and tests it names;
 * the scatter's block plan (``scatter_plan``) at the JAX fused kernels'
-  shapes and at the tests' own, and the scatters' refusals.
+  shapes and at the tests' own, and the scatters' refusals;
+* a numpy model of the scan kernels' decomposition (a warp a row, the row
+  rounds over each block's window of totals or as grid passes) against the
+  JAX answers and the plain version, and of the shift kernel's clamped
+  offset.
 
 The kernels of ``csrc/kernel_lib.cu`` are held against these plain versions
 on the card (``test_torch_cuda.py``, ``chip_smoke.py``).
@@ -470,8 +474,9 @@ def _case_digest(z, cases) -> str:
 
 
 def test_earlier_fixture_cases_are_byte_identical():
-    # the 66 cases written before the main-path scatter cases, and the 70
-    # written before the main-path gather cases: names, parameters, inputs
+    # the 66 cases written before the main-path scatter cases, the 70
+    # written before the main-path gather cases and the 74 written before
+    # the shifts and scans at the JAX call sites: names, parameters, inputs
     # and JAX answers, exactly as they were first stored
     with np.load(ROOT / "tests" / "data" / "torch_ref" / "kernel_lib.npz") as z:
         cases = list(zip(z["cases"], z["helpers"], z["args"], z["params"]))
@@ -481,5 +486,176 @@ def test_earlier_fixture_cases_are_byte_identical():
             "srm_dec_co256", "srm_stream_co256_t3", "srm_enc_ocr304_t3", "srm_co256_dup"]
         assert _case_digest(z, cases[:70]) == (
             "c775ad82d2bb3dc7913812469aee370969653e6a183ab581366fa6a20bcb41fb")
-        assert [str(c[0]) for c in cases[70:]] == [
+        assert [str(c[0]) for c in cases[70:74]] == [
             "grm_dec_ci256_t8", "grm_stream_r1664_t2", "grm_stream_r1664_t1", "grm_r1664_clip"]
+        assert _case_digest(z, cases[:74]) == (
+            "1ba8128138080902e3a5755ee471654af8b540ef7ef709a0059406e887abe651")
+        assert [str(c[0]) for c in cases[74:]] == [
+            "ssumm_dec_ci512_d1", "ssumm_dadv_ci2048_d4", "ssumm_stream_r1664_d2", "rsu_dec_ci512",
+            "rsu_dadv_ci2048", "tril_dadv_tr528", "scanmm_stream_addsat_tr256",
+            "fmr_dec_co256_b31", "fmr_dec_co256_b18", "fmr_stream_co256_b31",
+            "fmr_enc_ocr304_b31", "scanmm_addsat_order_tr256"]
+
+
+# ------------------------------------------------ the scan kernels' decomposition
+
+SCAN_HELPERS = ("scan2d", "scan2d_mm", "scan2d_tril", "fill_max_rows")
+ROUNDS_HELPERS = ("scan2d_mm", "fill_max_rows")      # the JAX lane rounds, not a warp scan
+
+
+def _combine(op: str, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    if op == "max":
+        return np.maximum(a, b)
+    if op == "min":
+        return np.minimum(a, b)
+    s = (a + b + (1 << 31)) % (1 << 32) - (1 << 31)       # int32 wrap
+    return s if op == "add" else np.minimum(s, kl.SAT)
+
+
+def _row_scan(s: np.ndarray, op: str, rounds: bool, lane_mask: int, fill: int) -> np.ndarray:
+    """kernel_lib.cuh scan_row on every row at once: lane t of a warp holds
+    lanes 4t..4t+3.  Without rounds a scan of four, a shuffle scan of the 32
+    partial totals and the exclusive prefix; with rounds the seven doubling
+    lane rounds, the shifted operand masked, lanes l < k taking the fill
+    (max, min) or 0."""
+    rows = s.shape[0]
+    if not rounds:
+        v = s.reshape(rows, 32, 4).copy()
+        for j in range(1, 4):
+            v[:, :, j] = _combine(op, v[:, :, j - 1], v[:, :, j])
+        inc = v[:, :, 3].copy()
+        for o in (1, 2, 4, 8, 16):
+            up = np.roll(inc, o, axis=1)
+            inc = np.where(np.arange(32) >= o, _combine(op, up, inc), inc)
+        before = np.roll(inc, 1, axis=1)[:, :, None]
+        v = np.where((np.arange(32) > 0)[None, :, None], _combine(op, before, v), v)
+        return v.reshape(rows, 128)
+    low = fill if op in ("max", "min") else 0
+    for r in range(7):
+        k = 1 << r
+        sh = np.full_like(s, low)
+        sh[:, k:] = s[:, :-k] & lane_mask
+        s = _combine(op, s, sh)
+    return s
+
+
+BLOCK_ROWS = 8                  # rows a scan_finish block owns (kScanRows: a warp a row)
+
+
+def scan_model(x, op: str, rounds: bool, in_mask: int, lane_mask: int, tot_mask: int, fill: int,
+               row_rounds: int, passes: bool):
+    """The scan kernels of csrc/kernel_lib.cu on a (rows, 128) tile, in
+    int64: scan_totals (each row's scan, its last lane & tot_mask); the row
+    rounds as grid passes over all totals (``passes``), or in each
+    scan_finish block of ``BLOCK_ROWS`` rows over the window of totals
+    rows r0 - 2^rounds .. r1 - 1, a row reading below the window taking the
+    fill; then each row combined with the total of the row before.  The
+    rounds that run are those of ``row_rounds`` with 2^r < rows.
+    Returns (result, s, t) as ``_scan_plain`` does."""
+    x = np.asarray(x).astype(np.int64)
+    rows = x.shape[0]
+    s = _row_scan(x & in_mask if in_mask != kl.FULL else x, op, rounds, lane_mask, fill)
+    tot = s[:, -1] & tot_mask if tot_mask != kl.FULL else s[:, -1].copy()
+    rr = min(row_rounds, (rows - 1).bit_length())
+    if passes:
+        for rd in range(rr):
+            k = 1 << rd
+            tot = _combine(op, tot, np.concatenate([np.full(min(k, rows), fill), tot[:-k]]))
+        rr = 0
+    out, t_all = np.empty_like(s), np.empty(rows, np.int64)
+    for r0 in range(0, rows, BLOCK_ROWS):
+        r1 = min(rows, r0 + BLOCK_ROWS)
+        lo = max(0, r0 - (1 << rr))
+        cur = tot[lo:r1].copy()
+        for rd in range(rr):
+            k = 1 << rd
+            i = np.arange(cur.size)
+            cur = _combine(op, cur, np.where(i >= k, cur[np.maximum(i - k, 0)], fill))
+        t_all[r0:r1] = cur[r0 - lo : r1 - lo]
+        for r in range(r0, r1):
+            out[r] = _combine(op, s[r], cur[r - 1 - lo] if r >= 1 else fill)
+    return out, s, np.repeat(t_all[:, None], 128, 1)
+
+
+def _scan_args(helper: str, arrays: dict, params: dict) -> tuple:
+    """The arguments ``helper`` gives the scan (as ``_scan_plain`` takes
+    them), recorded from a call of its CPU path."""
+    seen = []
+    orig = kl._scan_plain
+    kl._scan_plain = lambda x, *a: (seen.append(a), orig(x, *a))[1]
+    try:
+        kl.call(helper, {k: torch.from_numpy(v) for k, v in arrays.items()}, params,
+                device="cpu")
+    finally:
+        kl._scan_plain = orig
+    (args,) = seen
+    return args
+
+
+SCAN_CASES = [c for c in BY_CASE if BY_CASE[c][1] in SCAN_HELPERS]
+
+
+@pytest.mark.parametrize("passes", [False, True], ids=["window", "passes"])
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_scan_model_equals_the_jax_helper(case, passes):
+    # the kernels' decomposition, both ways of running the row rounds, on
+    # every stored scan case (the JAX call sites' tiles among them): 0
+    # differing elements from the JAX helper's outputs
+    _, helper, arrays, params, outs = BY_CASE[case]
+    op, in_mask, lane_mask, tot_mask, fill, row_rounds = _scan_args(helper, arrays, params)
+    got = scan_model(next(iter(arrays.values())), op, helper in ROUNDS_HELPERS, in_mask,
+                     lane_mask, tot_mask, fill, row_rounds, passes)
+    for g, o in zip(got, outs):
+        assert g.shape == o.shape and int((g != o).sum()) == 0, case
+
+
+MODEL_TILES = [
+    # (helper, rows, params, input range): past a window, with rounds
+    # cut short, the order-dependent addsat, a one-row tile
+    ("scan2d_mm", 300, {"op": "addsat", "bits": 24}, (-(1 << 22), 1 << 22)),
+    ("scan2d_mm", 70, {"op": "min", "bits": 20, "fill": 1 << 20}, (0, 1 << 21)),
+    ("fill_max_rows", 300, {"bits": 31, "rounds": 5}, None),
+    ("fill_max_rows", 41, {"bits": 18, "rounds": 0}, None),
+    ("scan2d", 130, {"op": "add"}, (-(1 << 31), 1 << 31)),
+    ("scan2d", 1, {"op": "max"}, (-(1 << 31), 1 << 31)),
+    ("scan2d", 264, {"op": "max"}, (-(1 << 31), 1 << 31)),
+    ("scan2d_tril", 97, {"bits": 24}, (0, 1 << 20)),
+]
+
+
+@pytest.mark.parametrize("helper,rows,params,span", MODEL_TILES)
+def test_scan_model_equals_plain_at_wider_tiles(helper, rows, params, span):
+    rng = np.random.default_rng(rows)
+    if span is None:                                 # sparse fills, one long empty span
+        x = np.where(rng.integers(0, 40, (rows, 128)) == 0,
+                     rng.integers(0, 1 << 18, (rows, 128)), 0).astype(np.int32)
+        x[rows // 3 : rows // 3 + 40] = 0
+    else:
+        x = rng.integers(*span, (rows, 128), dtype=np.int64).astype(np.int32)
+    want = kl.call(helper, {"x": torch.from_numpy(x)}, params, device="cpu")
+    op, in_mask, lane_mask, tot_mask, fill, row_rounds = _scan_args(helper, {"x": x}, params)
+    for passes in (False, True):
+        got = scan_model(x, op, helper in ROUNDS_HELPERS, in_mask, lane_mask, tot_mask, fill,
+                         row_rounds, passes)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w.numpy()), (helper, passes)
+
+
+@pytest.mark.parametrize("helper,k", [("row_shift_down", 20), ("row_shift_up", 9),
+                                      ("stream_shift_down", 5000), ("lane_shift_up", 300),
+                                      ("row_shift_down", 1 << 20)])
+def test_shift_kernel_offset_clamp_keeps_the_answer(helper, k):
+    # the wrapper clamps the offset to [-span, span] for the kernel (an
+    # int): past the segment every element is the fill either way
+    x = np.arange(8 * 128, dtype=np.int32).reshape(8, 128) - 500
+    params = {"d": k} if helper.startswith("stream") else {"k": k}
+    seen = []
+    orig = kl._shift_plain
+    kl._shift_plain = lambda t, *a: (seen.append(a), orig(t, *a))[1]
+    try:
+        want = kl.call(helper, {"x": torch.from_numpy(x)}, params, device="cpu")[0]
+    finally:
+        kl._shift_plain = orig
+    (span, off, fill, vmask), = seen
+    clamped = max(-span, min(off, span))
+    assert torch.equal(kl._shift_plain(torch.from_numpy(x), span, clamped, fill, vmask), want)

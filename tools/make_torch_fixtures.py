@@ -1449,7 +1449,8 @@ def build_kernel_lib_cases() -> list[tuple[str, str, dict, dict]]:
         cases.append((f"sst_b{bits}", "scatter_sum_tile",
                       {"pos_row": pos, "val_row": val, "mask_row": mask},
                       {"out_rows": 16, "bits": bits}))
-    return cases + _kernel_lib_constructed() + _kernel_lib_main_path()
+    return (cases + _kernel_lib_constructed() + _kernel_lib_main_path()
+            + _kernel_lib_call_sites())
 
 
 def _kernel_lib_constructed() -> list[tuple[str, str, dict, dict]]:
@@ -1593,6 +1594,96 @@ def _kernel_lib_main_path() -> list[tuple[str, str, dict, dict]]:
         ("grm_stream_r1664_t2", "gather_rows_multi", *gather(1664, [29, 17])),
         ("grm_stream_r1664_t1", "gather_rows_multi", *gather(1664, [18])),
         ("grm_r1664_clip", "gather_rows_multi", *gather(1664, [29, 17], clip)),
+    ]
+
+
+def _advances(comp: np.ndarray, slen: int) -> np.ndarray:
+    """The valid-masked tag advances of a (CI, 128) tile of compressed bytes
+    holding ``slen`` bytes, as the JAX block decoder computes them
+    (csnappy_tpu/ops/decode_fused.py:204-237: every position read as a tag;
+    0 where its tag would run past ``slen``)."""
+    b = comp.reshape(-1).astype(np.int64)
+    n = b.size
+
+    def at(k):
+        return np.concatenate([b[k:], np.zeros(k, np.int64)])
+
+    b1, b2, b3, b4 = at(1), at(2), at(3), at(4)
+    kind, u = b & 3, b >> 2
+    islit = kind == 0
+    extra = np.clip(u - 59, 0, 4)
+    t2 = b1 | (b2 << 8)
+    tr = np.select([extra == 0, extra == 1, extra == 2], [0, b1, t2], t2 | (b3 << 16))
+    lit_too_big = islit & (u >= 60) & (((extra == 4) & (b4 > 0)) | (tr + 1 > n))
+    lit_len = np.where(u >= 60, np.minimum(tr + 1, n), u + 1)
+    hdr = np.where(islit, 1 + extra, np.where(kind == 1, 2, np.where(kind == 2, 3, 5)))
+    adv = hdr + np.where(islit, lit_len, 0)
+    pos = np.arange(n)
+    valid = (pos < slen) & ~((pos + adv > slen) | lit_too_big)
+    return np.where(valid, adv, 0).astype(np.int32).reshape(comp.shape)
+
+
+def _kernel_lib_call_sites() -> list[tuple[str, str, dict, dict]]:
+    """The shifts and scans at the tiles the JAX fused kernels call them
+    with, each past one block's shared memory (232,448 B) as the one-block
+    harness staged it.  ``stream_shift_up_mm`` (bits 8) on compressed bytes:
+    decode_fused.py:200-203 at P = 65,536 ((512, 128): the first 16,384 B
+    of urls.10K.snappy, zeros after) and at the dadv group's P = 262,144
+    ((2048, 128): one 196,608-byte literal of urls.10K text, zeros after),
+    decode_stream.py:116-119 on its (1664, 128) window (urls.10K text);
+    ``row_shift_up`` (k 1) on the valid-masked advances of those two block
+    tiles (decode_fused.py:245, :253, :254, :272); ``scan2d_tril`` (bits
+    31) on per-step byte counts at TROWS = 528 (decode_fused.py:424, P =
+    262,144: 20,000 steps of 1-2 bytes, the rest masked to 0);
+    ``scan2d_mm`` (addsat, bits 24) on per-tag byte counts at TROWS = 256
+    (decode_stream.py:282: 7,000 tags of 1-8 bytes); ``fill_max_rows``
+    (rounds 5) on sparse fills at decode_fused.py:494-495 (bits 31, with an
+    80-row empty span past the 32 rows five rounds reach, and bits 18),
+    decode_stream.py:330 (bits 31) and encode_fused.py:394 ((304, 128));
+    then ``scan2d_mm`` addsat at (256, 128) outside its contract: negative
+    values and sums past 2^23, where the rounds' order decides the answer."""
+    rng = np.random.default_rng(SEED + 11)
+    golden = (DATA / "urls.10K.snappy").read_bytes()
+    text = (DATA / "urls.10K").read_bytes()
+
+    def tile(rows, src: bytes):
+        t = np.zeros(rows * 128, np.int32)
+        t[: len(src)] = np.frombuffer(src, np.uint8)
+        return t.reshape(rows, 128)
+
+    blk, dadv = tile(512, golden[:16384]), tile(2048, text[:196608])
+    window = tile(1664, text[200000 : 200000 + 1664 * 128])
+
+    def counts(rows, n, lo, hi):
+        c = np.zeros(rows * 128, np.int32)
+        c[:n] = rng.integers(lo, hi + 1, n)
+        return c.reshape(rows, 128)
+
+    def sparse(rows, hi):
+        return np.where(rng.integers(0, 40, (rows, 128)) == 0,
+                        rng.integers(0, hi, (rows, 128)), 0).astype(np.int32)
+
+    h1 = sparse(256, 1 << 31)
+    h1[100:180] = 0                                 # a span five row rounds do not cross
+    order = rng.choice(np.array([-(1 << 22), -(1 << 21), -3, 0, 0, 0, 5, 1 << 20, (1 << 22) + 1],
+                                np.int32), (256, 128))
+    return [
+        ("ssumm_dec_ci512_d1", "stream_shift_up_mm", {"x": blk}, {"d": 1, "bits": 8}),
+        ("ssumm_dadv_ci2048_d4", "stream_shift_up_mm", {"x": dadv}, {"d": 4, "bits": 8}),
+        ("ssumm_stream_r1664_d2", "stream_shift_up_mm", {"x": window}, {"d": 2, "bits": 8}),
+        ("rsu_dec_ci512", "row_shift_up", {"x": _advances(blk, 16384)}, {"k": 1}),
+        ("rsu_dadv_ci2048", "row_shift_up", {"x": _advances(dadv, 196608)}, {"k": 1}),
+        ("tril_dadv_tr528", "scan2d_tril", {"x": counts(528, 20000, 1, 2)}, {"bits": 31}),
+        ("scanmm_stream_addsat_tr256", "scan2d_mm", {"x": counts(256, 7000, 1, 8)},
+         {"op": "addsat", "bits": 24}),
+        ("fmr_dec_co256_b31", "fill_max_rows", {"x": h1}, {"bits": 31, "rounds": 5}),
+        ("fmr_dec_co256_b18", "fill_max_rows", {"x": sparse(256, 1 << 18)},
+         {"bits": 18, "rounds": 5}),
+        ("fmr_stream_co256_b31", "fill_max_rows", {"x": sparse(256, 1 << 31)},
+         {"bits": 31, "rounds": 5}),
+        ("fmr_enc_ocr304_b31", "fill_max_rows", {"x": sparse(304, 1 << 31)},
+         {"bits": 31, "rounds": 5}),
+        ("scanmm_addsat_order_tr256", "scan2d_mm", {"x": order}, {"op": "addsat", "bits": 24}),
     ]
 
 
