@@ -52,7 +52,8 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              it; for the encoder and the decoder also the kernel alone
              (torch.profiler), a whole call and a lone call (host clock,
              synchronised), the shared memory at 32 KiB and 4 KiB and the SM
-             cycles of their phases (``clock64()`` stamps); for the decoder
+             cycles of their phases (``clock64()`` stamps, read by
+             ``tools/phaseprof.py``); for the decoder
              its ``ptxas -v`` line and the split of the port's first design
              (``decode_wide_kernel`` launched at 32 KiB: walk, literals,
              copies);
@@ -93,9 +94,9 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              the worst cases its kernels alone, launch, a call, a lone call,
              the SM cycles of both kernels' phases (stamps), the chains'
              spans a chunk and a segment (``%globaltimer``) and ``ptxas -v``;
-7. container — ``tools/zramsim.run`` over a 256 MiB tree (the port's
-             corpus files, urls.10K among them, copied under subdirectories up
-             to 268,435,456 B) at 4 KiB pages on the card, with md5 readback of
+7. container — ``tools/zramsim.run`` over a 256 MiB tree
+             (``zramsim.corpus_tree``: the port's corpus files, urls.10K
+             among them, copied under subdirectories up to 268,435,456 B) at 4 KiB pages on the card, with md5 readback of
              every file and the launch counts of ``encode_blocks`` and
              ``decode_blocks`` set to 0 before it; the first 64 pages of each
              corpus file equal to the plain versions' container; every
@@ -229,7 +230,20 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              the host copy gloo needs of a rank's lengths and rows;
              ``launches_sharded`` in rows 1-3 (row 1: ``decode_kernel``, the
              kernel rows 1 and 2 share);
-15. the ``kernels`` JSON line, the card's name and power limit, and the
+15. bench and records — ``bench_torch.main(["--reps", "5"])`` in this
+             process: exactly one line with ``bench.py``'s 15 keys
+             (``bench_torch.KEYS``), ``compressed_bytes`` 354,567, the card
+             in ``device``, every rate above 0, ``roofline_utilization_pct``
+             at most 100, printed beside row 1's GB/s of phase 5, then its
+             block decode and row 1's launch timed in turns (three rounds
+             of row 1, bench, bench, row 1); then
+             ``tools/records.main`` into a temporary directory: five
+             non-empty files, the phaseprof rows (printed) over
+             ``decode_fused.PHASES`` and ``encode_fused.PHASES`` with their
+             ``delta_ms`` summing to the last ``cum_ms``, the benchtable's
+             ``urls.10K`` row ``702087 ->   354567``, each record naming the
+             card;
+16. the ``kernels`` JSON line, the card's name and power limit, and the
    result line.
 
 Any failure raises and exits non-zero; with no card, or without the
@@ -330,13 +344,6 @@ def _stream_worst_cases(api, wire, urls: bytes) -> list:
             ("literal of 2^24", bytes(lit), n), ("2^21 one-byte literals", ones, 1 << 21)]
 
 
-def _smi(query: str) -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
 def _same(name, got, want) -> int:
     """Hold a kernel's (out, produced, status) against the plain version's;
     returns the largest absolute byte difference (must be 0)."""
@@ -380,6 +387,8 @@ def _decode_fixtures(torch, np, dev, decode_fused) -> list:
     version and, but on the JAX package's known faults, to the JAX answers;
     then the dadv group stamped: its resolve rounds a row (bounded by
     ceil(log2 block_out) + 1)."""
+    from csnappy_tpu_torch.tools import phaseprof
+
     with np.load(DATA / "torch_ref" / "blocks.npz") as z:
         groups = {g: [z[f"{g}_{k}"] for k in ("comp", "lens", "out", "prod", "status")]
                   for g in DECODE_GROUPS}
@@ -399,7 +408,7 @@ def _decode_fixtures(torch, np, dev, decode_fused) -> list:
     offs = torch.arange(B, device=dev, dtype=torch.int64) * comp.shape[1]
     args = (flat, offs, torch.from_numpy(lens).to(dev),
             torch.full((B,), width, dtype=torch.int32, device=dev))
-    got, st = _stamps(torch, np, decode_fused, decode_fused.decode_blocks, args, width)
+    got, st = phaseprof.stamped_decode(decode_fused.decode_blocks, args, width)
     _same("decode group dadv, stamped", got, decode_fused.decode_blocks(comp, lens, width,
                                                                         device="cpu"))
     rounds = st[:, -1].tolist()
@@ -412,25 +421,6 @@ def _decode_fixtures(torch, np, dev, decode_fused) -> list:
           f"launched in {_launch_ms(decode_fused, decode_fused.decode_blocks, args, width):.4f} "
           f"ms (the whole group)", flush=True)
     return rounds
-
-
-def _stamps(torch, np, decode_fused, wrapper, args, width: int, kernel=None):
-    """One stamped launch of ``decode_blocks.cu``: its result and the stamps
-    (int64[B, STAMPS], on the host)."""
-    st = torch.zeros((args[1].numel(), decode_fused.STAMPS), dtype=torch.int64,
-                     device=args[0].device)
-    got = decode_fused._launch(wrapper, *args, width, st, kernel=kernel)
-    return got, st.cpu().numpy()
-
-
-def _phases(np, st, names) -> dict:
-    """Phase cycles of the slowest block (and of the median block) from stamps."""
-    tot = st[:, : len(names)].sum(1)
-    slow = int(np.argmax(tot))
-    return {"slowest_block": slow, "cycles": int(tot[slow]),
-            "phases": {n: [int(st[slow, i]), int(np.median(st[:, i]))]
-                       for i, n in enumerate(names)},
-            "windows": int(st[slow, -3]), "tags": int(st[slow, -2]), "rounds": int(st[slow, -1])}
 
 
 def _launch_ms(decode_fused, wrapper, args, width: int, kernel=None) -> float:
@@ -874,15 +864,12 @@ def _container(torch, np, dev, card: str) -> dict:
     card with md5 readback; the first 64 pages of each corpus file equal to
     the plain versions; every stored page checked with the host decoder;
     the zram record.  Returns the container path's launch counts."""
-    import os
     import tempfile
 
     from csnappy_tpu_torch.ops import decode_fused, encode_fused
     from csnappy_tpu_torch.runtime import container, native
-    from csnappy_tpu_torch.tools import corpus, zramsim
+    from csnappy_tpu_torch.tools import zramsim
 
-    files = sorted(corpus.corpus().items())
-    assert "urls.10K" in dict(files), "corpus without tests/data/urls.10K"
     seen, stats = [], {"c": [], "d": []}
     compress, decompress = container.compress_blocks, container.decompress_blocks
 
@@ -898,18 +885,8 @@ def _container(torch, np, dev, card: str) -> dict:
         return out, st
 
     with tempfile.TemporaryDirectory(prefix="zram_tree_") as root:
-        written, copy = 0, 0
-        while written < ZRAM_BYTES:
-            sub = os.path.join(root, f"copy{copy:03d}")
-            os.makedirs(sub)
-            for name, data in files:
-                part = data[: ZRAM_BYTES - written]
-                if not part:
-                    break
-                with open(os.path.join(sub, name), "wb") as f:
-                    f.write(part)
-                written += len(part)
-            copy += 1
+        names = zramsim.corpus_tree(root, ZRAM_BYTES)
+        assert "urls.10K" in names, "corpus without tests/data/urls.10K"
         wrappers = {"encode_blocks": encode_fused.encode_blocks,
                     "decode_blocks": decode_fused.decode_blocks}
         container.compress_blocks, container.decompress_blocks = compress_seen, decompress_seen
@@ -2098,6 +2075,80 @@ def _scaleout(torch, np, urls: bytes, fixture: bytes, card: str) -> dict:
             "encode_blocks": launches["encode_blocks"]}
 
 
+def _bench_records(rows: list, urls: bytes, row1_ms) -> None:
+    """Phase 15: the bench line (``bench_torch.main``, 5 timed calls a
+    figure), its block decode beside row 1's launch (``row1_ms()``, as
+    phase 5 times it) in turns, and the records step (``tools/records.main``
+    into a temporary directory) in this process, each output checked."""
+    import contextlib
+    import io
+    import math
+    import tempfile
+
+    import torch
+
+    import bench_torch
+    from csnappy_tpu_torch.ops import decode_fused, encode_fused
+    from csnappy_tpu_torch.tools import records
+    from csnappy_tpu_torch.tools.timing import card as card_of
+
+    card = card_of()
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_torch.main(["--reps", "5"])
+    bench_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    assert rc == 0 and len(lines) == 1, (rc, lines)
+    line = json.loads(lines[0])
+    assert tuple(line) == bench_torch.KEYS and len(line) == 15, sorted(line)
+    assert line["compressed_bytes"] == 354567 and line["device"] == card, line
+    rates = [line[k] for k in ("value", "wholestream_decompress_GBps",
+                               "wholestream_host_e2e_GBps", "compress_GBps")]
+    assert min(rates + list(line["decode_GBps_by_batch"].values())) > 0, line
+    assert 0 < line["roofline_utilization_pct"] <= 100, line
+    row1 = next(r for r in rows if r["name"] == "decode_blocks")
+    print(f"[bench] {json.dumps(line)}", flush=True)
+    print(f"[bench] block decode {line['value']} GB/s beside row 1's {row1['GBps']:.4f} GB/s "
+          f"(phase 5, same process); {bench_s:.1f} s", flush=True)
+    turns = {"row 1": [], "bench": []}
+    for _ in range(3):                          # row 1, bench, bench, row 1
+        for k in ("row 1", "bench", "bench", "row 1"):
+            ms = row1_ms() if k == "row 1" else 1e3 * bench_torch.bench_block_decode(
+                urls, B, 20, torch.device("cuda"))[1]
+            turns[k].append(round(B * BS / ms / 1e6, 4))
+    print(f"[bench] B=64 block decode in turns, GB/s (median of 20 launches each): row 1's "
+          f"launch {turns['row 1']}, bench_torch's {turns['bench']}", flush=True)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="records_") as out:
+        assert records.main(["--out", out]) == 0
+        texts = {name: (pathlib.Path(out) / name).read_text() for name in records.RUNS}
+    records_s = time.perf_counter() - t0
+    assert sorted(texts) == sorted(records.RUNS) and all(t.strip() for t in texts.values()), \
+        {k: len(v) for k, v in texts.items()}
+    for which, names in (("decode", decode_fused.PHASES), ("encode", encode_fused.PHASES)):
+        prof = [json.loads(x) for x in texts[f"torch_phaseprof_{which}.jsonl"].splitlines()]
+        phases = [r for r in prof if "phase" in r]
+        assert tuple(r["phase"] for r in phases) == names, prof
+        assert math.isclose(sum(r["delta_ms"] for r in phases), phases[-1]["cum_ms"],
+                            rel_tol=1e-12), prof
+        assert prof[-1]["device"] == card and len(prof) == len(names) + 1, prof
+        for r in prof:
+            print(f"[phaseprof] {which} {json.dumps(r)}", flush=True)
+    table = texts["torch_benchtable.txt"].splitlines()
+    assert table[0] == f"backend=torch device={card}", table[0]
+    assert any(x.startswith("urls.10K") and "702087 ->   354567" in x for x in table), table
+    assert json.loads(texts["torch_zramsim.json"])["device"] == card
+    full = json.loads(texts["torch_bench.json"])
+    assert sorted(full["decode_GBps_by_batch"]) == ["16", "256", "64"], full
+    assert full["compressed_bytes"] == 354567 and full["device"] == card, full
+    print(f"[records] {sorted(texts)} written and checked in {records_s:.1f} s: "
+          f"{ {k: len(v) for k, v in texts.items()} } B; bench --full decode by batch "
+          f"{full['decode_GBps_by_batch']}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2114,10 +2165,11 @@ def main() -> int:
     from csnappy_tpu_torch.models import pymodel, wire
     from csnappy_tpu_torch.ops import _build, decode_fused, encode_fused
     from csnappy_tpu_torch.runtime import native
-    from csnappy_tpu_torch.tools.timing import device_profile, time_ms
+    from csnappy_tpu_torch.tools import phaseprof
+    from csnappy_tpu_torch.tools.timing import device_profile, smi, time_ms
 
     dev = torch.device("cuda")
-    card = _smi("name,power.limit,clocks.max.sm")
+    card = smi("name,power.limit,clocks.max.sm")
     name_, power_, clock_ = (s.strip() for s in card.split(","))
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}", flush=True)
 
@@ -2330,19 +2382,12 @@ def main() -> int:
           f"shape): {pages_ms:.4f} ms", flush=True)
     for what, x, xl, bs_ in (("B=64 x 32 KiB", data_dev, blens_dev, BS),
                              (f"{nr} x 4 KiB", pages_dev, plens_dev, PAGE)):
-        stamps = torch.zeros((len(xl), encode_fused.STAMPS), dtype=torch.int64, device=dev)
-        encode_fused._launch(x, xl, bs_, encode_fused.ocap(bs_), encode_fused.walk_cap(bs_),
-                             stamps)
-        clk = stamps.cpu().numpy()[:, : len(encode_fused.PHASES) + 1]
-        cyc = np.diff(clk, axis=1)
-        slow = int(np.argmax(clk[:, -1] - clk[:, 0]))
-        cycles = {name: [int(cyc[slow, i]), int(np.median(cyc[:, i]))]
-                  for i, name in enumerate(encode_fused.PHASES)}
+        summ = phaseprof.encode_summary(phaseprof.stamped_encode(x, xl, bs_)[1])
         if bs_ == BS:                                       # the main path's go in the row
-            phases = cycles
-        print(f"[times] encode_kernel phases at {what}, SM cycles (slowest block {slow}: "
-              f"{int(clk[slow, -1] - clk[slow, 0])} in all; median block beside): {cycles}",
-              flush=True)
+            phases = summ["phases"]
+        print(f"[times] encode_kernel phases at {what}, SM cycles (slowest block "
+              f"{summ['slowest_block']}: {summ['cycles']} in all; median block beside): "
+              f"{summ['phases']}", flush=True)
     print(f"[times] encode_kernel shared memory {encode_fused.smem_bytes(BS)} B at bs = {BS}, "
           f"{encode_fused.smem_bytes(PAGE)} B at bs = {PAGE} (dynamic; ptxas above)", flush=True)
     enc_plain = _host_ms(lambda: encode_fused.encode_blocks(data, blens, device="cpu"))
@@ -2357,13 +2402,13 @@ def main() -> int:
              lambda: decode_fused.decode_segments(body_dev, offs, slens, sdl))):
         kernel_ms = sum(device_profile(
             lambda: decode_fused._launch(wrapper, *args, BS))["kernels"].values()) or None
-        _, st = _stamps(torch, np, decode_fused, wrapper, args, BS)
-        _, wst = _stamps(torch, np, decode_fused, wrapper, args, BS, kernel="decode_wide_kernel")
+        _, st = phaseprof.stamped_decode(wrapper, args, BS)
+        _, wst = phaseprof.stamped_decode(wrapper, args, BS, kernel="decode_wide_kernel")
         dec[name] = dict(
             kernel_ms=kernel_ms, call_ms=time_ms(call), lone_ms=_lone_ms(torch, call),
-            phases_cycles=_phases(np, st, decode_fused.PHASES),
+            phases_cycles=phaseprof.decode_summary(st),
             wide_ms=_launch_ms(decode_fused, wrapper, args, BS, kernel="decode_wide_kernel"),
-            wide_phases_cycles=_phases(np, wst, decode_fused.WIDE_PHASES))
+            wide_phases_cycles=phaseprof.decode_summary(wst, decode_fused.WIDE_PHASES))
         d = dec[name]
         print(f"[times] {name}: decode_kernel alone {_or_not_measured(kernel_ms)}, a call "
               f"{d['call_ms']:.4f} ms (CUDA events), a lone call {d['lone_ms']:.4f} ms (host "
@@ -2461,9 +2506,13 @@ def main() -> int:
         if row["name"] in sharded:
             row["launches_sharded"] = sharded[row["name"]]
 
-    # --------------------------------------------------------- 15. result
+    # ------------------------------------------------ 15. bench and records
+    _bench_records(rows, urls, lambda: time_ms(lambda: decode_fused._launch(
+        decode_fused.decode_blocks, flat, offs_b, lens_b, dl_b, BS)))
+
+    # --------------------------------------------------------- 16. result
     print(json.dumps({"kernels": rows}), flush=True)
-    print(_smi("name,power.limit"), flush=True)
+    print(smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

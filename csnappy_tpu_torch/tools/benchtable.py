@@ -9,7 +9,9 @@ its table with Google snappy's patched snappy_unittest
 The torch backend measures the *serving path* — batched 32 KiB blocks
 through ``encode_blocks`` and ``decode_blocks`` on the card — with slope
 timing on a synchronised host clock (tools/timing.py), and verifies the
-roundtrip.  py/native backends are host code and use best-of-N wall timing.
+roundtrip; its first line names the device (the card's name and power
+limit, or cpu).  py/native backends are host code and use best-of-N wall
+timing.
 
 Usage:
   python -m csnappy_tpu_torch.tools.benchtable [-b torch|py|native] FILES...
@@ -113,7 +115,12 @@ def main(argv=None) -> int:
             items.append((path.rsplit("/", 1)[-1], f.read()))
     if not items:
         ap.error("no files (pass paths or --corpus)")
-    print(f"backend={args.backend}")
+    if args.backend == "torch":                 # the run names what it measured
+        from .timing import card
+
+        print(f"backend=torch device={card(args.device)}")
+    else:
+        print(f"backend={args.backend}")
     print(f"{'file':<14} {'in->out bytes':>21} {'ratio':>7} {'comp':>12} {'decomp':>12}")
     for name, data in items:
         m = measure(data, args.backend, args.device)

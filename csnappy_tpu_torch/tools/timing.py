@@ -20,6 +20,7 @@ card two honest clocks exist, and both are used here:
 from __future__ import annotations
 
 import statistics
+import subprocess
 import time
 
 import torch
@@ -31,6 +32,26 @@ HBM_BYTES_PER_S = 3.35e12       # device memory
 OPS_PER_S = 67e12               # 32-bit operations outside the tensor cores
 BF16_PER_S = 989e12             # dense bf16 on the tensor cores
 INT8_PER_S = 1979e12            # dense int8 on the tensor cores
+
+
+def smi(query: str) -> str:
+    """The first card's fields as ``nvidia-smi --query-gpu=QUERY
+    --format=csv,noheader`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def card(device=None) -> str:
+    """What a measurement on ``device`` (None = cuda) ran on: the card's name
+    and power limit ("NVIDIA H100 80GB HBM3, 700.00 W"), or "cpu"."""
+    return "cpu" if resolve_device(device).type == "cpu" else smi("name,power.limit")
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock in MHz (``clocks.max.sm``)."""
+    return float(smi("clocks.max.sm").split()[0])
 
 
 def time_ms(fn, n: int = 20, warm: int = 3, device=None) -> float:

@@ -24,6 +24,31 @@ import time
 
 from ..runtime import container
 
+TREE_BYTES = 256 << 20         # the corpus tree: 65,536 pages of 4 KiB
+
+
+def corpus_tree(root: str, total: int = TREE_BYTES) -> list[str]:
+    """Copy the port's corpus (``tools/corpus.py``, urls.10K among it) under
+    ``root``, one subdirectory ``copy000``, ``copy001``, ... a copy, until
+    ``total`` bytes are written (the last file cut short).  Returns the
+    corpus's file names."""
+    from .corpus import corpus
+
+    files = sorted(corpus().items())
+    written, copy = 0, 0
+    while written < total:
+        sub = os.path.join(root, f"copy{copy:03d}")
+        os.makedirs(sub)
+        for name, data in files:
+            part = data[: total - written]
+            if not part:
+                break
+            with open(os.path.join(sub, name), "wb") as f:
+                f.write(part)
+            written += len(part)
+        copy += 1
+    return [name for name, _ in files]
+
 
 def run(root: str, page_size: int = 4096, codec: str = "snappy", device=None) -> dict:
     files = []

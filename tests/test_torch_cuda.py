@@ -1335,3 +1335,38 @@ def test_sharded_roundtrip_on_a_one_rank_nccl_group(card, urls10k):
         assert ei.value.code == E_OUTPUT_OVERRUN
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------ bench line, phaseprof
+
+
+def test_bench_line_on_card(card, capsys):
+    import json
+
+    import bench_torch
+    from csnappy_tpu_torch.tools import timing
+
+    assert bench_torch.main(["--reps", "3"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert tuple(line) == bench_torch.KEYS and line["compressed_bytes"] == 354567
+    assert line["device"] == timing.card() and line["device"].endswith(" W")
+    assert 0 < line["roofline_utilization_pct"] <= 100 and line["value"] > 0
+
+
+def test_phaseprof_on_card(card, urls10k):
+    import math
+
+    from csnappy_tpu_torch.tools import phaseprof
+
+    decode = phaseprof.profile_decode(urls10k)
+    assert decode[-2]["tags"] > 0 and decode[-2]["windows"] > 0 and decode[-2]["rounds"] > 0
+    for rows, names, rate in ((decode, decode_fused.PHASES, "GBps_full"),
+                              (phaseprof.profile_encode(urls10k), encode_fused.PHASES, "MBps_full")):
+        phases = rows[:-1]
+        assert tuple(r["phase"] for r in phases) == names
+        assert all(r["cycles"] >= 0 and r["median_cycles"] >= 0 for r in phases)
+        assert math.isclose(sum(r["delta_ms"] for r in phases), phases[-1]["cum_ms"],
+                            rel_tol=1e-12)
+        assert set(rows[-1]) == {rate, "device"} and rows[-1][rate] > 0

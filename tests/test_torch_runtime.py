@@ -175,8 +175,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from csnappy_tpu_torch.runtime import container, native\n"
         "from csnappy_tpu_torch import cli\n"
         "from csnappy_tpu_torch.parallel import dryrun, mesh, multihost\n"
-        "from csnappy_tpu_torch.tools import benchtable, corpus, movebench, probe, timing,"
-        " zramsim\n"
+        "from csnappy_tpu_torch.tools import benchtable, corpus, movebench, phaseprof, probe,"
+        " records, timing, zramsim\n"
+        "import bench_torch\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'csnappy_tpu'))\n"
         "assert not bad, bad\n"
