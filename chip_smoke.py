@@ -6,20 +6,30 @@
 Builds the port's kernels from the sources in this checkout, then, in order:
 
 1. build   — every native source, one compiler each, all started together;
-2. decode  — ``decode_blocks`` (``csrc/decode_blocks.cu``: ``decode_kernel``
-             for rows up to 32 KiB, ``decode_wide_kernel`` past them, chosen
-             by width) on B=64 blocks of urls.10K (32 KiB each, as bench.py
-             makes them) and on malformed and error-priority vectors at four
-             output limits; ``decode_segments`` on urls.10K.snappy's body;
-             every decode group of ``tests/data/torch_ref/blocks.npz`` (the
-             adversarial ``dadv`` among them) equal to the JAX answers, but
-             on the JAX package's known faults (``JAX_DECODE_FAULTS``), and
-             the dadv rows' resolve rounds printed and bounded by
-             ceil(log2 block_out) + 1; 200 pages of 4 KiB; rows of 32,769,
-             70,000 and 131,072 bytes through the wide kernel.  Each kernel
-             result must equal the plain version run on CPU copies: every
-             output byte, ``produced`` and ``status`` (exact: bytes have no
-             tolerance);
+2. decode  — ``decode_blocks`` (``csrc/decode_blocks.cu``'s ``decode_kernel``
+             for rows up to 32 KiB; past them ``csrc/decode_wide.cu``'s
+             chain, segment and finish kernels, chosen by width) on B=64
+             blocks of urls.10K (32 KiB each, as bench.py makes them) and on
+             malformed and error-priority vectors at four output limits;
+             ``decode_segments`` on urls.10K.snappy's body; every decode
+             group of ``tests/data/torch_ref/blocks.npz`` (the adversarial
+             ``dadv`` among them) equal to the JAX answers, but on the JAX
+             package's known faults (``JAX_DECODE_FAULTS``), and the dadv
+             rows' resolve rounds printed and bounded by ceil(log2
+             block_out) + 1; 200 pages of 4 KiB; then the wide kernels: every
+             group of ``wide.npz`` (65,536, 70,000, 2^18 and 2^20 B rows)
+             equal to the oracle's stored answers and, but on the JAX
+             faults, to the JAX answers; rows of 32,769, 65,536, 70,000,
+             131,073, 2^18, 2^20 and 2^24 B (``wide_cases``: urls data, an
+             offset-1 run, far COPY_4 reads, events in the first and the
+             last segment) through ``decode_blocks`` and, read in place at
+             mixed limits, ``decode_segments``; one ``decode_segments`` batch
+             mixing widths; the main path's wide batch
+             (``main_path_batch``) ``WIDE_REPEATS`` times, from host bytes
+             and a card tensor in turn (``wide_repeats``).  Each kernel
+             result must equal the plain
+             version run on CPU copies: every output byte, ``produced`` and
+             ``status`` (exact: bytes have no tolerance);
 3. encode  — ``encode_blocks`` (one kernel, ``csrc/encode_blocks.cu``) on the
              same B=64 x 32 KiB batch, equal byte for byte to the plain
              version (tensor-op preparation, plain walk), ``compress_np(urls.10K)``
@@ -33,14 +43,21 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              ``decode_blocks`` on the B=64 batch from host arrays,
              ``api.compress(urls.10K)`` equal to the fixture,
              ``api.decompress(urls.10K.snappy)`` equal to urls.10K, a 32 KiB
-             fragment and the unaligned vector round-trip; every kernel of
-             the path must have launched, every decode through
-             ``decode_kernel``; then ``torch.profiler`` counts the device
+             fragment and the unaligned vector round-trip, urls.10K.snappy's
+             body as one ``decode_blocks`` row of 702,087 B and one
+             ``decode_segments`` batch mixing widths; every kernel of the
+             path must have launched, every narrow decode through
+             ``decode_kernel`` and each wide call through the three wide
+             kernels, each wrapper's and kernel's launches counted around
+             each wide call (the ``kernels`` line's wide rows print those
+             counts; rows 1-2 their calls through ``decode_kernel``); then ``torch.profiler`` counts the device
              kernels of one ``encode_blocks``, one ``decode_blocks`` and one
              ``decode_segments`` call on card tensors: exactly one each, the
              encoder's and ``decode_kernel``, and no sort, scan, gather or
-             scatter; of one ``decode_ws.decompress_noheader_ws`` call
-             exactly two, the scan's and ``decode_kernel``;
+             scatter; of one wide ``decode_blocks`` call one memset and the
+             three wide kernels once each; of one
+             ``decode_ws.decompress_noheader_ws`` call exactly two, the
+             scan's and ``decode_kernel``;
 5. times   — median of 20 CUDA-event-timed launches after warm-up for each
              kernel at the main path's shapes (inputs resident in L2), the
              plain version's time on the host, and the bound: the larger of
@@ -54,9 +71,13 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              synchronised), the shared memory at 32 KiB and 4 KiB and the SM
              cycles of their phases (``clock64()`` stamps, read by
              ``tools/phaseprof.py``); for the decoder
-             its ``ptxas -v`` line and the split of the port's first design
-             (``decode_wide_kernel`` launched at 32 KiB: walk, literals,
-             copies);
+             its ``ptxas -v`` line; the wide kernels (``[wide]`` lines) at
+             49,152, 65,536, 70,000 and 131,072 B, one row and 64 rows, and
+             on urls.10K.snappy's and urls.10K x 24's bodies as one row of
+             702,087 and 16,850,088 B: launch, kernels alone, a call, a lone
+             call, each kernel's SM cycles by phase and the chains' spans
+             (stamps), the bound, the plain version, and ``decode_stream.cu``
+             on the same two bodies; their ``ptxas -v`` lines;
 6. whole streams — on every stream of ``tests/data/torch_ref/streams.npz``
              and of ``scan_adv.npz`` (the adversarial scan group):
              ``scan_segments.cu`` equal to its plain walk at nslot = nseg + 1,
@@ -229,7 +250,7 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              ``encode_blocks`` on the card, with its wall time and the time of
              the host copy gloo needs of a rank's lengths and rows;
              ``launches_sharded`` in rows 1-3 (row 1: ``decode_kernel``, the
-             kernel rows 1 and 2 share);
+             kernel rows 1 and 2 share; no wide kernel);
 15. bench and records — ``bench_torch.main(["--reps", "5"])`` in this
              process: exactly one line with ``bench.py``'s 15 keys
              (``bench_torch.KEYS``), ``compressed_bytes`` 354,567, the card
@@ -243,8 +264,9 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              ``delta_ms`` summing to the last ``cum_ms``, the benchtable's
              ``urls.10K`` row ``702087 ->   354567``, each record naming the
              card;
-16. the ``kernels`` JSON line, the card's name and power limit, and the
-   result line.
+16. the ``kernels`` JSON line (rows 1-2's wide path as ``decode_blocks_wide``
+   and ``decode_segments_wide`` after them), the card's name and power
+   limit, and the result line.
 
 Any failure raises and exits non-zero; with no card, or without the
 package beside this script, it exits non-zero before printing a result.
@@ -362,7 +384,8 @@ def _same(name, got, want) -> int:
 def _pack(torch, frags):
     arr = torch.zeros((len(frags), max(len(f) for f in frags)), dtype=torch.uint8)
     for i, f in enumerate(frags):
-        arr[i, : len(f)] = torch.frombuffer(bytearray(f), dtype=torch.uint8)
+        if f:
+            arr[i, : len(f)] = torch.frombuffer(bytearray(f), dtype=torch.uint8)
     return arr, torch.tensor([len(f) for f in frags], dtype=torch.int32)
 
 
@@ -423,11 +446,295 @@ def _decode_fixtures(torch, np, dev, decode_fused) -> list:
     return rounds
 
 
-def _launch_ms(decode_fused, wrapper, args, width: int, kernel=None) -> float:
-    """Milliseconds of one launch of ``decode_blocks.cu`` (CUDA events)."""
+def _launch_ms(decode_fused, wrapper, args, width: int, n: int = 20) -> float:
+    """Milliseconds of one launch of the decoder's kernels (CUDA events)."""
     from csnappy_tpu_torch.tools.timing import time_ms
 
-    return time_ms(lambda: decode_fused._launch(wrapper, *args, width, kernel=kernel))
+    return time_ms(lambda: decode_fused._launch(wrapper, *args, width), n=n)
+
+
+# the wide group of tests/data/torch_ref/wide.npz and its block_out; the
+# rows where the JAX package answers otherwise than the reference decoder
+WIDE_GROUPS = {"w64k": 65536, "w70k": 70000, "w256k": 1 << 18, "w1m": 1 << 20}
+WIDE_JAX = ("w64k", "w70k")
+WIDE_JAX_FAULTS = {"w70k": (0,), "w64k": (6, 7)}
+WIDE_WIDTHS = (32769, 65536, 70000, 131073, 1 << 18, 1 << 20, 1 << 24)
+WIDE_TIMED = (49152, 65536, 70000, 131072)     # phase 5, one row and B=64 rows
+WIDE_REPEATS = 50                               # phase 2: the main path's wide batch again
+
+
+def wide_cases(width: int, seed: int) -> list:
+    """Rows of ``width`` bytes for the wide kernels, cheap for the plain
+    version: urls.10K repeated as 32 KiB fragments, an offset-1 run, COPY_4
+    reads up to 100,000 back, and events in the first and the last segment:
+    [(name, fragment)].  Shared with the card tests."""
+    import numpy as np
+
+    from csnappy_tpu_torch.models import pymodel, wire
+
+    rng = np.random.default_rng(seed)
+    urls = (DATA / "urls.10K").read_bytes()
+    data = (urls * (width // len(urls) + 1))[:width]
+    frags = b"".join(pymodel.compress_fragment(data[i : i + 32768])
+                     for i in range(0, width, 32768))
+    run = bytearray(b"\x00z") + bytes([wire.TAG_COPY_2 | (63 << 2), 1, 0]) * ((width - 1) // 64)
+    if (width - 1) % 64:
+        run += bytes([wire.TAG_COPY_2 | (((width - 1) % 64 - 1) << 2), 1, 0])
+    far = bytearray()
+    lit = rng.integers(0, 256, min(width, 200000) // 2, dtype=np.uint8).tobytes()
+    wire.emit_literal(far, lit)
+    op = len(lit)
+    while op < width:
+        n = min(64, width - op)
+        off = int(rng.integers(1, op + 1))
+        far += bytes([wire.TAG_COPY_4 | ((n - 1) << 2)]) + off.to_bytes(4, "little")
+        op += n
+    head = pymodel.compress_fragment(urls[:1000])
+    short = b"".join(pymodel.compress_fragment(data[i : min(i + 32768, width - 64)])
+                     for i in range(0, width - 64, 32768))
+    return [("urls", frags), ("offset-1 run", bytes(run)), ("far COPY_4", bytes(far)),
+            ("bad offset in the first segment", head + bytes([wire.TAG_COPY_2 | (7 << 2)])
+             + (5000).to_bytes(2, "little") + frags),
+            ("cut in the first segment", head[:-1]),
+            ("overrun at the last byte", frags + b"\x00!"),
+            ("bad offset in the last segment", short + bytes([wire.TAG_COPY_4 | (7 << 2)])
+             + (width + 5).to_bytes(4, "little")),
+            ("cut at the end", frags[:-1]), ("empty", b"")]
+
+
+def main_path_batch() -> tuple:
+    """The main path's ``decode_segments`` batch of rows past 32 KiB: the
+    body of urls.10K.snappy (limit 702,087), urls.10K's first 32 KiB as one
+    fragment (limit 32,768) and the first w256k row of wide.npz (limit
+    2^18: urls.10K's first 2^18 B as 32 KiB fragments, 127,497 B of input),
+    back to back at unaligned offsets: (body, offsets, lengths, limits, the
+    rows' decoded bytes).
+    Shared with the card tests."""
+    import numpy as np
+
+    from csnappy_tpu_torch.models import pymodel, wire
+
+    golden = (DATA / "urls.10K.snappy").read_bytes()
+    urls = (DATA / "urls.10K").read_bytes()
+    with np.load(DATA / "torch_ref" / "wide.npz") as z:
+        w256 = z["w256k_comp"][0, : z["w256k_lens"][0]].tobytes()
+    rows = [golden[wire.varint_decode(golden)[1]:], pymodel.compress_fragment(urls[:32768]), w256]
+    offs = np.cumsum([0] + [len(f) for f in rows[:-1]])
+    dl = np.array([len(urls), 32768, 1 << 18])
+    want = [urls, urls[:32768], pymodel.decompress_noheader(w256, 1 << 18)]
+    return b"".join(rows), offs, np.array([len(f) for f in rows]), dl, want
+
+
+def wide_repeats(n: int, dev=None) -> dict:
+    """:func:`main_path_batch` through ``decode_segments`` ``n`` times on the
+    card, from host bytes and from a card tensor in turn, with the body as
+    one 702,087-byte ``decode_blocks`` row between them; every call's bytes,
+    ``produced`` and status held against the batch's known answers.
+    Returns the calls made and those that differed (by kind)."""
+    import numpy as np
+    import torch
+
+    from csnappy_tpu_torch.ops import decode_fused
+
+    dev = torch.device(dev or "cuda")
+    body, offs, lens, dl, want = main_path_batch()
+    width = int(dl.max())
+    ref = torch.zeros((len(want), width), dtype=torch.uint8)
+    for i, w in enumerate(want):
+        ref[i, : len(w)] = torch.frombuffer(bytearray(w), dtype=torch.uint8)
+    ref = ref.to(dev)
+    rprod = torch.tensor([len(w) for w in want], dtype=torch.int32, device=dev)
+    bdev = torch.frombuffer(bytearray(body), dtype=torch.uint8).to(dev)
+    row = torch.frombuffer(bytearray(body[: lens[0]]), dtype=torch.uint8).to(dev)[None, :]
+    bad = {"segments": 0, "blocks": 0}
+    for i in range(n):
+        out, prod, st = decode_fused.decode_segments(body if i % 2 else bdev, offs, lens, dl)
+        if not (torch.equal(out, ref) and torch.equal(prod, rprod) and not st.any()):
+            bad["segments"] += 1
+        bo, bp, bs = decode_fused.decode_blocks(row, [int(lens[0])], width)
+        if not (torch.equal(bo[0], ref[0]) and int(bp[0]) == width and int(bs[0]) == 0):
+            bad["blocks"] += 1
+    return {"calls": 2 * n, "differed": bad}
+
+
+def _wide_times(torch, np, dev, decode_fused, urls: bytes, body: bytes) -> dict:
+    """Phase 5's measurements of the wide kernels (``csrc/decode_wide.cu``):
+    rows of urls.10K data at each width of ``WIDE_TIMED`` (one row, and 64
+    rows), urls.10K.snappy's body as one row of 702,087 B and urls.10K x
+    24's body as one row of 16,850,088 B, each with its launch (CUDA
+    events), its kernels alone (torch.profiler), a call, a lone call (host
+    clock), the SM cycles of each kernel's slowest block by phase and the
+    chains' spans (stamps), the bound (bytes over 3.35 TB/s) and the plain
+    version; ``decode_stream.cu`` on the two whole bodies beside them.
+    Returns the ``kernels`` line's measured fields of ``decode_blocks_wide``
+    (the 702,087-byte row) and ``decode_segments_wide`` (the main path's
+    mixed batch), with every case under ``cases``."""
+    from csnappy_tpu_torch import api
+    from csnappy_tpu_torch.models import pymodel, wire
+    from csnappy_tpu_torch.ops import decode_stream as ds
+    from csnappy_tpu_torch.tools import phaseprof
+    from csnappy_tpu_torch.tools.timing import device_profile, time_ms
+
+    big = api.compress(urls * 24)
+    ulen, hdr = wire.varint_decode(big)
+    long = (urls * 2)
+    cases = []
+    for width in WIDE_TIMED:
+        rows = [b"".join(pymodel.compress_fragment(long[o + i : o + min(i + 32768, width)])
+                         for i in range(0, width, 32768))
+                for o in range(0, 64 * 9973, 9973)]
+        cases += [(f"{width} B x 1", rows[:1], width), (f"{width} B x 64", rows, width)]
+    cases += [("urls.10K.snappy body as one row", [body], len(urls)),
+              ("urls.10K x 24 body as one row", [big[hdr:]], ulen)]
+    recs = {}
+    for label, frags, width in cases:
+        comp, lens = _pack(torch, frags)
+        B = len(frags)
+        cdev, lens_np = comp.to(dev), lens.numpy()
+        args = (cdev.reshape(-1), torch.arange(B, device=dev, dtype=torch.int64) * comp.shape[1],
+                lens.to(dev), torch.full((B,), width, dtype=torch.int32, device=dev))
+        plan = decode_fused.plan_on(dev, lens_np, [width] * B, width)
+        got, (chain, seg) = phaseprof.stamped_wide(decode_fused.decode_blocks, args, width)
+        t0 = time.perf_counter()
+        want = decode_fused.decode_blocks(comp, lens, width, device="cpu")
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        _same(f"wide {label}", got, want)
+        assert (want[2] == 0).all() and (want[1] == width).all(), label
+        reps = 20 if width * B < 1 << 24 else 5
+        call = lambda: decode_fused.decode_blocks(cdev, lens_np, width)   # noqa: E731
+        prof = device_profile(call, reps)
+        summ = phaseprof.wide_summary(chain, seg)
+        nbytes = int(lens.sum()) + 32 * B + B * width + 8 * B
+        bound_ms, bound_by = _bound(nbytes)
+        rec = {"B": B, "width": width, "in": int(lens.sum()), "chunks": plan[1],
+               "segments": plan[2],
+               "ms": time_ms(lambda: decode_fused._launch(decode_fused.decode_blocks, *args, width,
+                                                          plan=plan), n=reps),
+               "kernels_ms": sum(v for k, v in prof["kernels"].items() if "wide_" in k) or None,
+               "kernels": prof["kernels"], "call_ms": time_ms(call, n=reps),
+               "lone_ms": _lone_ms(torch, call, reps), "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "cycles": {k: {"slowest": v["cycles"], "phases": v["phases"],
+                              "span_ns": v["span_ns"]} for k, v in summ.items()},
+               "waited": int((seg[:, decode_fused.WIDE_SEG_STAMPS.index("externals")] > 0).sum()),
+               "max_rounds": int(seg[:, decode_fused.WIDE_SEG_STAMPS.index("rounds")].max())}
+        rec["GBps"] = B * width / (rec["ms"] * 1e-3) / 1e9
+        assert rec["max_rounds"] <= 16, rec["max_rounds"]
+        if B == 1 and width in (len(urls), ulen):      # decode_stream.cu on the same body
+            bd = args[0]
+            cap, limit = ds._limits(bd.numel(), width)
+            dsp = device_profile(lambda: ds.decode_stream(bd, width, dev), reps)
+            rec["decode_stream"] = {"ms": time_ms(lambda: ds._launch(bd, cap, limit), n=reps),
+                                    "kernels_ms": dsp["device_ms"] or None}
+        recs[label] = rec
+        print(f"[wide] {label}: {B} x {width} B from {rec['in']} B ({rec['chunks']} chunks, "
+              f"{rec['segments']} segments, {rec['waited']} waited on a flag): launched "
+              f"{rec['ms']:.4f} ms ({rec['GBps']:.3f} GB/s), kernels alone "
+              f"{_or_not_measured(rec['kernels_ms'])} {rec['kernels']}, a call "
+              f"{rec['call_ms']:.4f} ms, a lone call {rec['lone_ms']:.4f} ms (host clock); bound "
+              f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B); plain {plain_ms:.1f} ms (host CPU); "
+              f"SM cycles {rec['cycles']}; resolve rounds <= {rec['max_rounds']}"
+              + (f"; decode_stream.cu on the same body launched {rec['decode_stream']['ms']:.4f} "
+                 f"ms, kernels alone {_or_not_measured(rec['decode_stream']['kernels_ms'])}"
+                 if "decode_stream" in rec else ""), flush=True)
+    for k in decode_fused.WIDE_KERNELS:
+        frame, used = _ptxas(k, "decode_wide")
+        print(f"[wide] {k} ptxas -v: {frame}; {used}; dynamic shared memory "
+              f"{decode_fused.smem_bytes(k)} B a block", flush=True)
+    # decode_segments_wide: the main path's batch (urls.10K.snappy's body, a
+    # 32 KiB fragment, a w256k row) read in place
+    mbody, moffs, mlens, mdl, _ = main_path_batch()
+    mdev = torch.frombuffer(bytearray(mbody), dtype=torch.uint8).to(dev)
+    margs = (mdev, torch.as_tensor(moffs, dtype=torch.int64, device=dev),
+             torch.as_tensor(mlens, dtype=torch.int32, device=dev),
+             torch.as_tensor(mdl, dtype=torch.int32, device=dev))
+    t0 = time.perf_counter()
+    decode_fused.decode_segments(mbody, moffs, mlens, mdl, device="cpu")
+    mplain = (time.perf_counter() - t0) * 1e3
+    mcall = lambda: decode_fused.decode_segments(mdev, moffs, mlens, mdl)   # noqa: E731
+    mprof = device_profile(mcall)
+    mbytes = int(mlens.sum()) + 32 * 3 + 3 * len(urls) + 8 * 3
+    mbound, mby = _bound(mbytes)
+    mplan = decode_fused.plan_on(dev, mlens, mdl, len(urls))
+    seg_rec = {"ms": time_ms(lambda: decode_fused._launch(decode_fused.decode_segments, *margs,
+                                                          len(urls), plan=mplan)),
+               "plain_ms": mplain, "bound_ms": mbound, "bound_by": mby, "library_ms": None,
+               "kernels_ms": sum(v for k, v in mprof["kernels"].items() if "wide_" in k) or None,
+               "call_ms": time_ms(mcall), "lone_ms": _lone_ms(torch, mcall), "bytes": mbytes}
+    print(f"[wide] decode_segments over the main path's batch (limits {mdl.tolist()}): launched "
+          f"{seg_rec['ms']:.4f} ms, kernels alone {_or_not_measured(seg_rec['kernels_ms'])}, a "
+          f"call {seg_rec['call_ms']:.4f} ms, a lone call {seg_rec['lone_ms']:.4f} ms; bound "
+          f"{mbound:.5f} ms by {mby}; plain {mplain:.1f} ms", flush=True)
+    head = recs["urls.10K.snappy body as one row"]
+    blocks_rec = {k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "kernels_ms",
+                                       "call_ms", "lone_ms", "bytes", "GBps", "cycles")}
+    blocks_rec.update(library_ms=None, cases=recs)
+    return {"decode_blocks": blocks_rec, "decode_segments": seg_rec}
+
+
+def _wide_checks(torch, np, dev, decode_fused) -> dict:
+    """Phase 2's rows past 32 KiB (``csrc/decode_wide.cu``): every group of
+    wide.npz equal to the plain version, the oracle's stored answers and,
+    but on the JAX package's known faults, the JAX answers; every width of
+    ``WIDE_WIDTHS`` on :func:`wide_cases` equal to the plain version, with
+    ``decode_segments`` reading the same rows in place at mixed limits; one
+    ``decode_segments`` batch mixing widths.  Returns the largest byte
+    difference of each entry point (0)."""
+    with np.load(DATA / "torch_ref" / "wide.npz") as z:
+        ref = {k: z[k] for k in z.files}
+    before = dict(decode_fused.launches_by_kernel)
+    for g, width in WIDE_GROUPS.items():
+        comp, lens = ref[f"{g}_comp"], ref[f"{g}_lens"]
+        got = decode_fused.decode_blocks(torch.from_numpy(comp).to(dev), lens, width)
+        _same(f"wide group {g}", got, decode_fused.decode_blocks(comp, lens, width, device="cpu"))
+        out, prod, stat = (t.cpu().numpy() for t in got)
+        assert prod.tolist() == ref[f"{g}_oracle_prod"].tolist(), g
+        assert stat.tolist() == ref[f"{g}_oracle_status"].tolist(), g
+        for i in range(len(lens)):
+            assert hashlib.sha256(out[i].tobytes()).digest() == \
+                ref[f"{g}_oracle_sha256"][i].tobytes(), (g, i)
+            if g in WIDE_JAX and i not in WIDE_JAX_FAULTS.get(g, ()):
+                assert (prod[i], stat[i]) == (ref[f"{g}_prod"][i], ref[f"{g}_status"][i]), (g, i)
+                assert np.array_equal(out[i, : prod[i]], ref[f"{g}_out"][i, : prod[i]]), (g, i)
+    print(f"[decode] wide groups {sorted(WIDE_GROUPS)} of wide.npz equal to plain and the oracle "
+          f"on the card, and to the JAX answers but the JAX faults {WIDE_JAX_FAULTS}", flush=True)
+    errs = {"decode_blocks": 0, "decode_segments": 0}
+    for width in WIDE_WIDTHS:
+        cases = wide_cases(width, width)
+        frags = [f for _, f in cases]
+        comp, lens = _pack(torch, frags)
+        got = decode_fused.decode_blocks(comp.to(dev), lens, width)
+        want = decode_fused.decode_blocks(comp, lens, width, device="cpu")
+        errs["decode_blocks"] = max(errs["decode_blocks"], _same(f"wide rows at {width}", got, want))
+        stat = want[2].tolist()
+        assert stat[:3] == [0, 0, 0] and set(stat[3:8]) == {-3, -5}, (width, stat)
+        body = b"".join(frags)
+        offs = np.cumsum([0] + [len(f) for f in frags[:-1]])
+        dl = np.array([width, width - 1, 40000, width, width, width + 1, width, width, 0])
+        bdev = torch.frombuffer(bytearray(body), dtype=torch.uint8).to(dev)
+        errs["decode_segments"] = max(errs["decode_segments"], _same(
+            f"wide segments at {width}", decode_fused.decode_segments(bdev, offs, lens.numpy(), dl),
+            decode_fused.decode_segments(body, offs, lens.numpy(), dl, device="cpu")))
+        print(f"[decode] width {width}: {len(cases)} rows ({', '.join(n for n, _ in cases)}) "
+              f"equal to plain on the card, statuses {stat}; decode_segments over the same "
+              f"rows at limits {dl.tolist()} equal to plain", flush=True)
+    rows = [f for g in ("w64k", "w256k", "w1m") for f in (
+        ref[f"{g}_comp"][i, : ref[f"{g}_lens"][i]].tobytes() for i in range(len(ref[f"{g}_lens"])))]
+    body = b"".join(rows)
+    offs = np.cumsum([0] + [len(f) for f in rows[:-1]])
+    lens = np.array([len(f) for f in rows])
+    dl = np.array([65536] * 8 + [1 << 18] * 3 + [1 << 20] * 3)
+    dl[::3] = 40000                                   # some rows narrower than the batch's width
+    bdev = torch.frombuffer(bytearray(body), dtype=torch.uint8).to(dev)
+    errs["decode_segments"] = max(errs["decode_segments"], _same(
+        "decode_segments mixing widths", decode_fused.decode_segments(bdev, offs, lens, dl),
+        decode_fused.decode_segments(body, offs, lens, dl, device="cpu")))
+    runs = {k: v - before[k] for k, v in decode_fused.launches_by_kernel.items()}
+    calls = len(WIDE_GROUPS) + 2 * len(WIDE_WIDTHS) + 1
+    assert runs == {"decode_kernel": 0, **dict.fromkeys(decode_fused.WIDE_KERNELS, calls)}, runs
+    print(f"[decode] one decode_segments batch of {len(rows)} rows at limits {dl.tolist()} equal "
+          f"to plain; the wide kernels' launches {runs}", flush=True)
+    return errs
 
 
 def _lone_ms(torch, fn, n: int = 20) -> float:
@@ -1992,7 +2299,8 @@ def _scaleout(torch, np, urls: bytes, fixture: bytes, card: str) -> dict:
         by_kernel = dict(decode_fused.launches_by_kernel)
         # one encode a compress, one decode_segments a decompress (two calls each)
         assert launches == {"decode_blocks": 0, "decode_segments": 2, "encode_blocks": 2}, launches
-        assert by_kernel == {"decode_kernel": 2, "decode_wide_kernel": 0}, by_kernel
+        assert by_kernel == {"decode_kernel": 2, **dict.fromkeys(decode_fused.WIDE_KERNELS, 0)}, \
+            by_kernel
         print(f"[scaleout] 1-rank NCCL group on the card: compress_sharded(urls.10K) "
               f"byte-identical to the JAX fixture ({len(fixture)} B); decompress_fragments_sharded "
               f"of the oracle's {len(frags)} fragments joined to urls.10K; a fragment one byte over "
@@ -2247,16 +2555,13 @@ def main() -> int:
     pcomp, plens = _pack(torch, pages)
     _same("decode_blocks 200 x 4 KiB", decode_fused.decode_blocks(pcomp.to(dev), plens, PAGE),
           decode_fused.decode_blocks(pcomp, plens, PAGE, device="cpu"))
-    wide = frag_of[:3] + [bad[1]]
-    wcomp, wlens = _pack(torch, wide)
-    before = decode_fused.launches_by_kernel["decode_wide_kernel"]
-    for cap in (32769, 70000, decode_fused.MAX_BLOCK_OUT):
-        _same(f"decode_blocks wide rows at {cap}", decode_fused.decode_blocks(
-            wcomp.to(dev), wlens, cap), decode_fused.decode_blocks(wcomp, wlens, cap, device="cpu"))
-    assert decode_fused.launches_by_kernel["decode_wide_kernel"] == before + 3
-    print(f"[decode] 200 pages of {PAGE} B equal to plain (decode_kernel); rows of 32,769, "
-          f"70,000 and {decode_fused.MAX_BLOCK_OUT} B equal to plain (decode_wide_kernel, "
-          f"chosen by width)", flush=True)
+    print(f"[decode] 200 pages of {PAGE} B equal to plain (decode_kernel)", flush=True)
+    wide_errs = _wide_checks(torch, np, dev, decode_fused)
+    repeats = wide_repeats(WIDE_REPEATS, dev)
+    assert repeats["differed"] == {"segments": 0, "blocks": 0}, repeats
+    print(f"[decode] the main path's wide decode_segments batch (limits 702,087, 32,768, 2^18 at "
+          f"unaligned offsets) {WIDE_REPEATS} times, from host bytes and a card tensor in turn, "
+          f"each beside the body as one decode_blocks row: {repeats}", flush=True)
 
     # ----------------------------------------------------------- 3. encode
     data = torch.zeros((B, BS), dtype=torch.uint8)
@@ -2317,13 +2622,47 @@ def main() -> int:
     assert api.decompress(fixture) == urls
     assert api.decompress_noheader(api.compress_fragment(urls[:BS]), BS) == urls[:BS]
     assert api.decompress(api.compress(unaligned)) == unaligned
+    # rows past 32 KiB: urls.10K.snappy's body as one row of 702,087 B, then
+    # one decode_segments batch of that body, a 32 KiB fragment and a w256k
+    # row; each call's launches, of each wrapper and each decoder kernel,
+    # counted around it
+    def counted(fn):
+        calls0 = {k: w.launches for k, w in wrappers.items()}
+        kern0 = dict(decode_fused.launches_by_kernel)
+        got_ = fn()
+        return got_, {"calls": {k: w.launches - calls0[k] for k, w in wrappers.items()},
+                      "kernels": {k: v - kern0[k] for k, v in decode_fused.launches_by_kernel.items()}}
+
+    wide_comp, wide_lens = np.frombuffer(body, np.uint8)[None, :].copy(), np.array([len(body)])
+    (wo, wp, ws_), wide_blocks = counted(
+        lambda: decode_fused.decode_blocks(wide_comp, wide_lens, len(urls)))
+    assert (int(wp[0]), int(ws_[0])) == (len(urls), 0) and wo[0].cpu().numpy().tobytes() == urls
+    mixed_body, mixed_offs, mixed_lens, mixed_dl, mixed_want = main_path_batch()
+    (mo2, mp2, ms2), wide_segs = counted(
+        lambda: decode_fused.decode_segments(mixed_body, mixed_offs, mixed_lens, mixed_dl))
+    assert ms2.cpu().tolist() == [0, 0, 0], ms2
+    assert mp2.cpu().tolist() == [len(w) for w in mixed_want] == mixed_dl.tolist(), mp2
+    for i, w in enumerate(mixed_want):
+        assert mo2[i, : len(w)].cpu().numpy().tobytes() == w, f"main-path batch row {i} differs"
+        assert not mo2[i, len(w):].any(), f"main-path batch row {i} not zero past produced"
     launches = {k: w.launches for k, w in wrappers.items()}
     assert all(n > 0 for n in launches.values()), launches
     by_kernel = dict(decode_fused.launches_by_kernel)
-    assert by_kernel["decode_kernel"] == launches["decode_blocks"] + launches["decode_segments"], \
-        by_kernel
-    print(f"[main] B=64 batch and api compress/decompress end to end on the card; "
-          f"launches {launches}, decoder kernels {by_kernel}", flush=True)
+    # each wide call: one call of its own wrapper, the three wide kernels once
+    wide_counts = {"decode_blocks": wide_blocks, "decode_segments": wide_segs}
+    for w, cnt in wide_counts.items():
+        assert cnt["calls"] == {k: int(k == w) for k in wrappers}, (w, cnt)
+        assert cnt["kernels"] == {k: int(k != "decode_kernel") for k in by_kernel}, (w, cnt)
+    wide_calls = {w: cnt["calls"][w] for w, cnt in wide_counts.items()}
+    # the calls of rows 1-2 that went through decode_kernel
+    narrow_calls = {w: launches[w] - wide_calls[w] for w in wide_calls}
+    assert by_kernel == {"decode_kernel": sum(narrow_calls.values()),
+                         **{k: sum(c["kernels"][k] for c in wide_counts.values())
+                            for k in decode_fused.WIDE_KERNELS}}, by_kernel
+    print(f"[main] B=64 batch, api compress/decompress and two wide calls (a row of "
+          f"{len(urls)} B; a decode_segments batch at limits {mixed_dl.tolist()}) end to end on "
+          f"the card; launches {launches}, decoder kernels {by_kernel}; counted around each wide "
+          f"call {wide_counts}; decode_kernel calls by wrapper {narrow_calls}", flush=True)
     data_dev, blens_np = data.to(dev), blens.numpy()
     enc_kernels = _device_kernels(torch, lambda: encode_fused.encode_blocks(data_dev, blens_np))
     assert len(enc_kernels) == 1 and list(enc_kernels.values()) == [1], enc_kernels
@@ -2342,6 +2681,15 @@ def main() -> int:
         assert len(dk) == 1 and list(dk.values()) == [1] and name in next(iter(dk)), (what, dk)
         print(f"[main] one {what} call on card tensors runs 1 device kernel: {dk} "
               f"(torch.profiler; copies not counted)", flush=True)
+    wide_dev = torch.from_numpy(wide_comp).to(dev)
+    wops = _device_ops(torch, lambda: decode_fused.decode_blocks(wide_dev, wide_lens, len(urls)))
+    wk = {k: v for k, v in wops.items() if not k.startswith(("Memcpy", "Memset"))}
+    assert sorted(wk.values()) == [1, 1, 1] and all(
+        any(n in k for k in wk) for n in decode_fused.WIDE_KERNELS), wops
+    assert sum(v for k, v in wops.items() if k.startswith("Memset")) == 1, wops
+    print(f"[main] one decode_blocks call on a card row of {len(urls)} B runs one memset and "
+          f"3 device kernels, the wide chain, segment and finish kernels once each: {wops} "
+          f"(torch.profiler; the copy is its offsets, lengths, limits and plan)", flush=True)
     from csnappy_tpu_torch.ops import decode_ws
 
     dk = _device_kernels(torch, lambda: decode_ws.decompress_noheader_ws(body_dev, len(urls)))
@@ -2392,8 +2740,7 @@ def main() -> int:
           f"{encode_fused.smem_bytes(PAGE)} B at bs = {PAGE} (dynamic; ptxas above)", flush=True)
     enc_plain = _host_ms(lambda: encode_fused.encode_blocks(data, blens, device="cpu"))
 
-    # the decoder: the kernel alone, a call, a lone call, its phases; the
-    # present design's split (decode_wide_kernel, launched at 32 KiB here only)
+    # the decoder: the kernel alone, a call, a lone call, its phases
     dec = {}
     for name, wrapper, args, call in (
             ("decode_blocks", decode_fused.decode_blocks, (flat, offs_b, lens_b, dl_b),
@@ -2403,23 +2750,17 @@ def main() -> int:
         kernel_ms = sum(device_profile(
             lambda: decode_fused._launch(wrapper, *args, BS))["kernels"].values()) or None
         _, st = phaseprof.stamped_decode(wrapper, args, BS)
-        _, wst = phaseprof.stamped_decode(wrapper, args, BS, kernel="decode_wide_kernel")
-        dec[name] = dict(
-            kernel_ms=kernel_ms, call_ms=time_ms(call), lone_ms=_lone_ms(torch, call),
-            phases_cycles=phaseprof.decode_summary(st),
-            wide_ms=_launch_ms(decode_fused, wrapper, args, BS, kernel="decode_wide_kernel"),
-            wide_phases_cycles=phaseprof.decode_summary(wst, decode_fused.WIDE_PHASES))
+        dec[name] = dict(kernel_ms=kernel_ms, call_ms=time_ms(call), lone_ms=_lone_ms(torch, call),
+                         phases_cycles=phaseprof.decode_summary(st))
         d = dec[name]
         print(f"[times] {name}: decode_kernel alone {_or_not_measured(kernel_ms)}, a call "
               f"{d['call_ms']:.4f} ms (CUDA events), a lone call {d['lone_ms']:.4f} ms (host "
-              f"clock); SM cycles {d['phases_cycles']}; the present design "
-              f"(decode_wide_kernel at {BS} B) {d['wide_ms']:.4f} ms launched, SM cycles "
-              f"{d['wide_phases_cycles']}", flush=True)
+              f"clock); SM cycles {d['phases_cycles']}", flush=True)
     frame, used = _ptxas("decode_kernel", "decode_blocks")
     print(f"[times] decode_kernel ptxas -v: {frame}; {used}; shared memory "
           f"{decode_fused.layout(BS)} at {BS} B rows, {decode_fused.layout(PAGE)} at {PAGE} B "
-          f"(dynamic; the wide kernel {decode_fused.smem_bytes(decode_fused.MAX_BLOCK_OUT)} B "
-          f"at {decode_fused.MAX_BLOCK_OUT})", flush=True)
+          f"(dynamic)", flush=True)
+    wide = _wide_times(torch, np, dev, decode_fused, urls, body)
 
     rows = []
     # bytes each function must move: every input tensor read once (per-block
@@ -2448,8 +2789,9 @@ def main() -> int:
                        commits_max=max(commits), phases_cycles=phases,
                        smem_bytes=encode_fused.smem_bytes(BS))
         else:
-            row.update(dec[name], tags_max=steps, smem_bytes=decode_fused.smem_bytes(BS),
-                       launches_by_kernel=by_kernel)
+            row.update(dec[name], tags_max=steps,
+                       smem_bytes=decode_fused.smem_bytes("decode_kernel", BS),
+                       launches=narrow_calls[name], launches_by_kernel=by_kernel)
             if name == "decode_blocks":
                 row["dadv_rounds"] = dadv_rounds
         rows.append(row)
@@ -2462,6 +2804,13 @@ def main() -> int:
                  f"events), a lone call {enc_lone_ms:.4f} ms (host clock)"
                  if name == "encode_blocks" else
                  f" (the longest block's {steps} tags, walked eight a step)"), flush=True)
+    rows[2:2] = [dict(name=f"{w}_wide", route="cuda",
+                      source="csnappy_tpu_torch/csrc/decode_wide.cu", replaces=rep,
+                      launches=wide_calls[w], max_abs_err=wide_errs[w],
+                      kernels=list(decode_fused.WIDE_KERNELS),
+                      launches_by_kernel=wide_counts[w]["kernels"], **wide[w])
+                 for w, rep in (("decode_blocks", "csnappy_tpu/ops/decode_fused.py:714"),
+                                ("decode_segments", "csnappy_tpu/ops/decode_fused.py:782"))]
     print(f"[times] card {name_}, power limit {power_}, max SM clock {clock_}", flush=True)
 
     # -------------------------------------------------- 6. whole streams

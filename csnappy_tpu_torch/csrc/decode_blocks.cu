@@ -63,19 +63,14 @@
 // starts (kWin each): 189,456 B at w = 32,768, 103,440 B at 4,096 (two
 // blocks an SM).
 //
-// decode_wide_kernel, for rows wider than kFastMax (up to MAX_BLOCK_OUT =
-// 131,072; no API route makes them: only tests and the far fixture), is
-// the port's first design, kept as it was, chosen by width before the
-// launch: 256 threads; each round stages kWideWin bytes, thread 0 walks up
-// to kWideTags tags and records them, warps copy literals, then warp 0
-// resolves copies in tag order.
+// Rows wider than kFastMax take csrc/decode_wide.cu's kernels, chosen by
+// width before the launch (ops/decode_fused.py::kernel_for).
 //
 // With a non-null `stamps` (kStamps int64 a block), thread 0 writes the SM
-// cycles each phase took, summed over the windows: decode_kernel's staged,
-// parsed, walked, judged, covered, resolved, gathered, written at 0..7;
-// decode_wide_kernel's staged, walked, literals, copies, written at 0..4;
-// then at kStamps - 3 .. kStamps - 1 the windows, the tags walked and the
-// resolve rounds.  COPY_4 offsets keep their 32-bit value in both.
+// cycles each phase took, summed over the windows: staged, parsed, walked,
+// judged, covered, resolved, gathered, written at 0..7; then at kStamps - 3
+// .. kStamps - 1 the windows, the tags walked and the resolve rounds.
+// COPY_4 offsets keep their 32-bit value.
 
 #include <atomic>
 #include <climits>
@@ -487,165 +482,6 @@ decode_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__ offs,
   clk.write();
 }
 
-// ------------------------------------------------------- the wide kernel
-
-constexpr int kWideThreads = 256;
-constexpr int kWideWarps = kWideThreads / 32;
-constexpr int kWideWin = 8192;    // compressed bytes staged per round
-constexpr int kWideTags = 2048;   // tags recorded per round
-constexpr int32_t kCopyBit = 1 << 30;
-
-__global__ void __launch_bounds__(kWideThreads)
-decode_wide_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__ offs,
-                   const int32_t* __restrict__ slens, const int32_t* __restrict__ dlims,
-                   uint8_t* __restrict__ out, int64_t out_stride,
-                   int32_t* __restrict__ produced, int32_t* __restrict__ status,
-                   int64_t* __restrict__ stamps) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  int32_t* t_os = reinterpret_cast<int32_t*>(smem);   // output start
-  int32_t* t_src = t_os + kWideTags;                  // literal: input pos; copy: offset
-  int32_t* t_len = t_src + kWideTags;                 // length | kCopyBit for copies
-  uint8_t* win = reinterpret_cast<uint8_t*>(t_len + kWideTags);
-  uint8_t* obuf = win + kWideWin;                     // out_stride bytes
-  __shared__ int s_ip, s_op, s_nt, s_state;           // state: 0 more, 1 done, <0 error
-  __shared__ long long s_cyc[kStamps];
-
-  const int b = blockIdx.x;
-  const uint8_t* in = src + offs[b];
-  const int slen = slens[b];
-  const int dlim = dlims[b];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  Clock clk{stamps, s_cyc};
-  clk.start();
-  int windows = 0, tags = 0;
-  if (threadIdx.x == 0) { s_ip = 0; s_op = 0; s_state = 0; }
-  __syncthreads();
-
-  while (s_state == 0) {
-    ++windows;
-    const int ip0 = s_ip;
-    const int wlim = (slen - ip0 > kWideWin) ? ip0 + kWideWin : slen;
-    for (int i = threadIdx.x; i < wlim - ip0; i += kWideThreads) win[i] = in[ip0 + i];
-    __syncthreads();
-    clk.lap(0);
-
-    if (threadIdx.x == 0) {
-      const uint8_t* w = win - ip0;                   // w[ip] == in[ip] inside the window
-      const bool last = (wlim == slen);
-      int ip = ip0, op = s_op, nt = 0, state = 0;
-      while (nt < kWideTags) {
-        if (ip >= slen) { state = 1; break; }
-        if (!last && ip + 5 > wlim) break;            // tag may reach past the window
-        const uint32_t tag = w[ip];
-        if ((tag & 3) == 0) {
-          const uint32_t u = tag >> 2;
-          int64_t len;
-          int hdr;
-          if (u < 60) {
-            len = u + 1;
-            hdr = 1;
-          } else {
-            const int nb = static_cast<int>(u) - 59;
-            if (static_cast<int64_t>(ip) + 1 + nb > slen) { state = E_DATA_MALFORMED; break; }
-            uint32_t v = 0;
-            for (int k = 0; k < nb; ++k) v |= static_cast<uint32_t>(w[ip + 1 + k]) << (8 * k);
-            len = static_cast<int64_t>(v) + 1;
-            hdr = 1 + nb;
-          }
-          if (static_cast<int64_t>(ip) + hdr + len > slen) { state = E_DATA_MALFORMED; break; }
-          if (static_cast<int64_t>(op) + len > dlim) { state = E_OUTPUT_OVERRUN; break; }
-          t_os[nt] = op;
-          t_src[nt] = ip + hdr;
-          t_len[nt] = static_cast<int32_t>(len);
-          ++nt;
-          op += static_cast<int>(len);
-          ip += hdr + static_cast<int>(len);
-        } else {
-          uint32_t len, off;
-          int hdr;
-          if ((tag & 3) == 1) {
-            if (ip + 2 > slen) { state = E_DATA_MALFORMED; break; }
-            len = ((tag >> 2) & 7) + 4;
-            off = ((tag >> 5) << 8) | w[ip + 1];
-            hdr = 2;
-          } else if ((tag & 3) == 2) {
-            if (ip + 3 > slen) { state = E_DATA_MALFORMED; break; }
-            len = (tag >> 2) + 1;
-            off = w[ip + 1] | (static_cast<uint32_t>(w[ip + 2]) << 8);
-            hdr = 3;
-          } else {
-            if (static_cast<int64_t>(ip) + 5 > slen) { state = E_DATA_MALFORMED; break; }
-            len = (tag >> 2) + 1;
-            off = w[ip + 1] | (static_cast<uint32_t>(w[ip + 2]) << 8) |
-                  (static_cast<uint32_t>(w[ip + 3]) << 16) |
-                  (static_cast<uint32_t>(w[ip + 4]) << 24);
-            hdr = 5;
-          }
-          if (off == 0 || off > static_cast<uint32_t>(op)) { state = E_DATA_MALFORMED; break; }
-          if (static_cast<int64_t>(op) + len > dlim) { state = E_OUTPUT_OVERRUN; break; }
-          t_os[nt] = op;
-          t_src[nt] = static_cast<int32_t>(off);
-          t_len[nt] = static_cast<int32_t>(len) | kCopyBit;
-          ++nt;
-          op += static_cast<int>(len);
-          ip += hdr;
-        }
-      }
-      s_ip = ip;
-      s_op = op;
-      s_nt = nt;
-      s_state = state;
-    }
-    __syncthreads();
-    clk.lap(1);
-
-    const int nt = s_nt;
-    tags += nt;
-    for (int t = warp; t < nt; t += kWideWarps) {     // literals, in parallel
-      const int32_t l = t_len[t];
-      if (l & kCopyBit) continue;
-      const uint8_t* s = in + t_src[t];
-      uint8_t* d = obuf + t_os[t];
-      for (int j = lane; j < l; j += 32) d[j] = s[j];
-    }
-    __syncthreads();
-    clk.lap(2);
-
-    if (warp == 0) {                                  // copies, in tag order
-      for (int t = 0; t < nt; ++t) {
-        const int32_t l = t_len[t];
-        if (!(l & kCopyBit)) continue;
-        const int n = l & ~kCopyBit;
-        const int os = t_os[t];
-        const int off = t_src[t];
-        const uint8_t* s = obuf + (os - off);
-        for (int j = lane; j < n; j += 32) obuf[os + j] = s[j < off ? j : j % off];
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    clk.lap(3);
-  }
-
-  const int prod = (s_state == 1) ? s_op : 0;
-  uint8_t* row = out + static_cast<int64_t>(b) * out_stride;
-  for (int64_t i = threadIdx.x; i < out_stride; i += kWideThreads) row[i] = (i < prod) ? obuf[i] : 0;
-  if (threadIdx.x == 0) {
-    produced[b] = prod;
-    status[b] = (s_state == 1) ? 0 : s_state;
-  }
-  clk.lap(4);
-  clk.count(kStamps - 3, windows);
-  clk.count(kStamps - 2, tags);
-  clk.write();
-}
-
-// Shared memory one block of the wide kernel needs for rows of out_stride bytes.
-long long wide_smem_bytes(long long out_stride) {
-  return 12LL * kWideTags + kWideWin + ((out_stride + 15) / 16) * 16;
-}
-
 // Raises `fn`'s dynamic shared-memory limit to `bytes` once per device
 // (bit `slot` of a device's mask), not on every launch.
 cudaError_t raise_smem_once(const void* fn, int bytes, int slot) {
@@ -665,46 +501,29 @@ cudaError_t raise_smem_once(const void* fn, int bytes, int slot) {
 
 extern "C" {
 
-// Launches nblocks blocks on `stream`: kernel 0 is decode_kernel (out_stride
-// <= 32,768), 1 is decode_wide_kernel (out_stride <= 131,072); stamps: null,
-// or kStamps int64 a block.  Returns the first CUDA error, or 0.
+// Launches decode_kernel, nblocks blocks, on `stream` (out_stride <=
+// 32,768); stamps: null, or kStamps int64 a block.  Returns the first CUDA
+// error, or 0.
 int decode_blocks_launch(const void* src, const void* offs, const void* slens,
                          const void* dlims, void* out, long long out_stride,
-                         void* produced, void* status, int nblocks, int kernel, void* stamps,
-                         void* stream) {
-  if (out_stride < 0 || (kernel == 0 && out_stride > kFastMax) ||
-      (kernel == 1 && out_stride > 4 * kFastMax) || kernel < 0 || kernel > 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+                         void* produced, void* status, int nblocks, void* stamps, void* stream) {
+  if (out_stride < 0 || out_stride > kFastMax) return static_cast<int>(cudaErrorInvalidValue);
   if (nblocks <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaSuccess;
-  if (kernel == 0) {
-    const int smem = layout(static_cast<int>(out_stride)).total;
-    if (smem > kSmemDefault)
-      e = raise_smem_once(reinterpret_cast<const void*>(decode_kernel), layout(kFastMax).total, 0);
-    if (e == cudaSuccess)
-      decode_kernel<<<nblocks, kThreads, smem, st>>>(
-          static_cast<const uint8_t*>(src), static_cast<const int64_t*>(offs),
-          static_cast<const int32_t*>(slens), static_cast<const int32_t*>(dlims),
-          static_cast<uint8_t*>(out), static_cast<int>(out_stride),
-          static_cast<int32_t*>(produced), static_cast<int32_t*>(status),
-          static_cast<int64_t*>(stamps));
-  } else {
-    const int smem = static_cast<int>(wide_smem_bytes(out_stride));
-    if (smem > kSmemDefault)
-      e = raise_smem_once(reinterpret_cast<const void*>(decode_wide_kernel),
-                          static_cast<int>(wide_smem_bytes(4 * kFastMax)), 1);
-    if (e == cudaSuccess)
-      decode_wide_kernel<<<nblocks, kWideThreads, smem, st>>>(
-          static_cast<const uint8_t*>(src), static_cast<const int64_t*>(offs),
-          static_cast<const int32_t*>(slens), static_cast<const int32_t*>(dlims),
-          static_cast<uint8_t*>(out), out_stride, static_cast<int32_t*>(produced),
-          static_cast<int32_t*>(status), static_cast<int64_t*>(stamps));
-  }
+  const int smem = layout(static_cast<int>(out_stride)).total;
+  if (smem > kSmemDefault)
+    e = raise_smem_once(reinterpret_cast<const void*>(decode_kernel), layout(kFastMax).total, 0);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(e);
   }
+  decode_kernel<<<nblocks, kThreads, smem, st>>>(
+      static_cast<const uint8_t*>(src), static_cast<const int64_t*>(offs),
+      static_cast<const int32_t*>(slens), static_cast<const int32_t*>(dlims),
+      static_cast<uint8_t*>(out), static_cast<int>(out_stride),
+      static_cast<int32_t*>(produced), static_cast<int32_t*>(status),
+      static_cast<int64_t*>(stamps));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -714,11 +533,6 @@ void decode_blocks_layout(int width, int* fields) {
   const Layout ly = layout(width);
   const int v[8] = {ly.out, ly.par, ly.win, ly.nx, ly.cp, ly.tl, ly.tos, ly.total};
   for (int i = 0; i < 8; ++i) fields[i] = v[i];
-}
-
-// Shared memory one block of `kernel` takes for rows of `width` bytes.
-long long decode_blocks_smem_bytes(long long width, int kernel) {
-  return kernel == 0 ? layout(static_cast<int>(width)).total : wide_smem_bytes(width);
 }
 
 const char* decode_blocks_error_string(int code) {

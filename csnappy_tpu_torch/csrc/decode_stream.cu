@@ -69,363 +69,37 @@
 //
 // Every header read is bounded by the stream's length (bytes past it stage
 // as 0), every write by cap, so no input makes either kernel read or write
-// out of bounds.  One call is one memset of the workspace (a head, a word a
-// chunk, 16 bytes a segment) and the two launches on one stream.  With a
+// out of bounds.  One call is one memset of the workspace (the heads, a word
+// a chunk, 16 bytes a segment) and the two launches on one stream.  With a
 // non-null `stamps`, thread 0 of each block writes its phases' SM cycles
 // and counts (kChainStamps int64 a chunk, then kSegStamps a segment).
+//
+// The chain pass (chain_block), the window walk and the helpers live in
+// decode_chain.cuh, shared with decode_wide.cu, which runs the same design
+// on rows past 32 KiB with copies reaching any earlier byte of a row.
 
-#include <atomic>
-#include <climits>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "decode_chain.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kS = 32768;                   // output segment
 constexpr uint32_t kMaxOffset = 32768;      // the envelope's farthest copy
-constexpr int E_OUTPUT_OVERRUN = -3;
-constexpr int E_DATA_MALFORMED = -5;
-constexpr unsigned kFull = 0xffffffffu;
-
-// ------------------------------------------------------------ the workspace
-
-struct Head {
-  unsigned int ticket;        // chunks taken
-  unsigned int stop;          // chunk holding the stop + 1; 0 until known
-  unsigned int seg_ticket;    // segments taken
-  unsigned int done;          // segment blocks finished
-  unsigned int pad[4];
-  unsigned long long event;   // ~(os << 1 | overrun) of the first event; 0: none
-  long long p_stop, os_stop;  // where the chain stops, and the output there
-  long long pad2;
-};
-static_assert(sizeof(Head) == 64, "the workspace's head");
-
-__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ unsigned int ld_relaxed(const unsigned int* p) {
-  unsigned int v;
-  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-__device__ __forceinline__ void st_relaxed(unsigned int* p, unsigned int v) {
-  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-__device__ __forceinline__ long long global_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// A tag at b[0] (b[1..4] readable; bytes past the stream read as 0), with
-// `avail` stream bytes from it on.  bad: no tag of this kernel's envelope
-// starts here (a header or a literal's body past the stream, a 4-byte
-// literal trailer with a nonzero top byte).
-struct Tag {
-  int64_t len;      // bytes it produces (a literal's up to 2^24)
-  uint32_t off;     // a copy's offset (COPY_4's full 32 bits)
-  int hdr;          // header bytes
-  bool lit, bad;
-};
-
-__device__ __forceinline__ Tag parse_tag(const uint8_t* b, int64_t avail) {
-  Tag t;
-  const uint32_t c = b[0];
-  const uint32_t u = c >> 2;
-  t.off = 0;
-  t.lit = (c & 3) == 0;
-  if (t.lit) {
-    uint32_t v = u;
-    t.hdr = 1;
-    if (u >= 60) {
-      const int nb = static_cast<int>(u) - 59;
-      v = b[1];
-      if (nb > 1) v |= static_cast<uint32_t>(b[2]) << 8;
-      if (nb > 2) v |= static_cast<uint32_t>(b[3]) << 16;
-      t.hdr = 1 + nb;
-      t.bad = nb == 4 && b[4] != 0;                     // beyond 2^24
-    } else {
-      t.bad = false;
-    }
-    t.len = static_cast<int64_t>(v) + 1;
-    t.bad = t.bad || t.hdr > avail || t.hdr + t.len > avail;
-  } else if ((c & 3) == 1) {
-    t.hdr = 2;
-    t.len = (u & 7) + 4;
-    t.off = ((u >> 3) << 8) | b[1];
-    t.bad = avail < 2;
-  } else {
-    t.hdr = (c & 3) == 2 ? 3 : 5;
-    t.len = u + 1;
-    t.off = b[1] | (static_cast<uint32_t>(b[2]) << 8);
-    if (t.hdr == 5) t.off |= (static_cast<uint32_t>(b[3]) << 16) | (static_cast<uint32_t>(b[4]) << 24);
-    t.bad = avail < t.hdr;
-  }
-  return t;
-}
 
 // ========================================================= chain_kernel
 
-constexpr int kLog = 13;
-constexpr int kChunk = 1 << kLog;            // stream positions a block
-constexpr int kPer = kChunk / kThreads;
-constexpr int kSubLog = 8;                   // sub-chunks of 256 positions
-constexpr int kPad = 16;                     // bytes staged past the chunk
-constexpr uint32_t kStop = 0x80000000u;      // P: the chain stops at J
-constexpr uint32_t kExitTag = 0x40000000u;   // P: J is the tag that leaves the chunk
-constexpr uint32_t kFlags = kStop | kExitTag;
-// word[c]: 0 until known; (os << 17) | (entry - c * kChunk) << 2 | 1 when the
-// chain enters chunk c, or 2 when it skips it
-constexpr unsigned long long kEntered = 1, kSkipped = 2;
-// stamps a chunk: the cycles of staged (staging and parse), jumped, waited,
-// covers; then visited (1 or 0), pointer-jumping rounds, cover searches and
-// the %globaltimer ns at which the chunk published its exit
-constexpr int kChainStamps = 8;
-constexpr int kChainSmem = 13 * kChunk + kPad;      // P1, P, J1, J, the bytes
-
-// One pointer-jumping round over the positions a thread owns: every position
-// whose pointer is not terminal (flagged, or at or past the end of its span
-// of 2^kSpanLog positions) takes its target's pointer and adds its target's
-// output (and flags).  Returns whether any position of the block moved.
-template <int kSpanLog>
-__device__ __forceinline__ bool jump_round(uint16_t* Jt, uint32_t* Pt) {
-  uint16_t nj[kPer];
-  uint32_t np[kPer];
-  bool any = false;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int i = threadIdx.x + k * kThreads;
-    const int j = Jt[i];
-    const uint32_t p = Pt[i];
-    const int end = ((i >> kSpanLog) + 1) << kSpanLog;
-    const bool live = !(p & kFlags) && j < end;
-    nj[k] = live ? Jt[j] : static_cast<uint16_t>(j);
-    np[k] = live ? Pt[j] : 0;
-    any |= live;
-  }
-  const bool go = __syncthreads_or(any);
-  if (go) {
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      Jt[i] = nj[k];
-      Pt[i] += np[k];
-    }
-    __syncthreads();
-  }
-  return go;
-}
-
-// The last chain tag at or after x (on the chain, output start px <= bound)
-// whose output start is <= bound, in a chunk that owns `bound`: hops from
-// sub-chunk to sub-chunk, then tags.  Returns its position; *pq its output.
-__device__ int last_at_or_below(int x, int64_t px, int64_t bound, const uint16_t* J1,
-                                const uint32_t* P1, const uint8_t* bytes, int64_t base,
-                                int64_t slen, int64_t* pq) {
-  while (true) {
-    const uint32_t p1 = P1[x];
-    const int64_t py = px + (p1 & ~kFlags);
-    if (py > bound) break;                      // the answer lies before J1[x]
-    x = J1[x];
-    px = py;
-    if (p1 & kFlags) {                          // the stop or the exit tag
-      *pq = px;
-      return x;
-    }
-  }
-  while (true) {
-    const Tag t = parse_tag(bytes + x, slen - base - x);
-    const int64_t z = x + t.hdr + (t.lit ? t.len : 0);
-    const int64_t pz = px + t.len;
-    if (t.bad || pz > bound || z >= kChunk) break;
-    x = static_cast<int>(z);
-    px = pz;
-  }
-  *pq = px;
-  return x;
-}
-
 __global__ void __launch_bounds__(kThreads)
 chain_kernel(const uint8_t* __restrict__ src, int64_t slen, Head* __restrict__ head,
-             unsigned long long* __restrict__ word, int64_t* __restrict__ cover_os,
-             int32_t* __restrict__ cover_pos, int nseg, int64_t* __restrict__ stamps) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint32_t* P1 = reinterpret_cast<uint32_t*>(smem);   // output to the sub-chunk's exit
-  uint32_t* P = P1 + kChunk;                          // output to the chunk's stop or exit tag
-  uint16_t* J1 = reinterpret_cast<uint16_t*>(P + kChunk);
-  uint16_t* J = J1 + kChunk;
-  uint8_t* bytes = reinterpret_cast<uint8_t*>(J + kChunk);   // kChunk + kPad
-  __shared__ int s_chunk, s_state, s_entry, s_stops;
-  __shared__ long long s_pp, s_out, s_stop_at;
-  __shared__ long long s_cyc[kChainStamps];
-  const int tid = threadIdx.x;
-  const bool stamp = stamps != nullptr && tid == 0;
-  long long last = 0;
-
-  if (tid == 0) {
+             RowHead* __restrict__ row, unsigned long long* __restrict__ word,
+             int64_t* __restrict__ cover_os, int32_t* __restrict__ cover_pos, int nseg,
+             int64_t* __restrict__ stamps) {
+  chain_block<true>([&] {
     const int c = static_cast<int>(atomicAdd(&head->ticket, 1u));
-    s_chunk = c;
-    // known not to be entered already (skipped, or past the stop): no tables
-    const unsigned long long w = c == 0 ? kEntered : ld_relaxed(&word[c]);
-    const unsigned int st = c == 0 ? 0 : ld_relaxed(&head->stop);
-    s_state = (w == kSkipped || (st != 0 && static_cast<int>(st) - 1 < c)) ? 0 : 1;
-    if (stamp) {
-      for (int i = 0; i < kChainStamps; ++i) s_cyc[i] = 0;
-      last = clock64();
-    }
-  }
-  __syncthreads();
-  const int c = s_chunk;
-  const int64_t base = static_cast<int64_t>(c) << kLog;
-  int rounds = 0;
-  auto lap = [&](int i) {
-    if (!stamp) return;
-    const long long now = clock64();
-    s_cyc[i] = now - last;
-    last = now;
-  };
-
-  if (s_state) {
-    const uint8_t* s = src + base;
-    const int64_t have = slen - base;
-    if (have >= kChunk + kPad && (reinterpret_cast<uintptr_t>(s) & 15) == 0) {
-      for (int i = tid; i < (kChunk + kPad) / 16; i += kThreads)
-        reinterpret_cast<uint4*>(bytes)[i] = reinterpret_cast<const uint4*>(s)[i];
-    } else {
-      for (int i = tid; i < kChunk + kPad; i += kThreads) bytes[i] = i < have ? s[i] : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = tid + k * kThreads;
-      const Tag t = parse_tag(bytes + i, slen - base - i);
-      const int64_t nxt = i + t.hdr + (t.lit ? t.len : 0);
-      const bool stop = base + i >= slen || t.bad;
-      J1[i] = static_cast<uint16_t>(stop || nxt >= kChunk ? i : nxt);
-      P1[i] = stop ? kStop : nxt >= kChunk ? kExitTag : static_cast<uint32_t>(t.len);
-    }
-    __syncthreads();
-    lap(0);
-    for (int r = 0; r < kSubLog; ++r) {
-      if (!jump_round<kSubLog>(J1, P1)) break;
-      ++rounds;
-    }
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = tid + k * kThreads;
-      J[i] = J1[i];
-      P[i] = P1[i];
-    }
-    __syncthreads();
-    for (int r = 0; r <= kLog - kSubLog; ++r) {
-      if (!jump_round<kLog>(J, P)) break;
-      ++rounds;
-    }
-    lap(1);
-
-    // the entry, then the exit published at once
-    if (tid == 0) {
-      unsigned long long w = kEntered;
-      if (c > 0) {
-        while (true) {
-          w = ld_relaxed(&word[c]);
-          if (w) break;
-          const unsigned int st = ld_relaxed(&head->stop);
-          if (st != 0 && static_cast<int>(st) - 1 < c) break;
-        }
-      }
-      s_state = (w & 3) == kEntered ? 1 : 0;
-      if (s_state) {
-        const int e = static_cast<int>((w >> 2) & 0x7FFF);
-        const int64_t pp = static_cast<int64_t>(w >> 17);
-        const uint32_t pe = P[e];
-        const int x = J[e];
-        const int64_t at = pp + (pe & ~kFlags);          // output start of x
-        s_entry = e;
-        s_pp = pp;
-        s_stops = (pe & kStop) != 0;
-        if (pe & kStop) {                                // the chain stops in this chunk
-          s_out = at;
-          s_stop_at = base + x;
-          head->p_stop = base + x;
-          head->os_stop = at;
-          st_relaxed(&head->stop, static_cast<unsigned int>(c + 1));
-        } else {                                         // x leaves the chunk
-          const Tag t = parse_tag(bytes + x, slen - base - x);
-          const int64_t exit = base + x + t.hdr + (t.lit ? t.len : 0);   // <= slen
-          const int64_t out = at + t.len;
-          const int d = static_cast<int>(exit >> kLog);
-          s_out = out;
-          st_relaxed(&word[d], (static_cast<unsigned long long>(out) << 17) |
-                                   (static_cast<unsigned long long>(exit - (static_cast<int64_t>(d) << kLog)) << 2) |
-                                   kEntered);
-          for (int t2 = c + 1; t2 < d; ++t2) st_relaxed(&word[t2], kSkipped);
-        }
-        if (stamp) s_cyc[7] = global_ns();
-      }
-    }
-    __syncthreads();
-    lap(2);
-
-    // the covering tag of each segment whose start falls in this chunk's output
-    if (s_state) {
-      const int e = s_entry;
-      const int64_t pp = s_pp, out = s_out;
-      const bool stops = s_stops;
-      const int64_t k0 = (pp + kS - 1) / kS;
-      const int64_t k1 = stops ? nseg - 1 : ((out + kS - 1) / kS - 1 < nseg - 1 ? (out + kS - 1) / kS - 1 : nseg - 1);
-      int searches = 0;
-      for (int64_t k = k0 + tid; k <= k1; k += kThreads) {
-        const int64_t bound = k * kS;
-        if (stops && bound >= out) {                     // past the stop: the stop covers it
-          cover_pos[k] = static_cast<int32_t>(s_stop_at);
-          cover_os[k] = out;
-        } else {
-          int64_t pq;
-          const int q = last_at_or_below(e, pp, bound, J1, P1, bytes, base, slen, &pq);
-          cover_pos[k] = static_cast<int32_t>(base + q);
-          cover_os[k] = pq;
-          ++searches;
-        }
-      }
-      searches = __syncthreads_count(searches > 0);
-      if (stamp) s_cyc[6] = searches;
-    }
-    lap(3);
-  }
-  if (stamp) {
-    s_cyc[4] = s_state;
-    s_cyc[5] = rounds;
-    for (int i = 0; i < kChainStamps; ++i) stamps[static_cast<int64_t>(c) * kChainStamps + i] = s_cyc[i];
-  }
+    return ChainJob{src, slen, row, word, cover_os, cover_pos,
+                    stamps == nullptr ? nullptr : stamps + static_cast<int64_t>(c) * kChainStamps,
+                    c, nseg};
+  });
 }
 
 // ======================================================== segment_kernel
-
-constexpr int kWin = 8192;              // input bytes a window
-constexpr int kStage = kWin + 16;       // staged: a tag's header reaches 4 bytes past the window
-constexpr int kTagsPerThread = kWin / 2 / kThreads;
-constexpr int kLevels = 4;              // next-tag tables: 1, 2, 4 and 8 tags ahead
-constexpr int kStep = 1 << (kLevels - 1);
-constexpr uint16_t kExit = 0xFFFE;      // nx: the next tag starts past the window
-constexpr uint16_t kBad = 0xFFFF;       // nx: no tag of the envelope starts here
-constexpr int kMaxWindows = 6 * kS / kWin + 3;   // 6 input bytes an output byte, at most
-constexpr int kPieces = kS / 16 / kThreads;      // 16-byte pieces of the output a thread
-// stamps a segment: the cycles of entered (the covering tag), parsed (staging,
-// parse and tables), walked, judged, covered, resolved, waited, written; then
-// windows, tags walked, resolve rounds, externals (1 when it read bytes of
-// segment k - 1) and the %globaltimer ns at which it published its flag
-constexpr int kSegStamps = 13;
-
-__host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 
 // Byte offsets of segment_kernel's shared arrays (decode_blocks.cu's layout
 // at 32 KiB): the segment's bytes, its parents, the window, the four tables
@@ -445,43 +119,6 @@ __host__ __device__ constexpr Layout layout() {
 }
 static_assert(layout().total <= 232448 - 1024, "a block's shared memory on the H100");
 
-__device__ int block_excl_sum(int v, int* s_warp, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int n = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += n;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int w = s_warp[lane];
-    int wi = w;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int n = __shfl_up_sync(kFull, wi, o);
-      if (lane >= o) wi += n;
-    }
-    s_warp[lane] = wi - w;
-    if (lane == 31) *total = wi;
-  }
-  __syncthreads();
-  const int r = s_warp[warp] + incl - v;
-  __syncthreads();
-  return r;
-}
-
-__device__ void block_min(unsigned v, unsigned* s_warp, unsigned* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = __reduce_min_sync(kFull, v);
-  if (lane == 0) s_warp[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const unsigned m = __reduce_min_sync(kFull, s_warp[lane]);
-    if (lane == 0) *out = m;
-  }
-  __syncthreads();
-}
-
 // The parent of byte j of a copy at os (both counted from one origin) with
 // offset off <= 32768, shifted by kS: always below the byte, and >= 0 when
 // the origin is segment k - 1's start and the byte lies in segment k.
@@ -492,6 +129,7 @@ __device__ __forceinline__ uint16_t parent(int os, int j, int off) {
 __global__ void __launch_bounds__(kThreads, 1)
 segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict__ gout,
                int64_t cap, int64_t limit, int64_t* __restrict__ meta, Head* __restrict__ head,
+               RowHead* __restrict__ row,
                const int64_t* __restrict__ cover_os, const int32_t* __restrict__ cover_pos,
                unsigned int* __restrict__ flag, int nseg, int64_t* __restrict__ stamps) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -504,8 +142,8 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
   uint16_t* tl = reinterpret_cast<uint16_t*>(smem + ly.tl);     // tag starts, then fields
   uint16_t* tos = reinterpret_cast<uint16_t*>(smem + ly.tos);   // output starts in the segment
   __shared__ int s_warp[kWarps];
-  __shared__ unsigned s_first;
-  __shared__ int s_seg, s_n, s_k, s_term, s_total, s_skip, s_last;
+  __shared__ unsigned s_red;
+  __shared__ int s_seg, s_total, s_skip, s_last;
   __shared__ long long s_next;
   __shared__ long long s_cyc[kSegStamps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -519,7 +157,7 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
       last = clock64();
     }
     // an event already found before this segment: its bytes are not needed
-    const unsigned long long ev = ld_relaxed(&head->event);
+    const unsigned long long ev = ld_relaxed(&row->event);
     s_skip = ev != 0 && static_cast<int64_t>(~ev >> 1) < static_cast<int64_t>(s_seg) * kS;
   }
   __syncthreads();
@@ -533,7 +171,7 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
   const int64_t base = static_cast<int64_t>(k) * kS;
   const int hi = static_cast<int>(cap - base < kS ? cap - base : kS);           // bytes written
   const int jhi = static_cast<int>(cap + 1 - base < kS ? cap + 1 - base : kS);  // starts judged
-  const int64_t p_stop = head->p_stop;
+  const int64_t p_stop = row->p_stop;
   const int64_t cpos = cover_pos[k], cos = cover_os[k];
   int state = s_skip;        // 0: ok; 1: nothing more to do; < 0: an event here
   int op0 = 0;               // the next tag's output start, from the segment's start
@@ -547,7 +185,7 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
     } else {
       uint8_t h[5];
       for (int i = 0; i < 5; ++i) h[i] = cpos + i < slen ? in[cpos + i] : 0;
-      const Tag t = parse_tag(h, slen - cpos);   // a chain tag: valid
+      const Tag t = parse_tag<true>(h, slen - cpos);   // a chain tag: valid
       const int64_t end = cos + t.len - base;    // > 0
       const int m = static_cast<int>(end < hi ? end : hi);
       const int64_t j0 = base - cos;
@@ -581,65 +219,14 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
     ++windows;
     const int64_t avail0 = slen - ip0;
     const int staged = avail0 < kStage ? static_cast<int>(avail0) : kStage;
-    for (int i = tid; i < kStage; i += kThreads) win[i] = i < staged ? in[ip0 + i] : 0;
-    __syncthreads();
     const int lim = avail0 < kWin ? static_cast<int>(avail0) : kWin;   // tags start below lim
-    for (int p = tid; p < lim; p += kThreads) {
-      const Tag t = parse_tag(win + p, avail0 - p);
-      const int64_t nxt = p + t.hdr + (t.lit ? t.len : 0);
-      nx[p] = t.bad ? kBad : (nxt < kWin ? static_cast<uint16_t>(nxt) : kExit);
-    }
-    __syncthreads();
-    for (int lv = 1; lv < kLevels; ++lv) {
-      const uint16_t* a = nx + (lv - 1) * kWin;
-      uint16_t* d = nx + lv * kWin;
-      for (int p = tid; p < lim; p += kThreads) {
-        const int q = a[p];
-        d[p] = q < lim ? a[q] : static_cast<uint16_t>(q);
-      }
-      __syncthreads();
-    }
+    window_tables<true>(in + ip0, staged, lim, avail0, win, nx);
     lap(1);
-
-    const uint16_t* nx2 = nx + kWin;
-    const uint16_t* nx4 = nx + 2 * kWin;
-    if (tid == 0) {
-      const uint16_t* nx8 = nx + 3 * kWin;
-      int q = 0, c = 0;
-      for (; c < kWin / 2 / kStep && q < lim; ++c) {
-        cp[c] = static_cast<uint16_t>(q);
-        q = nx8[q];
-      }
-      s_k = c;
-      s_term = q;                       // >= lim: the end (q == avail0), kExit or kBad
-    }
-    __syncthreads();
-    for (int c = tid; c < s_k; c += kThreads) {
-      int e[kStep];
-      const int q = cp[c];
-      e[0] = q;
-      e[1] = nx[q];
-      e[2] = nx2[q];
-      e[3] = e[2] < lim ? nx[e[2]] : e[2];
-      e[4] = nx4[q];
-      e[5] = e[4] < lim ? nx[e[4]] : e[4];
-      e[6] = e[4] < lim ? nx2[e[4]] : e[4];
-      e[7] = e[6] < lim ? nx[e[6]] : e[6];
-      int v = 0;
-#pragma unroll
-      for (int j = 0; j < kStep; ++j) {
-        if (e[j] < lim && v == j) {
-          tl[c * kStep + j] = static_cast<uint16_t>(e[j]);
-          ++v;
-        }
-      }
-      if (c == s_k - 1) s_n = c * kStep + v;
-    }
-    __syncthreads();
+    const int2 listed = window_list(nx, lim, cp, tl);
     lap(2);
 
     // judge: lengths, output starts, events; the first event wins
-    const int n = s_n, term = s_term;
+    const int n = listed.x, term = listed.y;
     tags += n;
     Tag tg[kTagsPerThread];
     int lc[kTagsPerThread], pj[kTagsPerThread];
@@ -650,7 +237,7 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
       lc[j] = 0;
       if (t0 + j < n) {
         const int p = pj[j] = tl[t0 + j];
-        tg[j] = parse_tag(win + p, avail0 - p);
+        tg[j] = parse_tag<true>(win + p, avail0 - p);
         lc[j] = static_cast<int>(tg[j].len < kS + 1 ? tg[j].len : kS + 1);
         mine += lc[j];
       }
@@ -677,12 +264,12 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
         os += lc[j];
       }
     }
-    block_min(ev, reinterpret_cast<unsigned*>(s_warp), &s_first);
+    const unsigned first = block_min(ev, reinterpret_cast<unsigned*>(s_warp), &s_red);
     lap(3);
-    if (s_first != UINT_MAX) {
+    if (first != UINT_MAX) {
       if (tid == 0)
-        atomicMax(&head->event, ~((static_cast<unsigned long long>(base) << 1) + s_first));
-      state = (s_first & 1) ? E_OUTPUT_OVERRUN : E_DATA_MALFORMED;
+        atomicMax(&row->event, ~((static_cast<unsigned long long>(base) << 1) + first));
+      state = (first & 1) ? E_OUTPUT_OVERRUN : E_DATA_MALFORMED;
       break;
     }
 
@@ -810,8 +397,8 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
       put(c, v);
     }
   }
-  block_min(lo, reinterpret_cast<unsigned*>(s_warp), &s_first);
-  if (s_first != UINT_MAX) ext = 1;
+  const unsigned lo_all = block_min(lo, reinterpret_cast<unsigned*>(s_warp), &s_red);
+  if (lo_all != UINT_MAX) ext = 1;
   lap(5);
 
   // 6. external bytes from segment k - 1, final once its flag is up: its
@@ -826,7 +413,7 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
     __syncthreads();
     uint8_t* tail = reinterpret_cast<uint8_t*>(nx);
     const uint8_t* prev = gout + base - kS;
-    const int lo16 = static_cast<int>(s_first) & ~15;
+    const int lo16 = static_cast<int>(lo_all) & ~15;
     if (vec) {
       for (int i = lo16 / 16 + tid; i < kS / 16; i += kThreads)
         reinterpret_cast<uint4*>(tail)[i] = __ldcg(reinterpret_cast<const uint4*>(prev) + i);
@@ -861,8 +448,8 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
   lap(7);
   if (s_last && tid == 0) {                      // every block has judged its tags
     __threadfence();
-    const unsigned long long ev = ld_relaxed(&head->event);
-    meta[0] = ev == 0 ? head->os_stop : 0;
+    const unsigned long long ev = ld_relaxed(&row->event);
+    meta[0] = ev == 0 ? row->os_stop : 0;
     meta[1] = ev == 0 ? 0 : ((~ev & 1) ? E_OUTPUT_OVERRUN : E_DATA_MALFORMED);
   }
   if (stamp) {
@@ -874,29 +461,14 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
   }
 }
 
-// Raises `fn`'s dynamic shared-memory limit to `bytes` once per device
-// (bit `slot` of a device's mask), not on every launch.
-cudaError_t raise_smem_once(const void* fn, int bytes, int slot) {
-  static std::atomic<uint32_t> raised[32];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::atomic<uint32_t>& mask = raised[dev & 31];
-  const uint32_t bit = 1u << slot;
-  if (mask.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) mask.fetch_or(bit, std::memory_order_relaxed);
-  return e;
-}
-
-constexpr long long kWorkHead = sizeof(Head);
+constexpr long long kWorkHead = sizeof(Head) + sizeof(RowHead);
 
 long long chunks_of(long long slen) { return (slen >> kLog) + 1; }
 long long segments_of(long long cap) { return cap / kS + 1; }
 
 // Bytes of the workspace a stream of slen bytes and an output of cap bytes
-// take (decode_stream.work_bytes): the head, a word a chunk, then a cover
-// (int64 os, int32 position) and an int32 flag a segment.
+// take: the heads, a word a chunk, then a cover (int64 os, int32 position)
+// and an int32 flag a segment.
 long long work_bytes(long long slen, long long cap) {
   return kWorkHead + 8 * chunks_of(slen) + 16 * segments_of(cap);
 }
@@ -904,6 +476,9 @@ long long work_bytes(long long slen, long long cap) {
 }  // namespace
 
 extern "C" {
+
+// work_bytes(slen, cap), for decode_stream._launch's allocation.
+long long decode_stream_work_bytes(long long slen, long long cap) { return work_bytes(slen, cap); }
 
 // Dynamic shared memory a block of kernel 0 (chain) or 1 (segment) takes.
 int decode_stream_smem_bytes(int kernel) { return kernel == 0 ? kChainSmem : layout().total; }
@@ -929,19 +504,20 @@ int decode_stream_launch(const void* in, long long slen, void* out, long long ca
   if (e != cudaSuccess) return static_cast<int>(e);
   uint8_t* w = static_cast<uint8_t*>(work);
   Head* head = reinterpret_cast<Head*>(w);
+  RowHead* row = reinterpret_cast<RowHead*>(w + sizeof(Head));
   auto* word = reinterpret_cast<unsigned long long*>(w + kWorkHead);
   auto* cover_os = reinterpret_cast<int64_t*>(w + kWorkHead + 8 * nchunks);
   auto* cover_pos = reinterpret_cast<int32_t*>(cover_os + nseg);
   auto* flag = reinterpret_cast<unsigned int*>(cover_pos + nseg);
   auto* sp = static_cast<int64_t*>(stamps);
   chain_kernel<<<static_cast<unsigned int>(nchunks), kThreads, kChainSmem, st>>>(
-      static_cast<const uint8_t*>(in), slen, head, word, cover_os, cover_pos,
+      static_cast<const uint8_t*>(in), slen, head, row, word, cover_os, cover_pos,
       static_cast<int>(nseg), sp);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   segment_kernel<<<static_cast<unsigned int>(nseg), kThreads, layout().total, st>>>(
       static_cast<const uint8_t*>(in), slen, static_cast<uint8_t*>(out), cap, limit,
-      static_cast<int64_t*>(meta), head, cover_os, cover_pos, flag, static_cast<int>(nseg),
+      static_cast<int64_t*>(meta), head, row, cover_os, cover_pos, flag, static_cast<int>(nseg),
       sp == nullptr ? nullptr : sp + nchunks * kChainStamps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,7 @@ SOURCES = {
     "encode_blocks": CSRC / "encode_blocks.cu",
     "scan_segments": CSRC / "scan_segments.cu",
     "decode_stream": CSRC / "decode_stream.cu",
+    "decode_wide": CSRC / "decode_wide.cu",
     "movebench": CSRC / "movebench.cu",
     "primitives": CSRC / "primitives.cu",
     "probe": CSRC / "probe.cu",
@@ -42,8 +43,8 @@ SOURCES = {
     "probe4": CSRC / "probe4.cu",
     "csnappy_host": CSRC / "host" / "csnappy_host.cpp",
 }
-CUDA_NAMES = ("decode_blocks", "encode_blocks", "scan_segments", "decode_stream", "movebench",
-              "primitives", "probe", "probe3", "kernel_lib", "probe4")
+CUDA_NAMES = ("decode_blocks", "decode_wide", "encode_blocks", "scan_segments", "decode_stream",
+              "movebench", "primitives", "probe", "probe3", "kernel_lib", "probe4")
 # libraries whose every entry returns at once (a launch, no wait): loaded as
 # ctypes.PyDLL, whose calls keep the GIL rather than release and retake it
 GIL_KEPT = ("primitives", "movebench")

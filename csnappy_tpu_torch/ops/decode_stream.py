@@ -49,7 +49,6 @@ from .primitives import _stream
 SEG = 32768                # output segment the limit is walked in
 MAX_OFFSET = 32768         # the history the JAX kernel keeps
 CHUNK_LOG = 13             # the chain kernel's chunks: 8,192 stream positions
-WORK_HEAD = 64             # the workspace's head (csrc/decode_stream.cu ``Head``)
 # what the kernels' ``stamps`` hold (:func:`_launch`): a chunk's SM cycles of
 # each phase, then counts (visited 1 or 0, pointer-jumping rounds, cover
 # searches, the %globaltimer ns at which it published its exit); then a
@@ -115,9 +114,18 @@ def segments(cap: int) -> int:
     return cap // SEG + 1
 
 
+@functools.cache
+def _work_fn():
+    fn = _build.load("decode_stream").decode_stream_work_bytes
+    fn.argtypes, fn.restype = [ctypes.c_longlong] * 2, ctypes.c_longlong
+    return fn
+
+
 def work_bytes(n: int, cap: int) -> int:
-    """The workspace of one call: a head, a word a chunk, 16 bytes a segment."""
-    return WORK_HEAD + 8 * chunks(n) + 16 * segments(cap)
+    """The workspace of one call, as ``csrc/decode_stream.cu`` lays it out
+    and clears it (its ``decode_stream_work_bytes``): the heads, a word a
+    chunk, 16 bytes a segment."""
+    return _work_fn()(n, cap)
 
 
 def stamp_count(n: int, cap: int) -> int:

@@ -134,8 +134,8 @@ def compress_sharded(data, mesh=None, bs: int = wire.BLOCK_SIZE, device=None) ->
 def decompress_fragments_sharded(frags, out_lens, mesh=None, device=None) -> list[bytes]:
     """Decode independent headerless fragments data-parallel over the group.
 
-    Every fragment keeps its own limit ``out_lens[i]`` (at most
-    ``decode_fused.MAX_BLOCK_OUT``): one producing more is
+    Every fragment keeps its own limit ``out_lens[i]`` (in [0,
+    ``decode_fused.MAX_WIDTH``]): one producing more is
     ``E_OUTPUT_OVERRUN``.  Each rank concatenates its fragments into one body
     and decodes them in place with one ``decode_segments`` launch.  The first
     failing fragment in global order raises ``SnappyError`` on every rank."""
@@ -148,8 +148,8 @@ def decompress_fragments_sharded(frags, out_lens, mesh=None, device=None) -> lis
     error = None
     if len(out_lens) != nb:
         error = f"{nb} fragments but {len(out_lens)} out_lens"
-    elif any(not 0 <= x <= decode_fused.MAX_BLOCK_OUT for x in out_lens):
-        error = f"out_lens must lie in [0, {decode_fused.MAX_BLOCK_OUT}]"
+    elif any(not 0 <= x <= decode_fused.MAX_WIDTH for x in out_lens):
+        error = f"out_lens must lie in [0, {decode_fused.MAX_WIDTH}]"
     agree(group, comm, [nb, sum(map(len, frags)), sum(out_lens)], error)
     if nb == 0:
         return []

@@ -23,7 +23,11 @@ compressed by the oracle (blocks past its end repeat its first), encode on
 its blocks of 32 KiB (the last one short; the JAX tool padded the batch to
 a multiple of 8, a TPU shape policy).
 
-Run:  python -m csnappy_tpu_torch.tools.phaseprof [decode|encode] [data_file]
+``wide`` profiles the kernels of rows past 32 KiB (``csrc/decode_wide.cu``)
+on the data's whole compressed body as one row: each kernel's rows, the
+slowest chunk's and the slowest segment's, with the chains' spans.
+
+Run:  python -m csnappy_tpu_torch.tools.phaseprof [decode|encode|wide] [data_file]
 
 The stamps exist only in the kernels, so it runs on the card and raises
 with none.
@@ -60,12 +64,29 @@ def summary(cycles: np.ndarray, names, counts: dict | None = None) -> dict:
     return out
 
 
-def decode_summary(stamps: np.ndarray, names=decode_fused.PHASES) -> dict:
-    """:func:`summary` of ``decode_blocks.cu``'s stamps (int64[B, STAMPS]:
-    each phase's cycles, then ``decode_fused.COUNTS``); ``names`` is
-    ``WIDE_PHASES`` for ``decode_wide_kernel``."""
+def decode_summary(stamps: np.ndarray) -> dict:
+    """:func:`summary` of ``decode_kernel``'s stamps (int64[B, STAMPS]: each
+    phase's cycles, then ``decode_fused.COUNTS``)."""
+    names = decode_fused.PHASES
     counts = dict(zip(decode_fused.COUNTS, stamps[:, -len(decode_fused.COUNTS):].T))
     return summary(stamps[:, : len(names)], names, counts)
+
+
+def wide_summary(chain: np.ndarray, seg: np.ndarray) -> dict:
+    """:func:`summary` of each wide kernel's stamps
+    (``decode_fused.split_wide_stamps``: a chunk's
+    ``WIDE_CHAIN_STAMPS``, a segment's ``WIDE_SEG_STAMPS``, phases first),
+    by kernel, with their counts at the slowest block and the chains' spans:
+    the ns from the first chunk's exit to the last's, and from the first
+    segment's flag to the last's (``%globaltimer``)."""
+    out = {}
+    for kernel, st, names, nph in (("wide_chain_kernel", chain, decode_fused.WIDE_CHAIN_STAMPS, 4),
+                                   ("wide_segment_kernel", seg, decode_fused.WIDE_SEG_STAMPS, 8)):
+        counts = dict(zip(names[nph:-1], st[:, nph:-1].T))
+        out[kernel] = summary(st[:, :nph], names[:nph], counts)
+        ns = st[:, -1][st[:, -1] > 0]
+        out[kernel]["span_ns"] = int(ns.max() - ns.min()) if ns.size else 0
+    return out
 
 
 def encode_summary(stamps: np.ndarray) -> dict:
@@ -92,19 +113,36 @@ def decode_rows(stamps: np.ndarray, mhz: float) -> list[dict]:
     return rows(decode_summary(stamps), mhz)
 
 
+def wide_rows(chain: np.ndarray, seg: np.ndarray, mhz: float) -> list[dict]:
+    """The phase rows of one stamped wide call, each with its ``kernel``."""
+    return [dict(r, kernel=k) for k, s in wide_summary(chain, seg).items() for r in rows(s, mhz)]
+
+
 def encode_rows(stamps: np.ndarray, mhz: float) -> list[dict]:
     """The phase rows of one stamped ``encode_kernel`` launch."""
     return rows(encode_summary(stamps), mhz)
 
 
-def stamped_decode(wrapper, args, width: int, kernel=None):
-    """One stamped launch of ``decode_blocks.cu`` on ``args`` (the card's
-    flat source, offsets, lengths and limits, as ``decode_fused._launch``
-    takes them): its result and the stamps (int64[B, STAMPS], on the host)."""
+def stamped_decode(wrapper, args, width: int):
+    """One stamped launch of ``decode_kernel`` on ``args`` (the card's flat
+    source, offsets, lengths and limits, as ``decode_fused._launch`` takes
+    them): its result and the stamps (int64[B, STAMPS], on the host)."""
     st = torch.zeros((args[1].numel(), decode_fused.STAMPS), dtype=torch.int64,
                      device=args[0].device)
-    got = decode_fused._launch(wrapper, *args, width, st, kernel=kernel)
+    got = decode_fused._launch(wrapper, *args, width, st)
     return got, st.cpu().numpy()
+
+
+def stamped_wide(wrapper, args, width: int):
+    """One stamped call of the wide kernels on ``args`` (as
+    :func:`stamped_decode`, rows wider than ``decode_fused.FAST_MAX``): its
+    result and the stamps (chunks int64[nchunks, 8], segments
+    int64[nseg, 13], on the host)."""
+    dev = args[0].device
+    plan = decode_fused.plan_on(dev, args[2].cpu().numpy(), args[3].cpu().numpy(), width)
+    st = torch.zeros((decode_fused.wide_stamp_count(*plan[1:]),), dtype=torch.int64, device=dev)
+    got = decode_fused._launch(wrapper, *args, width, st, plan=plan)
+    return got, decode_fused.split_wide_stamps(st, plan[1])
 
 
 def stamped_encode(data: torch.Tensor, blens: torch.Tensor, bs: int):
@@ -140,6 +178,26 @@ def profile_decode(data: bytes) -> list[dict]:
                                                "device": card(dev)}]
 
 
+def profile_wide(body: bytes, ulen: int) -> list[dict]:
+    """The wide kernels on ``body`` decoded as one row of ``ulen`` bytes (a
+    whole stream's body is one valid fragment)."""
+    dev = resolve_device(None)
+    args = (torch.frombuffer(bytearray(body), dtype=torch.uint8).to(dev),
+            torch.zeros((1,), dtype=torch.int64, device=dev),
+            torch.tensor([len(body)], dtype=torch.int32, device=dev),
+            torch.tensor([ulen], dtype=torch.int32, device=dev))
+    (out, prod, status), (chain, seg) = stamped_wide(decode_fused.decode_blocks, args, ulen)
+    if int(status[0]) != 0 or int(prod[0]) != ulen:
+        raise RuntimeError(f"phaseprof wide: status {int(status[0])}, produced {int(prod[0])}")
+    if out[0].cpu().numpy().tobytes() != pymodel.decompress_noheader(body, ulen):
+        raise RuntimeError("phaseprof wide: the row differs from the oracle's")
+    plan = decode_fused.plan_on(dev, [len(body)], [ulen], ulen)
+    ms = time_ms(lambda: decode_fused._launch(decode_fused.decode_blocks, *args, ulen, plan=plan),
+                 device=dev)
+    return wide_rows(chain, seg, sm_clock_mhz()) + [{"GBps_full": ulen / ms / 1e6,
+                                                     "device": card(dev)}]
+
+
 def profile_encode(data: bytes) -> list[dict]:
     dev = resolve_device(None)          # the card; no plain version has phases
     n = len(data)
@@ -165,12 +223,18 @@ def profile_encode(data: bytes) -> list[dict]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("which", nargs="?", default="decode", choices=["decode", "encode"])
+    ap.add_argument("which", nargs="?", default="decode", choices=["decode", "encode", "wide"])
     ap.add_argument("data_file", nargs="?",
                     default=str(pathlib.Path(__file__).parents[2] / "tests" / "data" / "urls.10K"))
     args = ap.parse_args(argv)
     data = pathlib.Path(args.data_file).read_bytes()
-    for r in profile_decode(data) if args.which == "decode" else profile_encode(data):
+    if args.which == "wide":                        # the data's stream body as one row
+        stream = pymodel.compress(data)
+        ulen, hdr = wire.varint_decode(stream)
+        got = profile_wide(stream[hdr:], ulen)
+    else:
+        got = profile_decode(data) if args.which == "decode" else profile_encode(data)
+    for r in got:
         print(json.dumps(r), flush=True)
     return 0
 

@@ -102,7 +102,7 @@ def test_decode_kernel_fuzz_equals_plain(card, urls10k, cap):
     assert set(want[2].tolist()) >= {-5}
 
 
-@pytest.mark.parametrize("cap", [70000, decode_fused.MAX_BLOCK_OUT])
+@pytest.mark.parametrize("cap", [70000, 131072])
 def test_decode_kernel_wide_rows_and_far_copy4(card, cap):
     # rows wider than 64 KiB, and a COPY_4 offset above 65535 kept at 32 bits
     lit = np.random.default_rng(cap).integers(0, 256, 66000, dtype=np.uint8).tobytes()
@@ -227,34 +227,163 @@ def test_decode_segments_unequal_limits(card, urls10k_snappy, urls10k):
 
 
 def test_decode_picks_the_kernel_by_width(card, urls10k):
-    # rows up to 32,768 bytes take decode_kernel, wider ones decode_wide_kernel,
-    # each counted on the wrapper's launches; both equal the plain version
+    # rows up to 32,768 bytes take decode_kernel, wider ones the three wide
+    # kernels, each call counted once on the wrapper's launches and each
+    # kernel on launches_by_kernel; both equal the plain version
     frags = [pymodel.compress_fragment(urls10k[i * 32768 : (i + 1) * 32768]) for i in range(3)]
     arr, lens = _pack(frags)
-    for width, kernel in ((32768, "decode_kernel"), (32769, "decode_wide_kernel"),
-                          (70000, "decode_wide_kernel")):
+    for width, kernels in ((32768, ("decode_kernel",)), (32769, decode_fused.WIDE_KERNELS),
+                           (70000, decode_fused.WIDE_KERNELS)):
         before = dict(decode_fused.launches_by_kernel)
         n = decode_fused.decode_blocks.launches
         got = decode_fused.decode_blocks(torch.from_numpy(arr).to(card), lens, width)
         assert decode_fused.decode_blocks.launches == n + 1
         assert {k: v - before[k] for k, v in decode_fused.launches_by_kernel.items()} == \
-            {k: int(k == kernel) for k in decode_fused.KERNELS}
+            {k: int(k in kernels) for k in decode_fused.KERNELS}
         want = decode_fused.decode_blocks(arr, lens, width, device="cpu")
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
 
 
 def test_the_32k_kernel_never_takes_a_wider_row(card):
-    # the launch entry refuses a row past 32,768 bytes for decode_kernel
+    # decode_kernel's launch entry refuses a row past 32,768 bytes, and the
+    # wide entry one of 32,768 or less
     frag = pymodel.compress_fragment(b"abc" * 100)
     arr, lens = _pack([frag])
     flat = torch.from_numpy(arr).to(card).reshape(-1)
     offs = torch.zeros((1,), dtype=torch.int64, device=card)
     lt = torch.from_numpy(lens).to(card)
     dl = torch.full((1,), 32769, dtype=torch.int32, device=card)
+    out = torch.empty((1, 32769), dtype=torch.uint8, device=card)
+    ps = torch.empty((2,), dtype=torch.int32, device=card)
+    launch, check = decode_fused._kernel()
     with pytest.raises(RuntimeError, match="CUDA error"):
-        decode_fused._launch(decode_fused.decode_blocks, flat, offs, lt, dl, 32769,
-                             kernel="decode_kernel")
+        check(launch(flat.data_ptr(), offs.data_ptr(), lt.data_ptr(), dl.data_ptr(),
+                     out.data_ptr(), 32769, ps.data_ptr(), ps[1:].data_ptr(), 1, None, None))
+    launch, check = decode_fused._wide_kernel()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        check(launch(flat.data_ptr(), offs.data_ptr(), lt.data_ptr(), dl.data_ptr(), None,
+                     out.data_ptr(), 32768, ps.data_ptr(), ps[1:].data_ptr(), 1, 1, 2, None,
+                     None, None))
+
+
+def _wide_ref():
+    with np.load(DATA / "torch_ref" / "wide.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.mark.parametrize("group", ["w64k", "w70k", "w256k", "w1m"])
+def test_wide_kernels_equal_plain_and_fixture(card, group):
+    # the wide group on the card: the plain version on every row, the JAX
+    # answers on every row but the JAX package's known faults, the oracle's
+    # stored answers on every row
+    import hashlib
+
+    maker = _maker()
+    ref = _wide_ref()
+    block_out = maker.WIDE_GROUPS[group]
+    comp, lens = ref[f"{group}_comp"], ref[f"{group}_lens"]
+    got = decode_fused.decode_blocks(torch.from_numpy(comp).to(card), lens, block_out)
+    want = decode_fused.decode_blocks(comp, lens, block_out, device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    out, prod, stat = (t.cpu().numpy() for t in got)
+    assert prod.tolist() == ref[f"{group}_oracle_prod"].tolist()
+    assert stat.tolist() == ref[f"{group}_oracle_status"].tolist()
+    for i in range(len(lens)):
+        assert hashlib.sha256(out[i].tobytes()).digest() == \
+            ref[f"{group}_oracle_sha256"][i].tobytes(), (group, i)
+        if group in maker.WIDE_JAX and i not in maker.JAX_DECODE_FAULTS.get(group, ()):
+            assert (prod[i], stat[i]) == (ref[f"{group}_prod"][i], ref[f"{group}_status"][i])
+            assert np.array_equal(out[i, : prod[i]], ref[f"{group}_out"][i, : prod[i]])
+
+
+@pytest.mark.parametrize("width", [32769, 65536, 70000, 131073, 1 << 18, 1 << 20, 1 << 24])
+def test_wide_kernels_widths_and_events(card, width):
+    # every width against the plain version, events in the first and the
+    # last segment; decode_segments reads the same rows in place at mixed limits
+    from chip_smoke import wide_cases
+
+    cases = wide_cases(width, width)
+    arr, lens = _pack([f for _, f in cases])
+    got = decode_fused.decode_blocks(torch.from_numpy(arr).to(card), lens, width)
+    want = decode_fused.decode_blocks(arr, lens, width, device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w), [n for n, _ in cases]
+    assert want[2][:3].tolist() == [0, 0, 0] and set(want[2][3:8].tolist()) == {-3, -5}
+    body = b"".join(f for _, f in cases)
+    offs = np.cumsum([0] + [len(f) for _, f in cases[:-1]])
+    dl = np.array([width, width - 1, 40000, width, width, width + 1, width, width, 0])
+    got = decode_fused.decode_segments(_u8(body).to(card), offs, lens, dl)
+    want = decode_fused.decode_segments(body, offs, lens, dl, device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_wide_main_path_batch_repeats(card):
+    # the main path's wide decode_segments batch (rows of 702,087, 32,768 and
+    # 2^18 B at unaligned offsets), from host bytes and a card tensor in turn,
+    # beside the body as one decode_blocks row: every call equal to the
+    # known answers
+    from chip_smoke import wide_repeats
+
+    got = wide_repeats(20, card)
+    assert got == {"calls": 40, "differed": {"segments": 0, "blocks": 0}}
+
+
+def test_wide_call_runs_three_kernels_and_one_memset(card, urls10k_snappy):
+    # one decode_blocks call of a wide row: one memset of the workspace and
+    # the chain, segment and finish kernels once each, no other kernel
+    from csnappy_tpu_torch.tools.timing import device_profile
+
+    body = urls10k_snappy[wire.varint_decode(urls10k_snappy)[1]:]
+    arr = torch.from_numpy(np.frombuffer(body, np.uint8).copy()).to(card)[None, :]
+    lens = np.array([len(body)], np.int32)
+    ops = device_profile(lambda: decode_fused.decode_blocks(arr, lens, 702087), 3)["calls"]
+    kernels = {k: v for k, v in ops.items() if not k.startswith(("Memcpy", "Memset"))}
+    assert sorted(kernels.values()) == [1, 1, 1], ops
+    for name in decode_fused.WIDE_KERNELS:
+        assert any(name in k for k in kernels), (name, ops)
+    assert sum(v for k, v in ops.items() if k.startswith("Memset")) == 1, ops
+
+
+def test_wide_stamps_and_bounds(card):
+    # the stamped call: every chunk of each row visited or skipped, every
+    # segment's resolve rounds within 16, and the offset-1 run's segments
+    # each reading the segment before
+    from chip_smoke import wide_cases
+    from csnappy_tpu_torch.tools import phaseprof
+
+    width = 1 << 20
+    cases = wide_cases(width, 5)[:3]
+    arr, lens = _pack([f for _, f in cases])
+    B = len(cases)
+    args = (torch.from_numpy(arr).to(card).reshape(-1),
+            torch.arange(B, device=card, dtype=torch.int64) * arr.shape[1],
+            torch.from_numpy(lens).to(card), torch.full((B,), width, dtype=torch.int32,
+                                                        device=card))
+    got, (chain, seg) = phaseprof.stamped_wide(decode_fused.decode_blocks, args, width)
+    want = decode_fused.decode_blocks(arr, lens, width, device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    plan = decode_fused.wide_plan(lens, [width] * B, width)
+    assert chain.shape == (plan[B], 8) and seg.shape == (plan[-1], 13)
+    names = decode_fused.WIDE_SEG_STAMPS
+    rounds, ext = seg[:, names.index("rounds")], seg[:, names.index("externals")]
+    assert rounds.max() <= 16
+    s0, s1 = plan[B + 2], plan[B + 3]                 # the offset-1 run's segments
+    assert ext[s0 + 1 : s1 - 1].all()
+    summ = phaseprof.wide_summary(chain, seg)
+    assert set(summ) == set(decode_fused.WIDE_KERNELS[:2])
+
+
+def test_failed_wide_launch_raises_and_takes_no_plain_version(card, monkeypatch):
+    frag = pymodel.compress_fragment(b"abc" * 100)
+    arr, lens = _pack([frag])
+    monkeypatch.setattr(decode_fused, "decode_plain", lambda *a: pytest.fail("plain version"))
+    monkeypatch.setattr(decode_fused, "_wide_kernel", lambda: (lambda *a: 1, decode_fused._kernel()[1]))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        decode_fused.decode_blocks(torch.from_numpy(arr).to(card), lens, 40000)
 
 
 @pytest.mark.parametrize("bs", [1024, 4096, 32768])

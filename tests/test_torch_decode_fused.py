@@ -227,12 +227,25 @@ def test_decode_segments_reads_stream_in_place(urls10k_snappy, urls10k):
 
 @pytest.mark.parametrize("bad", [
     dict(src_lens=[5], block_out=16),          # length past the row
-    dict(src_lens=[1], block_out=1 << 18),     # output row too wide
+    dict(src_lens=[1], block_out=-1),          # a negative output row
     dict(src_lens=[1, 1], block_out=16),       # one length per block
 ])
 def test_decode_blocks_rejects_bad_arguments(bad):
     with pytest.raises(ValueError):
         decode_fused.decode_blocks(np.zeros((1, 4), np.uint8), device="cpu", **bad)
+
+
+def test_a_row_of_2_18_bytes_decodes_as_the_oracle():
+    # no width ceiling below 2^31: a row of 1 << 18 bytes, a COPY_4 reading
+    # 200,000 bytes back included
+    lit = np.random.default_rng(9).integers(0, 256, 200000, dtype=np.uint8).tobytes()
+    f = bytearray()
+    wire.emit_literal(f, lit)
+    f += (bytes([wire.TAG_COPY_4 | ((64 - 1) << 2)]) + (200000).to_bytes(4, "little")) * 900
+    out, produced, status = _decode_one(bytes(f), 1 << 18)
+    want = pymodel.decompress_noheader(bytes(f), 1 << 18)
+    assert (status, produced, out.shape) == (errors.E_OK, 257600, (1 << 18,))
+    assert out[:produced].tobytes() == want and not out[produced:].any()
 
 
 def test_decode_blocks_takes_only_bytes():
@@ -247,13 +260,14 @@ def test_device_none_means_the_card(monkeypatch):
 
 
 def test_kernel_for_picks_by_width():
-    # rows up to FAST_MAX bytes (every API route) take the parallel kernel;
-    # only wider rows take the serial wide kernel
-    assert decode_fused.FAST_MAX == 32768
+    # rows up to FAST_MAX bytes (every API route) take decode_kernel; wider
+    # rows, to the int32 limit, the three kernels of decode_wide.cu
+    assert decode_fused.FAST_MAX == 32768 and decode_fused.MAX_WIDTH == (1 << 31) - 1
     for width in (0, 4, 4096, 32768):
-        assert decode_fused.kernel_for(width) == "decode_kernel"
-    for width in (32769, 70000, decode_fused.MAX_BLOCK_OUT):
-        assert decode_fused.kernel_for(width) == "decode_wide_kernel"
+        assert decode_fused.kernel_for(width) == ("decode_kernel",)
+    for width in (32769, 70000, 131073, decode_fused.MAX_WIDTH):
+        assert decode_fused.kernel_for(width) == (
+            "wide_chain_kernel", "wide_segment_kernel", "wide_finish_kernel")
 
 
 def test_launch_refuses_a_bad_stamps_buffer():

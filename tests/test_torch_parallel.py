@@ -37,10 +37,20 @@ WORLD = 3                    # ranks of the module group
 TIMEOUT = multihost.TIMEOUT_S    # seconds a collective may wait
 LAUNCH_S = 120               # seconds a spawned group may take in all
 SHARDED_CASES = {"two": 32768 + 100, "uneven": 32768 * 4 + 777}    # bytes of urls.10K
+WIDE_JAX_ROWS = (0, 1, 4, 5)     # wide.npz's w64k rows with status 0 and the JAX oracle's bytes
 
 
 def _urls() -> bytes:
     return (DATA / "urls.10K").read_bytes()
+
+
+def _wide_case():
+    """Fragments of the wide fixture group with limits past 131,072: the
+    w64k rows the JAX decoder answered with status 0, then the w256k rows."""
+    with np.load(DATA / "torch_ref" / "wide.npz") as z:
+        frags = [z["w64k_comp"][i, : z["w64k_lens"][i]].tobytes() for i in WIDE_JAX_ROWS]
+        frags += [z["w256k_comp"][i, : z["w256k_lens"][i]].tobytes() for i in range(3)]
+    return frags, [131073 + 7 * i for i in range(len(WIDE_JAX_ROWS))] + [1 << 18] * 3
 
 
 def _error(fn) -> str:
@@ -59,9 +69,12 @@ def _rank_cases(rank: int) -> dict:
     res = {}
     groups = {n: mesh.default_mesh(n=n) for n in (1, 2)}    # every rank creates each
     groups[WORLD] = mesh.default_mesh()
+    frags, limits = _wide_case()
     for n, group in groups.items():
         if dist.get_rank(group) >= 0:
             res[f"urls@{n}"] = mesh.compress_sharded(urls, group, device=cpu)
+            res[f"wide@{n}"] = b"".join(mesh.decompress_fragments_sharded(frags, limits, group,
+                                                                          device=cpu))
         else:
             res[f"outside@{n}"] = _error(lambda g=group: mesh.compress_sharded(urls, g, device=cpu))
     for name, n in SHARDED_CASES.items():
@@ -85,8 +98,8 @@ def _rank_cases(rank: int) -> dict:
         res["limit_code"] = 0
     except SnappyError as e:
         res["limit_code"] = e.code
-    res["over_max"] = _error(lambda: mesh.decompress_fragments_sharded(
-        [b"\x00a"], [decode_fused.MAX_BLOCK_OUT + 1], device=cpu))
+    res["negative"] = _error(lambda: mesh.decompress_fragments_sharded(
+        [b"\x00a"], [-1], device=cpu))
     res["disagree"] = _error(lambda: mesh.compress_sharded(urls[: 1000 + rank], device=cpu))
     res["one_rank_invalid"] = _error(lambda: mesh.compress_sharded(
         urls[:1000], bs=0 if rank == 1 else 32768, device=cpu))
@@ -206,7 +219,7 @@ def test_empty_inputs_on_every_rank(ranks):
 
 
 @pytest.mark.parametrize("case, words", [
-    ("over_max", "out_lens must lie in [0, 131072]"),    # decode_fused.MAX_BLOCK_OUT
+    ("negative", "out_lens must lie in [0, 2147483647]"),    # decode_fused.MAX_WIDTH
     ("disagree", "arguments differ"),
     ("one_rank_invalid", "ranks [1] were given invalid arguments"),
 ])
@@ -295,16 +308,19 @@ def test_one_rank_in_process(one_rank, urls10k):
         mesh.default_mesh(n=2)
 
 
-def test_out_lens_above_max_block_out_raise_where_jax_rounds_up(one_rank):
-    # ROADMAP.md queue C: the JAX mesh rounds out_cap up to 1024 and takes
-    # any limit; the port's decode_segments holds a row in one block's
-    # shared memory, so a limit past MAX_BLOCK_OUT raises before any decode
-    assert decode_fused.MAX_BLOCK_OUT == 131072
-    assert mesh.decompress_fragments_sharded([b"\x00a"], [decode_fused.MAX_BLOCK_OUT],
-                                             device="cpu") == [b"a"]
-    with pytest.raises(ValueError, match="out_lens must lie"):
-        mesh.decompress_fragments_sharded([b"\x00a"], [decode_fused.MAX_BLOCK_OUT + 1],
-                                          device="cpu")
+@pytest.mark.parametrize("n", [1, 2, WORLD])
+def test_limits_past_131072_decode_as_the_oracle(ranks, n):
+    # no width ceiling: limits past 131,072 decode as the JAX answers (the
+    # w64k rows, within their 65,536 bytes) and the oracle (the w256k rows)
+    # at 1, 2 and 3 ranks, every rank of the group holding every fragment
+    frags, limits = _wide_case()
+    with np.load(DATA / "torch_ref" / "wide.npz") as z:
+        jax = [z["w64k_out"][i, : z["w64k_prod"][i]].tobytes() for i in WIDE_JAX_ROWS]
+        assert z["w64k_status"][list(WIDE_JAX_ROWS)].tolist() == [0] * len(WIDE_JAX_ROWS)
+    oracle = [pymodel.decompress_noheader(f, x) for f, x in zip(frags, limits)]
+    assert oracle[: len(jax)] == jax and max(limits) > 131072
+    for r in range(n):
+        assert _bytes(ranks[r][f"wide@{n}"]) == b"".join(oracle), (n, r)
 
 
 def test_device_none_without_a_card_raises(one_rank, monkeypatch):

@@ -61,7 +61,13 @@ Writes ``tests/data/torch_ref/``:
   the constructed cases of :func:`build_kernel_lib_cases` (answers outside
   the helpers' contracts, the helpers no JAX test runs, and
   ``scatter_rows_multi`` and ``gather_rows_multi`` at the shapes the JAX
-  fused kernels give them).
+  fused kernels give them);
+* ``wide.npz`` — rows past 32 KiB (built by :func:`build_wide`): the
+  ``w64k`` rows through one JAX ``decode_blocks`` call at block_out 65,536,
+  where the JAX kernel is exact, the periodic ``w70k`` row through a second
+  call at 70,000 (a JAX fault, ``JAX_DECODE_FAULTS``), and the ``w256k`` and
+  ``w1m`` rows, which only the oracle answers
+  (``models/pymodel.decompress_noheader``: produced, status, sha256).
 
 The tests rebuild the inputs from the seed, check them against the stored
 copies (drift check), then hold the port against the stored outputs.
@@ -71,7 +77,7 @@ minutes; it is run by hand when the reference or the input set changes, never
 by the tests.  ``--far`` adds the 70000-byte-window COPY_4 vector
 (``far`` group, offset 66000 > 65535), which costs several minutes more.
 ``--group blocks``, ``streams``, ``scan_adv``, ``stream_adv``, ``container``, ``movebench``,
-``primitives``, ``probes``, ``kernel_lib`` or ``sharded`` (seconds) writes one
+``primitives``, ``probes``, ``kernel_lib``, ``sharded`` or ``wide`` (~5 min) writes one
 file only (``sharded`` sets ``XLA_FLAGS`` for its 8-device mesh before JAX is
 imported); the stream, scan_adv, stream_adv and container groups run one process per case,
 ``--procs`` at a time.
@@ -103,7 +109,12 @@ FAR_GROUP = {"far": 70000}
 # decoder (ROADMAP.md queue C); the port answers as the reference there:
 # far 0, a COPY_4 offset above 65535 (clamped to 0xFFFF, decode_fused.py:218-225);
 # dadv 3, literal bytes read past input byte 65,535 come back 0
-JAX_DECODE_FAULTS = {"far": (0,), "dadv": (3,)}
+# w70k 0, output bytes from 69,632 on come back 0 with status 0 (the JAX
+# kernel's 16-bit output starts, decode_fused.py:449-470, are the likely
+# cause); w64k 6 and 7, a literal of more than 32 KiB loses its tail with
+# status 0: from output byte 32,896 of a 33,000-byte literal at 0, from
+# 33,792 of a 34,000-byte literal at 1,000 (and the copies that read them)
+JAX_DECODE_FAULTS = {"far": (0,), "dadv": (3,), "w70k": (0,), "w64k": (6, 7)}
 # encode groups: name -> padded block width
 ENCODE_GROUPS = {"e1k": 1024, "e4k": 4096, "eadv": 4096}
 
@@ -405,7 +416,7 @@ def main() -> int:
     ap.add_argument("--far", action="store_true", help="add the far COPY_4 group")
     ap.add_argument("--group", default="all",
                     choices=("all", "blocks", "streams", "scan_adv", "stream_adv", "container", "movebench",
-                             "primitives", "probes", "kernel_lib", "sharded"))
+                             "primitives", "probes", "kernel_lib", "sharded", "wide"))
     ap.add_argument("--procs", type=int, default=4, help="processes for the stream group")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -439,6 +450,8 @@ def main() -> int:
         write_kernel_lib()
     if args.group in ("all", "sharded"):
         write_sharded()
+    if args.group in ("all", "wide"):
+        write_wide()
     print(f"wrote {OUT}", flush=True)
     return 0
 
@@ -1832,6 +1845,115 @@ def write_sharded() -> None:
     a["enc4k_comp"] = np.asarray(comp, np.uint8)[:, : int(lens.max())]
     np.savez_compressed(OUT / "sharded.npz", **a)
     print(f"sharded: {len(a)} arrays ({time.time() - t0:.0f} s)", flush=True)
+
+
+# --------------------------------------------------------------------- wide
+
+# name -> block_out; the JAX decode_blocks answers WIDE_JAX, the oracle all
+WIDE_GROUPS = {"w64k": 65536, "w70k": 70000, "w256k": 1 << 18, "w1m": 1 << 20}
+WIDE_JAX = ("w64k", "w70k")
+
+
+def _literal(payload: bytes) -> bytes:
+    from csnappy_tpu.models import wire
+
+    s = bytearray()
+    wire.emit_literal(s, payload)
+    return bytes(s)
+
+
+def _copy(kind: int, length: int, offset: int) -> bytes:
+    """One COPY_2 (kind 2) or COPY_4 (kind 3) tag."""
+    return bytes([kind | ((length - 1) << 2)]) + offset.to_bytes(2 if kind == 2 else 4, "little")
+
+
+def _frags(data: bytes) -> bytes:
+    """``data`` as 32 KiB fragments, concatenated: one valid stream."""
+    from csnappy_tpu.models import pymodel
+
+    return b"".join(pymodel.compress_fragment(data[i : i + 32768])
+                    for i in range(0, len(data), 32768))
+
+
+def _run(lit: bytes, kind: int, offset: int, total: int, piece: int = 0) -> bytes:
+    """``lit`` (as literals of ``piece`` bytes, or one), then copies of 64
+    bytes at ``offset`` up to ``total`` bytes."""
+    piece = piece or len(lit)
+    s = bytearray(b"".join(_literal(lit[i : i + piece]) for i in range(0, len(lit), piece)))
+    op = len(lit)
+    while op < total:
+        n = min(64, total - op)
+        s += _copy(kind, n, offset)
+        op += n
+    return bytes(s)
+
+
+def build_wide(urls: bytes) -> dict[str, list[bytes]]:
+    """The rows of each ``WIDE_GROUPS`` group (deterministic)."""
+    rng = np.random.default_rng(SEED + 19)
+    far = rng.integers(0, 256, 100000, dtype=np.uint8).tobytes()
+    urls1m = (urls * 2)[: 1 << 20]
+    return {
+        "w64k": [
+            _frags(urls[:65536]),                                       # two 32 KiB fragments
+            _run(b"abcdefghij", 2, 10, 65536),                          # periodic
+            _frags(urls[65536:131036]) + _copy(2, 37, 1000),            # overrun at the last byte
+            _frags(urls[131072:193840]) + _copy(2, 8, 63000)            # malformed offset at 62,768
+            + _frags(urls[193840:196608]),
+            _frags(urls[196608:245760]),                                # 49,152 bytes
+            _run(far[:33000], 2, 33000, 65536, 1000),                   # copies a segment back
+            _run(far[:33000], 2, 33000, 65536),                         # a 33,000-byte literal
+            _literal(far[33000:34000]) + _run(far[:34000], 2, 1000, 64536),   # 34,000 at 1,000
+        ],
+        "w70k": [_run(b"abcdefghij", 2, 10, 70000)],                    # the JAX fault
+        "w256k": [
+            _frags(urls[: 1 << 18]),                                    # input past 65,535 B
+            _run(far, 3, 100000, 1 << 18),                              # COPY_4 offset 100,000
+            _run(b"z", 2, 1, 1 << 18),                                  # offset-1 run
+        ],
+        "w1m": [
+            _frags(urls1m),
+            _run(far, 3, 100000, 1 << 20),
+            _run(b"z", 2, 1, 1 << 20),
+        ],
+    }
+
+
+def read_wide() -> dict:
+    """The stored wide group, every array by its key."""
+    with np.load(OUT / "wide.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def write_wide() -> None:
+    from csnappy_tpu import errors
+    from csnappy_tpu.models import pymodel
+    from csnappy_tpu.ops import decode_fused
+
+    urls = (DATA / "urls.10K").read_bytes()
+    a = {}
+    for name, rows in build_wide(urls).items():
+        block_out = WIDE_GROUPS[name]
+        a[f"{name}_comp"], a[f"{name}_lens"] = _pack(rows)
+        prod, status, digest = [], [], []
+        for row in rows:                         # the oracle
+            try:
+                got, code = pymodel.decompress_noheader(row, block_out), 0
+            except errors.SnappyError as e:
+                got, code = b"", e.code
+            prod.append(len(got))
+            status.append(code)
+            digest.append(sha(got + bytes(block_out - len(got))))
+        a[f"{name}_oracle_prod"] = np.array(prod, np.int32)
+        a[f"{name}_oracle_status"] = np.array(status, np.int32)
+        a[f"{name}_oracle_sha256"] = np.stack(digest)
+        if name in WIDE_JAX:
+            t0 = time.time()
+            o, p, s = decode_fused.decode_blocks(a[f"{name}_comp"], a[f"{name}_lens"], block_out)
+            a[f"{name}_out"], a[f"{name}_prod"], a[f"{name}_status"] = (
+                np.asarray(o, np.uint8), np.asarray(p, np.int32), np.asarray(s, np.int32))
+            print(f"decode {name}: B={len(p)} ({time.time() - t0:.0f} s)", flush=True)
+    np.savez_compressed(OUT / "wide.npz", **a)
 
 
 if __name__ == "__main__":

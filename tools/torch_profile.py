@@ -2,6 +2,7 @@
 """Where the port's block codec and primitives spend their device time, on one CUDA card.
 
     python3 tools/torch_profile.py [--out FILE.json] [--root TREE] [--scan-split] [--stream-split]
+                                   [--wide]
 
 Runs the main path's batch (B=64 blocks of 32 KiB of urls.10K, block i =
 ``urls[(i % 21) * 32768 : ...]``, as bench.py and chip_smoke.py make it)
@@ -35,7 +36,16 @@ walk) and prints each phase's SM cycles summed over the windows, on
 urls.10K.snappy and the 16 MiB stream.  ``--stream-split`` does the same
 for ``--root``'s ``csrc/decode_stream.cu`` when it is the one-block decoder
 (commit cc6d3e5 and before): staging a window, thread 0's walk, the
-literals, warp 0's copies and the flush.  Imports nothing of the JAX package.
+literals, warp 0's copies and the flush.  ``--wide`` times only the block
+decoder's rows past 32 KiB in ``--root``'s tree (``decode_wide_kernel`` at
+commit 9452537 and before, ``csrc/decode_wide.cu`` after): rows of
+urls.10K data at 49,152, 65,536, 70,000 and 131,072 B, one row and 64
+rows, urls.10K.snappy's body as one row of 702,087 B and urls.10K x 24's
+body as one row of 16,850,088 B, each launch (CUDA events), kernels alone
+(torch.profiler) and a lone call, with ``decode_stream.cu``'s launch and
+kernels on the two whole bodies, one JSON line a case (a tree that refuses
+a width says so).  Imports nothing of the
+JAX package.
 Exits non-zero without a card.
 """
 from __future__ import annotations
@@ -63,6 +73,8 @@ def main() -> int:
                     help="the one-block scan's phases in --root, with clock64() stamps added")
     ap.add_argument("--stream-split", action="store_true",
                     help="the one-block stream decoder's phases in --root, with clock64() stamps")
+    ap.add_argument("--wide", action="store_true",
+                    help="only the block decoder's rows past 32 KiB in --root's tree")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -80,6 +92,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     urls = (ROOT / "tests" / "data" / "urls.10K").read_bytes()
+    if args.wide:
+        return _wide(torch, np, dev, pathlib.Path(args.root), urls)
     blocks = [urls[(i % 21) * BS : (i % 21 + 1) * BS] for i in range(B)]
     data = torch.zeros((B, BS), dtype=torch.uint8)
     for i, b in enumerate(blocks):
@@ -156,18 +170,9 @@ def main() -> int:
         if not k.startswith("host"):
             result[f"{k} (one call)"] = device_profile(fn, args.reps)
 
-    def lone(fn, n: int) -> float:
-        times = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return sorted(times)[len(times) // 2]
-
-    lone_ms = {k: lone(fn, 50) for k, fn in calls.items()}
-    lone_ms.update({k: lone(fn, 10 if "16 MiB" in k else 50) for k, (fn, _, _) in whole.items()})
+    lone_ms = {k: _lone(torch, fn, 50) for k, fn in calls.items()}
+    lone_ms.update({k: _lone(torch, fn, 10 if "16 MiB" in k else 50)
+                    for k, (fn, _, _) in whole.items()})
     result["lone_ms"] = lone_ms
     if hasattr(decode_ws, "_carve"):
         result["decode_ws host split, urls.10K.snappy (us)"] = _ws_split(
@@ -210,6 +215,84 @@ def main() -> int:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
     return 0
+
+
+def _wide(torch, np, dev, root: pathlib.Path, urls: bytes) -> int:
+    """``--wide``: the block decoder of ``root``'s tree on rows past 32 KiB,
+    one JSON line a case (the rows ``chip_smoke.py`` phase 5 times)."""
+    import inspect
+
+    from csnappy_tpu_torch import api
+    from csnappy_tpu_torch.models import pymodel, wire
+    from csnappy_tpu_torch.ops import decode_fused
+    from csnappy_tpu_torch.ops import decode_stream as ds
+    from csnappy_tpu_torch.tools.timing import device_profile, smi, time_ms
+
+    card = smi("name,power.limit")
+    golden = (ROOT / "tests" / "data" / "urls.10K.snappy").read_bytes()
+    long = urls * 2
+    cases = []
+    for width in (49152, 65536, 70000, 131072):
+        rows = [b"".join(pymodel.compress_fragment(long[o + i : o + min(i + BS, width)])
+                         for i in range(0, width, BS))
+                for o in range(0, 64 * 9973, 9973)]
+        cases += [(f"{width} B x 1", rows[:1], width), (f"{width} B x 64", rows, width)]
+    big = api.compress(urls * 24)
+    cases += [("urls.10K.snappy body as one row", [golden[wire.varint_decode(golden)[1]:]],
+               len(urls)),
+              ("urls.10K x 24 body as one row", [big[wire.varint_decode(big)[1]:]], 24 * len(urls))]
+    takes_plan = "plan" in inspect.signature(decode_fused._launch).parameters
+    for label, frags, width in cases:
+        n = len(frags)
+        comp = torch.zeros((n, max(len(f) for f in frags)), dtype=torch.uint8)
+        for i, f in enumerate(frags):
+            comp[i, : len(f)] = torch.frombuffer(bytearray(f), dtype=torch.uint8)
+        lens = np.array([len(f) for f in frags], np.int32)
+        rec = {"tree": str(root), "case": label, "B": n, "width": width, "card": card}
+        try:
+            want = decode_fused.decode_blocks(comp, lens, width, device="cpu")
+        except ValueError as e:                     # a tree with a width ceiling
+            rec["refused"] = str(e)
+            print(json.dumps(rec), flush=True)
+            continue
+        cdev = comp.to(dev)
+        args = (cdev.reshape(-1), torch.arange(n, device=dev, dtype=torch.int64) * comp.shape[1],
+                torch.from_numpy(lens).to(dev), torch.full((n,), width, dtype=torch.int32,
+                                                           device=dev))
+        extra = {}
+        if takes_plan and width > decode_fused.FAST_MAX:
+            extra["plan"] = decode_fused.plan_on(dev, lens, [width] * n, width)
+        got = decode_fused._launch(decode_fused.decode_blocks, *args, width, **extra)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), label
+        call = lambda: decode_fused.decode_blocks(cdev, lens, width)   # noqa: E731
+        prof = device_profile(call, 10)
+        rec.update(
+            launch_ms=time_ms(lambda: decode_fused._launch(decode_fused.decode_blocks, *args,
+                                                           width, **extra)),
+            kernels_ms=sum(v for k, v in prof["kernels"].items()
+                           if not k.startswith(("Memcpy", "Memset"))) or None,
+            kernels=prof["kernels"], lone_ms=_lone(torch, call, 20))
+        if label.endswith("body as one row"):      # decode_stream.cu on the same body
+            bd = args[0]
+            cap, limit = ds._limits(bd.numel(), width)
+            dsp = device_profile(lambda: ds.decode_stream(bd, width, dev), 10)
+            rec["decode_stream"] = {"launch_ms": time_ms(lambda: ds._launch(bd, cap, limit)),
+                                    "kernels_ms": dsp["device_ms"] or None}
+        print(json.dumps(rec), flush=True)
+    return 0
+
+
+def _lone(torch, fn, n: int) -> float:
+    """Host milliseconds of one ``fn()`` alone, synchronised before and
+    after: the upper median of ``n``."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
 
 
 def _smoke_phases(torch, np, root: pathlib.Path, dev, card: str) -> None:
