@@ -26,7 +26,11 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              mixed limits, ``decode_segments``; one ``decode_segments`` batch
              mixing widths; the main path's wide batch
              (``main_path_batch``) ``WIDE_REPEATS`` times, from host bytes
-             and a card tensor in turn (``wide_repeats``).  Each kernel
+             and a card tensor in turn (``wide_repeats``), each call in a
+             pool poisoned anew (``tools/hygiene.poison_pool``: every free
+             block of the caching allocator filled with a byte that changes
+             from call to call) and each output asserted to lie in the
+             poison, so a byte no kernel writes reads wrong.  Each kernel
              result must equal the plain
              version run on CPU copies: every output byte, ``produced`` and
              ``status`` (exact: bytes have no tolerance);
@@ -251,7 +255,17 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              the host copy gloo needs of a rank's lengths and rows;
              ``launches_sharded`` in rows 1-3 (row 1: ``decode_kernel``, the
              kernel rows 1 and 2 share; no wide kernel);
-15. bench and records — ``bench_torch.main(["--reps", "5"])`` in this
+15. hygiene — ``python -m csnappy_tpu_torch.tools.hygiene --seed
+             HYGIENE_SEED --seconds HYGIENE_SECONDS`` in a fresh process
+             (the hygiene allocator of ``csrc/hygiene.cu`` replaces the
+             caching allocator there before any CUDA allocation): every
+             kernel of the port (``hygiene.KERNELS``) on seeded varied cases
+             in memory poisoned with 0xA5 and with 0x5A between guard
+             regions, the decoders, the scan and the look-back scan also
+             behind the occupier kernel; its JSON lines printed; every
+             kernel run in both poisons, no call differing from the plain
+             version, no guard byte changed, no hang;
+16. bench and records — ``bench_torch.main(["--reps", "5"])`` in this
              process: exactly one line with ``bench.py``'s 15 keys
              (``bench_torch.KEYS``), ``compressed_bytes`` 354,567, the card
              in ``device``, every rate above 0, ``roofline_utilization_pct``
@@ -264,7 +278,7 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              ``delta_ms`` summing to the last ``cum_ms``, the benchtable's
              ``urls.10K`` row ``702087 ->   354567``, each record naming the
              card;
-16. the ``kernels`` JSON line (rows 1-2's wide path as ``decode_blocks_wide``
+17. the ``kernels`` JSON line (rows 1-2's wide path as ``decode_blocks_wide``
    and ``decode_segments_wide`` after them), the card's name and power
    limit, and the result line.
 
@@ -284,6 +298,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
 KL_ROUNDS = 5                   # phase 13's interleaved timing rounds
+HYGIENE_SEED, HYGIENE_SECONDS = 20, 60    # phase 15's seed and budget
 B, BS = 64, 32768             # the main path's batch: 64 blocks of 32 KiB
 
 
@@ -503,38 +518,41 @@ def wide_cases(width: int, seed: int) -> list:
 
 
 def main_path_batch() -> tuple:
-    """The main path's ``decode_segments`` batch of rows past 32 KiB: the
-    body of urls.10K.snappy (limit 702,087), urls.10K's first 32 KiB as one
-    fragment (limit 32,768) and the first w256k row of wide.npz (limit
-    2^18: urls.10K's first 2^18 B as 32 KiB fragments, 127,497 B of input),
-    back to back at unaligned offsets: (body, offsets, lengths, limits, the
-    rows' decoded bytes).
+    """The main path's ``decode_segments`` batch of rows past 32 KiB
+    (``tools/hygiene.main_path_batch``): the body of urls.10K.snappy
+    (limit 702,087), urls.10K's first 32 KiB as one fragment (limit 32,768)
+    and the first w256k row of wide.npz (limit 2^18: urls.10K's first 2^18
+    B as 32 KiB fragments, 127,497 B of input), back to back at unaligned
+    offsets: (body, offsets, lengths, limits, the rows' decoded bytes).
     Shared with the card tests."""
     import numpy as np
 
-    from csnappy_tpu_torch.models import pymodel, wire
+    from csnappy_tpu_torch.models import pymodel
+    from csnappy_tpu_torch.tools import hygiene
 
-    golden = (DATA / "urls.10K.snappy").read_bytes()
-    urls = (DATA / "urls.10K").read_bytes()
-    with np.load(DATA / "torch_ref" / "wide.npz") as z:
-        w256 = z["w256k_comp"][0, : z["w256k_lens"][0]].tobytes()
-    rows = [golden[wire.varint_decode(golden)[1]:], pymodel.compress_fragment(urls[:32768]), w256]
+    rows, limits = hygiene.main_path_batch()
     offs = np.cumsum([0] + [len(f) for f in rows[:-1]])
-    dl = np.array([len(urls), 32768, 1 << 18])
-    want = [urls, urls[:32768], pymodel.decompress_noheader(w256, 1 << 18)]
-    return b"".join(rows), offs, np.array([len(f) for f in rows]), dl, want
+    want = [pymodel.decompress_noheader(f, d) for f, d in zip(rows, limits)]
+    return b"".join(rows), offs, np.array([len(f) for f in rows]), np.array(limits), want
 
 
 def wide_repeats(n: int, dev=None) -> dict:
     """:func:`main_path_batch` through ``decode_segments`` ``n`` times on the
     card, from host bytes and from a card tensor in turn, with the body as
     one 702,087-byte ``decode_blocks`` row between them; every call's bytes,
-    ``produced`` and status held against the batch's known answers.
-    Returns the calls made and those that differed (by kind)."""
+    ``produced`` and status held against the batch's known answers.  Before
+    each call the caching allocator's pool is poisoned
+    (``tools/hygiene.poison_pool``: blocks of the call's sizes held and
+    freed, then every free block filled with a byte that changes from call
+    to call, never 0), and each output is asserted to lie in that poisoned
+    memory: a byte that no kernel writes reads wrong, where a repeat in an
+    unpoisoned pool finds the last call's right answer.  Returns the calls
+    made, those that differed (by kind) and the outputs asserted poisoned."""
     import numpy as np
     import torch
 
     from csnappy_tpu_torch.ops import decode_fused
+    from csnappy_tpu_torch.tools import hygiene
 
     dev = torch.device(dev or "cuda")
     body, offs, lens, dl, want = main_path_batch()
@@ -547,14 +565,26 @@ def wide_repeats(n: int, dev=None) -> dict:
     bdev = torch.frombuffer(bytearray(body), dtype=torch.uint8).to(dev)
     row = torch.frombuffer(bytearray(body[: lens[0]]), dtype=torch.uint8).to(dev)[None, :]
     bad = {"segments": 0, "blocks": 0}
+    sizes = (len(want) * width + (1 << 20), 1 << 20)       # the outputs and workspace; small ones
+    poisoned = 0
+
+    def landed(ranges, *ts):
+        for t in ts:
+            assert hygiene.in_ranges(t, ranges), "an output of the wide batch missed the poison"
+        return len(ts)
+
     for i in range(n):
+        ranges = hygiene.poison_pool(1 + (2 * i * 97) % 255, sizes, dev)
         out, prod, st = decode_fused.decode_segments(body if i % 2 else bdev, offs, lens, dl)
+        poisoned += landed(ranges, out, prod, st)
         if not (torch.equal(out, ref) and torch.equal(prod, rprod) and not st.any()):
             bad["segments"] += 1
+        ranges = hygiene.poison_pool(1 + (2 * i * 97 + 97) % 255, sizes, dev)
         bo, bp, bs = decode_fused.decode_blocks(row, [int(lens[0])], width)
+        poisoned += landed(ranges, bo, bp, bs)
         if not (torch.equal(bo[0], ref[0]) and int(bp[0]) == width and int(bs[0]) == 0):
             bad["blocks"] += 1
-    return {"calls": 2 * n, "differed": bad}
+    return {"calls": 2 * n, "differed": bad, "poisoned": poisoned}
 
 
 def _wide_times(torch, np, dev, decode_fused, urls: bytes, body: bytes) -> dict:
@@ -2383,6 +2413,36 @@ def _scaleout(torch, np, urls: bytes, fixture: bytes, card: str) -> dict:
             "encode_blocks": launches["encode_blocks"]}
 
 
+def _hygiene(card: str) -> dict:
+    """Phase 15: the hygiene harness in a fresh process (its allocator must
+    come before any CUDA allocation there); prints its JSON lines and asserts
+    every kernel of ``hygiene.KERNELS`` ran in both poisons with no call
+    differing, no guard byte changed and no hang.  Returns its summary."""
+    from csnappy_tpu_torch.tools import hygiene
+
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "csnappy_tpu_torch.tools.hygiene", "--seed",
+                        str(HYGIENE_SEED), "--seconds", str(HYGIENE_SECONDS)], cwd=ROOT,
+                       capture_output=True, text=True, timeout=HYGIENE_SECONDS + 600)
+    lines = [json.loads(line) for line in p.stdout.splitlines() if line.startswith("{")]
+    for line in lines:
+        print(json.dumps(line), flush=True)
+    assert p.returncode == 0, (p.returncode, (p.stdout + p.stderr)[-3000:])
+    per = {line["hygiene"]: line for line in lines if "hygiene" in line}
+    assert set(per) == set(hygiene.KERNELS), sorted(set(hygiene.KERNELS) - set(per))
+    for k, line in per.items():
+        assert line["poisons"] == ["0x5a", "0xa5"], (k, line["poisons"])
+        assert line["differed"] == line["guard_violations"] == 0, (k, line)
+    summ = next(line for line in lines if "hygiene_summary" in line)
+    s = summ["hygiene_summary"]
+    print(f"[hygiene] {s['kernels']} kernels, {s['cases']} cases, {s['calls']} calls "
+          f"({s['occupied']} behind the occupier; decoders {s['decoder_calls']}, "
+          f"{s['decoder_occupied']} occupied) in poisons 0xA5 and 0x5A: {s['differed']} differed, "
+          f"{s['guard_violations']} guard bytes changed, no hang; "
+          f"{time.perf_counter() - t0:.1f} s; card {card}", flush=True)
+    return s
+
+
 def _bench_records(rows: list, urls: bytes, row1_ms) -> None:
     """Phase 15: the bench line (``bench_torch.main``, 5 timed calls a
     figure), its block decode beside row 1's launch (``row1_ms()``, as
@@ -2855,11 +2915,14 @@ def main() -> int:
         if row["name"] in sharded:
             row["launches_sharded"] = sharded[row["name"]]
 
-    # ------------------------------------------------ 15. bench and records
+    # ---------------------------------------------------------- 15. hygiene
+    _hygiene(card)
+
+    # ------------------------------------------------ 16. bench and records
     _bench_records(rows, urls, lambda: time_ms(lambda: decode_fused._launch(
         decode_fused.decode_blocks, flat, offs_b, lens_b, dl_b, BS)))
 
-    # --------------------------------------------------------- 16. result
+    # --------------------------------------------------------- 17. result
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

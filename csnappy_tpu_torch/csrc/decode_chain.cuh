@@ -10,6 +10,20 @@
 // kLit24 is decode_stream.cu's: a literal whose 4-byte length trailer has a
 // nonzero top byte (more than 2^24 bytes) is no tag.  Without it the
 // trailer keeps all 32 bits, as the oracle reads it.
+//
+// The checked build (-DCSNAPPY_CHECKED, a library of its own that only the
+// hygiene harness loads) compiles in device asserts of what the design
+// relies on: shared-memory indices in range, every word of a segment
+// terminal after the resolve, external bytes before the segment and behind
+// a flag that was waited on, a segment with no event covering all of its
+// bytes while the chain runs past them, the window and round caps never
+// binding, and every chain word, stop and flag published once, by a lower
+// ticket.  It also perturbs the schedule: at each JITTER(site), thread 0 of
+// a block sleeps 0-16 us half the time (a hash of the SM clock, the block
+// and the site), so that chain entries, stops, flags and the reads that
+// wait on them interleave in orders a quiet card never makes.  Without the
+// macro CHECKED(...), WHEN_CHECKED(...) and JITTER(...) are empty and the
+// timed build is unchanged.
 
 #pragma once
 
@@ -17,6 +31,25 @@
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#ifdef CSNAPPY_CHECKED
+#include <cassert>
+#define CHECKED(cond) assert(cond)
+#define WHEN_CHECKED(...) __VA_ARGS__
+#define JITTER(site) jitter(site)
+__device__ __forceinline__ void jitter(unsigned int site) {
+  unsigned int h = static_cast<unsigned int>(clock64()) * 0x9E3779B1u ^
+                   (blockIdx.x + 1) * 0x85EBCA77u ^ site * 0xC2B2AE3Du;
+  h ^= h >> 15;
+  h *= 0x2C1B3C6Du;
+  h ^= h >> 12;
+  if (h & 1) __nanosleep(h % 16384);
+}
+#else
+#define CHECKED(cond) ((void)0)
+#define WHEN_CHECKED(...)
+#define JITTER(site) ((void)0)
+#endif
 
 namespace {
 
@@ -61,6 +94,22 @@ __device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long 
 }
 __device__ __forceinline__ void st_relaxed(unsigned int* p, unsigned int v) {
   asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+// A word that only one block ever publishes: the checked build asserts that
+// it held 0 before.
+__device__ __forceinline__ void publish_once(unsigned long long* p, unsigned long long v) {
+#ifdef CSNAPPY_CHECKED
+  CHECKED(atomicExch(p, v) == 0ull);
+#else
+  st_relaxed(p, v);
+#endif
+}
+__device__ __forceinline__ void publish_once(unsigned int* p, unsigned int v) {
+#ifdef CSNAPPY_CHECKED
+  CHECKED(atomicExch(p, v) == 0u);
+#else
+  st_relaxed(p, v);
+#endif
 }
 __device__ __forceinline__ long long global_ns() {
   long long t;
@@ -153,6 +202,7 @@ __device__ __forceinline__ bool jump_round(uint16_t* Jt, uint32_t* Pt) {
     const uint32_t p = Pt[i];
     const int end = ((i >> kSpanLog) + 1) << kSpanLog;
     const bool live = !(p & kFlags) && j < end;
+    CHECKED(j >= 0 && j < kChunk);
     nj[k] = live ? Jt[j] : static_cast<uint16_t>(j);
     np[k] = live ? Pt[j] : 0;
     any |= live;
@@ -178,6 +228,7 @@ __device__ int last_at_or_below(int x, int64_t px, int64_t bound, const uint16_t
                                 const uint32_t* P1, const uint8_t* bytes, int64_t base,
                                 int64_t slen, int64_t* pq) {
   while (true) {
+    CHECKED(x >= 0 && x < kChunk);
     const uint32_t p1 = P1[x];
     const int64_t py = px + (p1 & ~kFlags);
     if (py > bound) break;                      // the answer lies before J1[x]
@@ -240,6 +291,7 @@ __device__ __forceinline__ void chain_block(Take take) {
   long long last = 0;
 
   if (tid == 0) {
+    JITTER(1);                                // before the ticket
     const ChainJob j = take();
     s_job = j;
     // known not to be entered already (skipped, or past the stop): no tables
@@ -305,6 +357,7 @@ __device__ __forceinline__ void chain_block(Take take) {
 
     // the entry, then the exit published at once
     if (tid == 0) {
+      JITTER(2);                              // before the entry is read
       unsigned long long w = kEntered;
       if (c > 0) {
         while (true) {
@@ -314,9 +367,12 @@ __device__ __forceinline__ void chain_block(Take take) {
           if (st != 0 && static_cast<int>(st) - 1 < c) break;
         }
       }
+      // a word is 0 (the stop lies before c), an entry or a skip mark
+      CHECKED(w == 0 || w == kSkipped || (w & 3) == kEntered);
       s_state = (w & 3) == kEntered ? 1 : 0;
       if (s_state) {
         const int e = static_cast<int>((w >> 2) & 0x7FFF);
+        CHECKED(e < kChunk);
         const int64_t pp = static_cast<int64_t>(w >> 17);
         const uint32_t pe = P[e];
         const int x = J[e];
@@ -330,7 +386,8 @@ __device__ __forceinline__ void chain_block(Take take) {
           RowHead* row = s_job.row;
           row->p_stop = base + x;
           row->os_stop = at;
-          st_relaxed(&row->stop, static_cast<unsigned int>(c + 1));
+          JITTER(3);
+          publish_once(&row->stop, static_cast<unsigned int>(c + 1));
         } else {                                         // x leaves the chunk
           const Tag t = parse_tag<kLit24>(bytes + x, slen - base - x);
           const int64_t exit = base + x + t.hdr + (t.lit ? t.len : 0);   // <= slen
@@ -338,10 +395,13 @@ __device__ __forceinline__ void chain_block(Take take) {
           const int d = static_cast<int>(exit >> kLog);
           s_out = out;
           unsigned long long* word = s_job.word;
-          st_relaxed(&word[d], (static_cast<unsigned long long>(out) << 17) |
-                                   (static_cast<unsigned long long>(exit - (static_cast<int64_t>(d) << kLog)) << 2) |
-                                   kEntered);
-          for (int t2 = c + 1; t2 < d; ++t2) st_relaxed(&word[t2], kSkipped);
+          // chunk d > c takes its entry from this block, a lower ticket
+          CHECKED(d > c && exit <= slen);
+          publish_once(&word[d], (static_cast<unsigned long long>(out) << 17) |
+                                     (static_cast<unsigned long long>(exit - (static_cast<int64_t>(d) << kLog)) << 2) |
+                                     kEntered);
+          JITTER(4);                          // between the entry and the skip marks
+          for (int t2 = c + 1; t2 < d; ++t2) publish_once(&word[t2], kSkipped);
         }
         if (stamp) s_cyc[7] = global_ns();
       }
@@ -361,6 +421,7 @@ __device__ __forceinline__ void chain_block(Take take) {
       const int64_t k1 = stops ? nseg - 1 : ((out + kS - 1) / kS - 1 < nseg - 1 ? (out + kS - 1) / kS - 1 : nseg - 1);
       int searches = 0;
       for (int64_t k = k0 + tid; k <= k1; k += kThreads) {
+        CHECKED(k >= 0 && k < nseg);
         const int64_t bound = k * kS;
         if (stops && bound >= out) {                     // past the stop: the stop covers it
           cover_pos[k] = static_cast<int32_t>(s_stop_at);
@@ -368,6 +429,7 @@ __device__ __forceinline__ void chain_block(Take take) {
         } else {
           int64_t pq;
           const int q = last_at_or_below<kLit24>(e, pp, bound, J1, P1, bytes, base, slen, &pq);
+          CHECKED(pq <= bound);
           cover_pos[k] = static_cast<int32_t>(base + q);
           cover_os[k] = pq;
           ++searches;
@@ -467,6 +529,7 @@ __device__ __forceinline__ int2 window_list(const uint16_t* nx, int lim, uint16_
 #pragma unroll
     for (int j = 0; j < kStep; ++j) {
       if (e[j] < lim && v == j) {
+        CHECKED(c * kStep + j < kWin / 2);
         tl[c * kStep + j] = static_cast<TL>(e[j]);
         ++v;
       }

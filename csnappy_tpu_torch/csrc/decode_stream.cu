@@ -151,6 +151,7 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
   long long last = 0;
 
   if (tid == 0) {
+    JITTER(5);                                  // before the ticket
     s_seg = static_cast<int>(atomicAdd(&head->seg_ticket, 1u));
     if (stamp) {
       for (int i = 0; i < kSegStamps; ++i) s_cyc[i] = 0;
@@ -177,6 +178,8 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
   int op0 = 0;               // the next tag's output start, from the segment's start
   int64_t ip0 = cpos;
   int windows = 0, tags = 0, rounds = 0;
+  WHEN_CHECKED(bool stopped = false;)   // the walk ended at a break, not at its loop's bounds
+  CHECKED(k < nseg && cos <= base && cpos >= 0 && cpos <= slen && hi >= 0 && hi <= kS);
 
   // 1. the covering tag, when it starts before the segment
   if (state == 0 && cos < base) {
@@ -187,6 +190,7 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
       for (int i = 0; i < 5; ++i) h[i] = cpos + i < slen ? in[cpos + i] : 0;
       const Tag t = parse_tag<true>(h, slen - cpos);   // a chain tag: valid
       const int64_t end = cos + t.len - base;    // > 0
+      CHECKED(!t.bad && end > 0);
       const int m = static_cast<int>(end < hi ? end : hi);
       const int64_t j0 = base - cos;
       if (t.lit) {
@@ -272,6 +276,7 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
       state = (first & 1) ? E_OUTPUT_OVERRUN : E_DATA_MALFORMED;
       break;
     }
+    CHECKED(n <= kWin / 2 && s_total >= 0);
 
     // cover: every byte of the window's tags below hi gets its tag, then
     // literals their bytes and copies their parents
@@ -281,7 +286,10 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
       for (int i = op0 + tid; i < c_end; i += kThreads) par[i] = 0;
       __syncthreads();
       for (int t = tid; t < n; t += kThreads)
-        if (tos[t] < c_end) par[tos[t]] = static_cast<uint16_t>(t);
+        if (tos[t] < c_end) {
+          CHECKED(tos[t] >= op0);
+          par[tos[t]] = static_cast<uint16_t>(t);
+        }
       __syncthreads();
       const int m = c_end - op0;
       const int sg = ((m + kWarps - 1) / kWarps + 31) & ~31;   // a warp's bytes
@@ -304,9 +312,11 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
         v = max(v, carry);
         carry = __shfl_sync(kFull, v, 31);
         if (i < s1) {
+          CHECKED(v < static_cast<unsigned>(n) && i < kS);
           const int os_t = tos[v];
           const int f = tl[v];
           const int j = i - os_t;
+          CHECKED(j >= 0);
           if (f & 0x8000) {
             const int at = (f & 0x7FFF) + j;                     // window-relative input
             out[i] = at < staged ? win[at] : in[ip0 + at];
@@ -320,9 +330,14 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
     }
     lap(4);
     op0 = op_end;
-    if (term != kExit) break;                                    // the stream's end, or a bad tag
+    if (term != kExit) {                                         // the stream's end, or a bad tag
+      WHEN_CHECKED(stopped = true;)
+      break;
+    }
     ip0 = s_next;
   }
+  // the window cap never ends a walk that has bytes left to cover
+  CHECKED(!(state == 0 && !stopped && op0 < jhi && ip0 < slen));
 
   // 5. resolve inside the segment; parents before it stay external
   const int covered = state == 0 ? (op0 < hi ? op0 : hi) : 0;
@@ -345,6 +360,16 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
       if (!__syncthreads_or(changed)) break;
     }
   }
+#ifdef CSNAPPY_CHECKED
+  // every parent terminal: a literal byte of the segment (its own parent),
+  // or a byte of segment k - 1
+  for (int i = tid; i < covered; i += kThreads) {
+    const int p = par[i];
+    assert(p < 2 * kS && (p < kS ? k > 0 : par[p - kS] == p));
+  }
+  // no event and the chain runs past the segment's bytes: all of them covered
+  if (state == 0 && hi > 0 && row->os_stop >= base + hi) assert(covered == hi);
+#endif
   // each thread owns 16-byte pieces of the segment: it resolves a piece in
   // registers from 16-byte reads of its parents and bytes, and writes every
   // piece with no external byte at once
@@ -399,6 +424,7 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
   }
   const unsigned lo_all = block_min(lo, reinterpret_cast<unsigned*>(s_warp), &s_red);
   if (lo_all != UINT_MAX) ext = 1;
+  CHECKED(!ext || k > 0);                       // segment 0 reads nothing before it
   lap(5);
 
   // 6. external bytes from segment k - 1, final once its flag is up: its
@@ -406,9 +432,11 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
   // room) by 16-byte loads, gathered a byte a thread, then the held pieces
   if (ext > 0 && k > 0) {
     if (tid == 0) {
+      JITTER(6);                                // before the flag is read
       while (ld_relaxed(&flag[k - 1]) == 0) {
       }
       __threadfence();                          // the flag before the bytes it covers
+      CHECKED(lo_all < kS);
     }
     __syncthreads();
     uint8_t* tail = reinterpret_cast<uint8_t*>(nx);
@@ -440,7 +468,8 @@ segment_kernel(const uint8_t* __restrict__ in, int64_t slen, uint8_t* __restrict
   __syncthreads();
   if (tid == 0) {
     __threadfence();                            // the block's bytes (cumulative) before the flag
-    st_relaxed(&flag[k], 1u);
+    JITTER(7);
+    publish_once(&flag[k], 1u);
     if (stamp) s_cyc[12] = global_ns();
     s_last = atomicAdd(&head->done, 1u) == static_cast<unsigned int>(nseg - 1);
   }

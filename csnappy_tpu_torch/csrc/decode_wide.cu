@@ -178,6 +178,7 @@ wide_segment_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__
   long long last = 0;
 
   if (tid == 0) {
+    JITTER(5);                                  // before the ticket
     const int g = static_cast<int>(atomicAdd(&head->seg_ticket, 1u));
     const int r = row_of(seg_first, nrows, g);
     s_ticket = g;
@@ -214,6 +215,8 @@ wide_segment_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__
   int op0 = 0;               // the next tag's output start, from the segment's start
   int64_t ip0 = cpos;
   int windows = 0, tags = 0, rounds = 0;
+  WHEN_CHECKED(bool stopped = false;)   // the walk ended at a break, not at its loop's bounds
+  CHECKED(cos <= base && cpos >= 0 && cpos <= slen && hi >= 0 && hi <= kS);
 
   // 1. the covering tag, when it starts before the segment
   if (state == 0 && cos < base) {
@@ -224,6 +227,7 @@ wide_segment_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__
       for (int i = 0; i < 5; ++i) h[i] = cpos + i < slen ? in[cpos + i] : 0;
       const Tag t = parse_tag<false>(h, slen - cpos);   // a chain tag: not bad
       const int64_t end = cos + t.len - base;    // > 0
+      CHECKED(!t.bad && end > 0);
       const int m = static_cast<int>(end < hi ? end : hi);
       const int64_t j0 = base - cos;
       if (t.lit) {
@@ -303,13 +307,17 @@ wide_segment_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__
 
     // cover: every byte of the window's tags below hi gets its tag, then
     // literals their values and copies their parents
+    CHECKED(n <= kWin / 2 && s_total >= 0);
     const int op_end = op0 + s_total;
     const int c_end = op_end < hi ? op_end : hi;
     if (op0 < c_end) {
       for (int i = op0 + tid; i < c_end; i += kThreads) par[i] = 0;
       __syncthreads();
       for (int t = tid; t < n; t += kThreads)
-        if (tos[t] < c_end) par[tos[t]] = static_cast<uint32_t>(t);
+        if (tos[t] < c_end) {
+          CHECKED(tos[t] >= op0);
+          par[tos[t]] = static_cast<uint32_t>(t);
+        }
       __syncthreads();
       const int m = c_end - op0;
       const int sg = ((m + kWarps - 1) / kWarps + 31) & ~31;   // a warp's bytes
@@ -332,9 +340,11 @@ wide_segment_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__
         v = max(v, carry);
         carry = __shfl_sync(kFull, v, 31);
         if (i < w1) {
+          CHECKED(v < static_cast<unsigned>(n) && i < kS);
           const int os_t = tos[v];
           const uint32_t f = tl[v];
           const int j = i - os_t;
+          CHECKED(j >= 0);
           if (f & kTlLit) {
             const int at = static_cast<int>(f & ~kTlLit) + j;      // window-relative input
             par[i] = kLit | (at < staged ? win[at] : in[ip0 + at]);
@@ -347,9 +357,14 @@ wide_segment_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__
     }
     lap(4);
     op0 = op_end;
-    if (term != kExit) break;                                    // the row's end, or a bad tag
+    if (term != kExit) {                                         // the row's end, or a bad tag
+      WHEN_CHECKED(stopped = true;)
+      break;
+    }
     ip0 = s_next;
   }
+  // the window cap never ends a walk that has bytes left to cover
+  CHECKED(!(state == 0 && !stopped && op0 < jhi && ip0 < slen));
 
   // 5. resolve inside the segment; positions before it stay
   const int covered = state == 0 ? (op0 < hi ? op0 : hi) : 0;
@@ -368,6 +383,15 @@ wide_segment_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__
       if (!__syncthreads_or(changed)) break;
     }
   }
+#ifdef CSNAPPY_CHECKED
+  // every word terminal: a value, or a row position before the segment
+  for (int i = tid; i < covered; i += kThreads) {
+    const uint32_t p = par[i];
+    assert(p >= kS && ((p & kExt) ? (p & ~kExt) < base : (p & kLit) != 0));
+  }
+  // no event and the chain runs past the segment's bytes: all of them covered
+  if (state == 0 && hi > 0 && rows[r].os_stop >= base + hi) assert(covered == hi);
+#endif
   // each thread owns 16-byte pieces: it writes every piece with no byte
   // from before the segment at once and holds the others in registers
   uint8_t* row = gout + static_cast<int64_t>(r) * width;
@@ -400,6 +424,8 @@ wide_segment_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__
           left = true;
           lo = min(lo, x / kS);
           hi_seg = max(hi_seg, x / kS);
+          // a byte of an earlier segment, read only once its flag is up
+          CHECKED(x < base && (!fetch || ld_relaxed(&flag[s0 + x / kS]) != 0));
           byte = fetch ? __ldcg(row + x) : 0;
         }
         vw[q] |= byte << (8 * b);
@@ -424,6 +450,7 @@ wide_segment_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__
   const int ext = lo_all != UINT_MAX;
   if (ext) {
     if (tid == 0) {
+      JITTER(6);                                // before the flags are read
       for (unsigned s = lo_all; s <= hi_all; ++s)
         while (ld_relaxed(&flag[s0 + s]) == 0) {
         }
@@ -442,7 +469,8 @@ wide_segment_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__
   __syncthreads();
   if (tid == 0) {
     __threadfence();                            // the block's bytes (cumulative) before the flag
-    st_relaxed(&flag[g], 1u);
+    JITTER(7);
+    publish_once(&flag[g], 1u);
     if (stamp) s_cyc[12] = global_ns();
   }
   lap(7);

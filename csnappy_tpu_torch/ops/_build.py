@@ -41,10 +41,19 @@ SOURCES = {
     "probe3": CSRC / "probe3.cu",
     "kernel_lib": CSRC / "kernel_lib.cu",
     "probe4": CSRC / "probe4.cu",
+    "hygiene": CSRC / "hygiene.cu",
+    "decode_wide_checked": CSRC / "decode_wide.cu",
+    "decode_stream_checked": CSRC / "decode_stream.cu",
     "csnappy_host": CSRC / "host" / "csnappy_host.cpp",
 }
 CUDA_NAMES = ("decode_blocks", "decode_wide", "encode_blocks", "scan_segments", "decode_stream",
-              "movebench", "primitives", "probe", "probe3", "kernel_lib", "probe4")
+              "movebench", "primitives", "probe", "probe3", "kernel_lib", "probe4", "hygiene",
+              "decode_wide_checked", "decode_stream_checked")
+# the checked builds of the chained decoders: the same source with its
+# device asserts compiled in (CSNAPPY_CHECKED), loaded only by the hygiene
+# harness (tools/hygiene.use_checked); the timed libraries and their
+# ``ptxas -v`` lines are the plain names'
+CHECKED = {"decode_wide_checked": "decode_wide", "decode_stream_checked": "decode_stream"}
 # libraries whose every entry returns at once (a launch, no wait): loaded as
 # ctypes.PyDLL, whose calls keep the GIL rather than release and retake it
 GIL_KEPT = ("primitives", "movebench")
@@ -63,7 +72,8 @@ def _command(name: str, out: pathlib.Path) -> list[str]:
     src = SOURCES[name]
     if src.suffix == ".cu":
         return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(out), str(src)]
+                "-Xptxas=-v", *(["-DCSNAPPY_CHECKED", "-lineinfo"] if name in CHECKED else []),
+                "-shared", "-Xcompiler", "-fPIC", "-o", str(out), str(src)]
     return [os.environ.get("CXX", "c++"), "-O3", "-std=c++17", "-fPIC", "-shared",
             "-o", str(out), str(src)]
 
@@ -132,12 +142,14 @@ def load(name: str) -> ctypes.CDLL:
 def kernel(name: str, entry: str = ""):
     """Bind ``<name>_launch`` (``<name>_<entry>_launch`` for a library with
     several) and ``<name>_error_string`` of a CUDA library; returns (launch,
-    check), where check(rc) raises on a CUDA error code."""
+    check), where check(rc) raises on a CUDA error code.  A checked build
+    (``CHECKED``) exports its source's names."""
     lib = load(name)
-    err = getattr(lib, f"{name}_error_string")
+    sym = CHECKED.get(name, name)
+    err = getattr(lib, f"{sym}_error_string")
     err.restype = ctypes.c_char_p
     err.argtypes = [ctypes.c_int]
-    launch = getattr(lib, f"{name}_{entry}_launch" if entry else f"{name}_launch")
+    launch = getattr(lib, f"{sym}_{entry}_launch" if entry else f"{sym}_launch")
     launch.restype = ctypes.c_int
 
     def check(rc: int) -> None:

@@ -324,11 +324,12 @@ def test_wide_main_path_batch_repeats(card):
     # the main path's wide decode_segments batch (rows of 702,087, 32,768 and
     # 2^18 B at unaligned offsets), from host bytes and a card tensor in turn,
     # beside the body as one decode_blocks row: every call equal to the
-    # known answers
+    # known answers, each in a freshly poisoned pool with its three outputs
+    # asserted to lie in the poison
     from chip_smoke import wide_repeats
 
     got = wide_repeats(20, card)
-    assert got == {"calls": 40, "differed": {"segments": 0, "blocks": 0}}
+    assert got == {"calls": 40, "differed": {"segments": 0, "blocks": 0}, "poisoned": 120}
 
 
 def test_wide_call_runs_three_kernels_and_one_memset(card, urls10k_snappy):
@@ -1499,3 +1500,136 @@ def test_phaseprof_on_card(card, urls10k):
         assert math.isclose(sum(r["delta_ms"] for r in phases), phases[-1]["cum_ms"],
                             rel_tol=1e-12)
         assert set(rows[-1]) == {rate, "device"} and rows[-1][rate] > 0
+
+
+# ------------------------------------------------------------ memory hygiene
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _fresh(code: str, timeout: int = 600):
+    """``code`` in a fresh Python process at the repository's root: (rc, stdout + stderr)."""
+    import subprocess
+    import sys
+
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    return p.returncode, p.stdout + p.stderr
+
+
+def _hygiene_lines(args, timeout=900):
+    import json
+    import subprocess
+    import sys
+
+    p = subprocess.run([sys.executable, "-m", "csnappy_tpu_torch.tools.hygiene", *args], cwd=ROOT,
+                       capture_output=True, text=True, timeout=timeout)
+    lines = [json.loads(line) for line in p.stdout.splitlines() if line.startswith("{")]
+    return p.returncode, lines, (p.stdout + p.stderr)[-3000:]
+
+
+def test_hygiene_harness_on_the_card(card):
+    # every kernel of the port in both poisons, the decoders and scans also
+    # behind the occupier: no call differs, no guard byte changes, no hang
+    from csnappy_tpu_torch.tools import hygiene
+
+    rc, lines, tail = _hygiene_lines(["--seed", "7", "--seconds", "15"])
+    assert rc == 0, tail
+    per = {line["hygiene"]: line for line in lines if "hygiene" in line}
+    assert set(per) == set(hygiene.KERNELS), tail
+    for k, line in per.items():
+        assert line["poisons"] == ["0x5a", "0xa5"] and line["differed"] == 0, (k, line)
+        assert line["guard_violations"] == 0, (k, line)
+        assert line["occupied"] > 0 or k not in hygiene.DECODERS, (k, line)
+    summ = lines[-1]["hygiene_summary"]
+    assert lines[-1]["ok"] and summ["allocator"] == "hygiene"
+
+
+def test_hygiene_checked_build(card):
+    # the chained decoders' checked builds (device asserts) on seeded cases
+    rc, lines, tail = _hygiene_lines(["--seed", "8", "--seconds", "10", "--checked",
+                                      "--families", "decode,stream"])
+    assert rc == 0 and lines[-1]["ok"] and lines[-1]["hygiene_summary"]["checked"], tail
+    sched = next(line["hygiene_schedule"] for line in lines if "hygiene_schedule" in line)
+    assert all(v["equal"] for v in sched.values()), sched
+
+
+def test_hygiene_watchdog_ends_a_hung_call(card):
+    # a call that waits for the card inside its launch (as the decode_ws and
+    # decode_stream cases read back) on a kernel that outlasts the deadline,
+    # behind the occupier: the watchdog thread prints hygiene_hang and the
+    # process exits 3 long before the kernel would end
+    code = """
+import torch
+from csnappy_tpu_torch.tools import hygiene
+hygiene.install_allocator()
+card = hygiene.Card(0, deadline=2.0)
+def run(dev):
+    x = torch.zeros(4, device=dev)
+    def go():
+        torch.cuda._sleep(1 << 36)            # about 35 s of SM clocks
+        return [(x + 1).cpu()]
+    return go
+card.call(hygiene.Case("decode_stream", "a hung call", run, None, True), 0xA5, True)
+print("returned", flush=True)
+"""
+    import time
+
+    t0 = time.monotonic()
+    rc, out = _fresh(code, timeout=300)
+    assert rc == 3 and '{"hygiene_hang": "a hung call", "deadline_s": 2.0}' in out, out
+    assert "returned" not in out
+    print(f"exit 3 after {time.monotonic() - t0:.1f} s")
+
+
+def test_hygiene_allocator_poisons_and_guards(card):
+    # a fresh tensor reads as the poison byte; a write one byte past a tensor
+    # changes its guard and the check counts it
+    code = """
+import torch
+from csnappy_tpu_torch.tools import hygiene
+hygiene.install_allocator()
+lib = hygiene._lib()
+lib.hygiene_set(0x5A, 0xC3)
+x = torch.empty(1000, dtype=torch.uint8, device="cuda")
+assert bool((x == 0x5A).all()), x[:8]
+assert lib.hygiene_check() == 0
+hygiene._rc(lib.hygiene_fill(x.data_ptr() + 1000, 2, 7, torch.cuda.current_stream().cuda_stream), "fill")
+assert lib.hygiene_check() == 2
+print("ok", hygiene.allocator_stats())
+"""
+    rc, out = _fresh(code)
+    assert rc == 0 and "ok" in out, out
+
+
+def test_poison_pool_fills_the_free_blocks(card):
+    from csnappy_tpu_torch.tools import hygiene
+
+    x = torch.zeros((5000,), dtype=torch.uint8, device=card)
+    del x
+    ranges = hygiene.poison_pool(0x77, (5000,), card)
+    y = torch.empty((5000,), dtype=torch.uint8, device=card)
+    assert hygiene.in_ranges(y, ranges) and bool((y == 0x77).all())
+
+
+def test_main_path_never_loads_the_hygiene_allocator_or_checked_builds(card):
+    # api.compress and api.decompress on the card in a fresh process: the
+    # caching allocator stays, and neither libhygiene nor a checked build
+    # of the chained decoders is mapped
+    code = """
+import pathlib, torch
+from csnappy_tpu_torch import api
+urls = pathlib.Path("tests/data/urls.10K").read_bytes()
+assert api.decompress(api.compress(urls * 2)) == urls * 2
+assert api.decompress(pathlib.Path("tests/data/urls.10K.snappy").read_bytes()) == urls
+torch.cuda.synchronize()
+maps = pathlib.Path("/proc/self/maps").read_text()
+libs = sorted({l.split("/")[-1] for l in maps.splitlines() if "csnappy_tpu_torch/build/" in l})
+print("libs", libs)
+assert not any("hygiene" in l or "_checked_" in l for l in libs), libs
+assert torch.cuda.memory.get_allocator_backend() == "native"
+print("ok")
+"""
+    rc, out = _fresh(code)
+    assert rc == 0 and "ok" in out, out
