@@ -1,9 +1,30 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``csnappy_tpu_torch``) on one H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phase GROUP   # one phase group alone, in this process
 
-Builds the port's kernels from the sources in this checkout, then, in order:
+Builds the port's kernels from the sources in this checkout (phase 1), then
+runs each phase group of ``GROUPS`` in a child process of its own,
+``chip_smoke.py --phase GROUP``, one after another: decode (phases 2-5),
+streams (6), container (7-9), movebench (10), primitives (11), probes
+(12), kernel_lib (13), scaleout (14), hygiene (15), bench (16).  A fresh
+process for each group keeps the profiler whole: in a process that has
+lived beside other CUDA processes (phase 9's CLI, say) every session loses
+its first records, more with each such process, until it loses every
+trace (``tools/profiler_loss.py --sessions``).  Each child prints its
+lines as it goes, then ``[phase] GROUP: S s, traces T, retaken R, lost L``
+(the profiler traces it asked for, the sessions taken again, the traces
+given up: ``timing.traces``) and one result line, ``{"phase_result": ...}``:
+its ``kernels`` rows, the fields it puts on earlier groups' rows
+(``annotate``) and the values the parent uses (``values``).  A child that
+exits non-zero, outlives ``GROUP_LIMIT_S`` or prints no result line stops
+the run: the parent prints its last ``TAIL`` characters and exits 1.  The
+parent merges the rows (``merge``), prints the serial chains in
+``walk_smem`` steps (``chain_lines``), the bench line's block decode beside
+row 1, the ``[phase] total`` line, then phase 17.  Where a phase counts a
+call's kernels from a trace, the wrappers' own launch counts of one more
+call are printed beside it and must agree (``_agree``).  In order:
 
 1. build   — every native source, one compiler each, all started together;
 2. decode  — ``decode_blocks`` (``csrc/decode_blocks.cu``'s ``decode_kernel``
@@ -269,9 +290,9 @@ Builds the port's kernels from the sources in this checkout, then, in order:
              process: exactly one line with ``bench.py``'s 15 keys
              (``bench_torch.KEYS``), ``compressed_bytes`` 354,567, the card
              in ``device``, every rate above 0, ``roofline_utilization_pct``
-             at most 100, printed beside row 1's GB/s of phase 5, then its
-             block decode and row 1's launch timed in turns (three rounds
-             of row 1, bench, bench, row 1); then
+             at most 100 (the parent prints it beside row 1's GB/s of phase
+             5), then its block decode and row 1's launch timed in turns
+             in this process (three rounds of row 1, bench, bench, row 1); then
              ``tools/records.main`` into a temporary directory: five
              non-empty files, the phaseprof rows (printed) over
              ``decode_fused.PHASES`` and ``encode_fused.PHASES`` with their
@@ -283,7 +304,8 @@ Builds the port's kernels from the sources in this checkout, then, in order:
    limit, and the result line.
 
 Any failure raises and exits non-zero; with no card, or without the
-package beside this script, it exits non-zero before printing a result.
+package beside this script, it exits 2 before printing a result (a child
+too).
 """
 from __future__ import annotations
 
@@ -347,22 +369,113 @@ def _copy_starts(frag: bytes) -> list[int]:
     return out
 
 
-def _device_kernels(torch, fn) -> dict:
+def _device_kernels(torch, fn, what: str) -> dict:
     """Device kernels (not copies or fills) of one ``fn()`` call on the card,
-    by name, with their launch counts, from ``torch.profiler``."""
-    return {k: v for k, v in _device_ops(torch, fn).items()
+    by name, with their launch counts, from ``torch.profiler``, held
+    against the wrappers' own counts (``_device_ops``)."""
+    return {k: v for k, v in _device_ops(torch, fn, what).items()
             if not k.startswith(("Memcpy", "Memset"))}
 
 
-def _device_ops(torch, fn) -> dict:
+def _device_ops(torch, fn, what: str) -> dict:
     """Every device operation (kernels, copies and fills) of one ``fn()``
     call on the card, by name, with its count a call, from
     ``torch.profiler``: ``tools/timing.device_profile`` over three calls,
     whose trace is taken again (up to ``timing.TRACE_TRIES`` times) until
-    every operation was seen a whole number of times a call."""
+    every operation was seen a whole number of times a call.  The wrappers'
+    own counts of one more call are printed beside it and must agree
+    (``_agree``)."""
     from csnappy_tpu_torch.tools.timing import device_profile
 
-    return device_profile(fn, 3)["calls"]
+    ops = device_profile(fn, 3)["calls"]
+    print(f"[counts] {what}: {_agree(what, ops, _wrapper_launches(torch, fn))[0]}", flush=True)
+    return ops
+
+
+def _counters() -> dict:
+    """Every wrapper's launch count in this process, by counter: each
+    decoder kernel of ``decode_fused.launches_by_kernel`` by its name, the
+    encoder's, the scan's and the crossing-stream decoder's calls, each
+    primitive's, each movebench wrapper's, each kernel_lib helper's."""
+    from csnappy_tpu_torch.ops import (decode_fused, decode_stream, decode_ws, encode_fused,
+                                       kernel_lib, primitives)
+    from csnappy_tpu_torch.tools import movebench
+
+    out = dict(decode_fused.launches_by_kernel)
+    out.update({"encode_blocks": encode_fused.encode_blocks.launches,
+                "scan_segments": decode_ws.scan_segments.launches,
+                "decode_stream": decode_stream.decode_stream.launches})
+    out.update({f"primitives.{fn}": p.wrapper.launches for fn, p in primitives.PRIMITIVES.items()})
+    out.update({f"movebench.{w}": getattr(movebench, w).launches
+                for w in ("gather_flat", "scan_max")})
+    out.update({f"kernel_lib.{h}": n for h, n in kernel_lib.launches.items()})
+    return out
+
+
+# the kernels each count's launch runs, by name, where the count names them
+NAMED_KERNELS = {"decode_kernel": ("decode_kernel",),
+                 "wide_chain_kernel": ("wide_chain_kernel",),
+                 "wide_segment_kernel": ("wide_segment_kernel",),
+                 "wide_finish_kernel": ("wide_finish_kernel",),
+                 "encode_blocks": ("encode_kernel",), "scan_segments": ("scan_kernel",),
+                 "decode_stream": ("chain_kernel", "segment_kernel")}
+
+
+def _wrapper_launches(torch, fn) -> dict:
+    """The counts (``_counters``) one ``fn()`` call moves, without the profiler."""
+    before = _counters()
+    fn()
+    torch.cuda.synchronize()
+    return {k: n - before[k] for k, n in _counters().items() if n != before[k]}
+
+
+def _kernel_name(op: str) -> str:
+    """A trace's kernel record as the kernel's own name (no namespace,
+    template arguments, return type or parameters)."""
+    name = op.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split()
+    return name[-1].split("::")[-1] if name else op
+
+
+def _kernels_a_launch(counter: str) -> int:
+    """Kernels one launch of a count whose kernels go by no fixed name runs:
+    a kernel_lib scan what its entry reported on its last call, any other
+    one."""
+    from csnappy_tpu_torch.ops import kernel_lib as kl
+
+    helper = counter.removeprefix("kernel_lib.")
+    if helper != counter and kl.HELPERS[helper].kind == "scan":
+        return kl.scan_kernels[helper]
+    return 1
+
+
+def _agree(what: str, ops: dict, moved: dict) -> str:
+    """Hold a trace's count of one call's kernels (``ops``: operation ->
+    count a call) against the wrappers' own counts of one call (``moved``):
+    every kernel a count names (``NAMED_KERNELS``) seen as often as its
+    wrappers launched it, and the kernels of the other counts as many as
+    their launches run.  Kernels no wrapper launches (a library's, NCCL's)
+    are not held.  A trace with no kernel record is not measured: the
+    caller's own assertion decides.  Returns both counts as text and the
+    kernels the wrappers launched."""
+    kernels = {}
+    for op, c in ops.items():
+        if not op.startswith(("Memcpy", "Memset")):
+            kernels[_kernel_name(op)] = kernels.get(_kernel_name(op), 0) + c
+    named, other = {}, 0
+    for counter, n in moved.items():
+        for k in NAMED_KERNELS.get(counter, ()):
+            named[k] = named.get(k, 0) + n
+        if counter not in NAMED_KERNELS:
+            other += n * _kernels_a_launch(counter)
+    if kernels:
+        seen = {k: kernels.get(k, 0) for k in named}
+        assert seen == named, (what, "trace", seen, "wrappers", named, ops)
+        rest = sum(c for k, c in kernels.items() if k not in named)
+        assert not other or rest == other, (what, "trace", rest, "wrappers", other, ops)
+    return (f"wrappers {moved} launch kernels {named}"
+            + (f" and {other} more" if other else "")
+            + f"; the trace {kernels or 'not measured'}" + (", agreed" if kernels else ""),
+            sum(named.values()) + other)
 
 
 def _stream_worst_cases(api, wire, urls: bytes) -> list:
@@ -394,6 +507,35 @@ def _same(name, got, want) -> int:
     if err:
         raise AssertionError(f"{name}: output bytes differ (max abs err {err})")
     return err
+
+
+def _data() -> tuple[bytes, bytes, bytes, bytes]:
+    """urls.10K, its golden stream, the JAX package's stream of it (the
+    fixture) and the unaligned vector."""
+    return tuple((DATA / f).read_bytes() for f in (
+        "urls.10K", "urls.10K.snappy", "torch_ref/urls.10K.jax.snappy",
+        "unaligned_uint64_test.bin"))
+
+
+def _main_batch(torch, urls: bytes) -> tuple:
+    """The main path's batch: B=64 blocks of 32 KiB cycling urls.10K's first
+    21 (as bench.py makes them).  Returns (the 21 blocks' fragments, the
+    blocks, their fragments, the fragments packed, their lengths)."""
+    from csnappy_tpu_torch.models import pymodel
+
+    distinct = [urls[i * BS : (i + 1) * BS] for i in range(21)]
+    frag_of = [pymodel.compress_fragment(b) for b in distinct]
+    blocks = [distinct[i % 21] for i in range(B)]
+    frags = [frag_of[i % 21] for i in range(B)]
+    return (frag_of, blocks, frags, *_pack(torch, frags))
+
+
+def _launch_args(torch, dev, comp, lens) -> tuple:
+    """Row 1's launch arguments on the card for a packed batch: the flat
+    input, each block's offset, length and limit."""
+    flat = comp.to(dev).reshape(-1)
+    offs_b = torch.arange(len(lens), device=dev, dtype=torch.int64) * comp.shape[1]
+    return flat, offs_b, lens.to(dev), torch.full((len(lens),), BS, dtype=torch.int32, device=dev)
 
 
 def _pack(torch, frags):
@@ -880,7 +1022,8 @@ def _whole_stream(torch, np, dev, urls: bytes, golden: bytes, unaligned: bytes, 
     for label, stream in (("urls.10K.snappy", golden), ("unaligned_uint64_test.snappy", unaligned_stream)):
         ulen, hdr = wire.varint_decode(stream)
         bdev = u8(stream[hdr:]).to(dev)
-        ops = _device_ops(torch, lambda: decode_stream.decode_stream(bdev, ulen, dev))
+        ops = _device_ops(torch, lambda: decode_stream.decode_stream(bdev, ulen, dev),
+                          f"decode_stream {label}")
         kern = {k: v for k, v in ops.items() if not k.startswith(("Memcpy", "Memset"))}
         memsets = sum(v for k, v in ops.items() if k.startswith("Memset"))
         assert sorted(kern.values()) == [1, 1] and memsets <= 1, ops
@@ -1131,7 +1274,8 @@ def _scan_phase(torch, np, dev, golden: bytes, ulen: int, big_comp: bytes, big_l
         visited = counts["visited"] == 1
         ns = counts["published_ns"][visited]
         kernels = device_profile(lambda: decode_ws.scan_segments(bdev, nseg + 1, dev), 10)
-        ws_kernels = _device_kernels(torch, lambda: decode_ws.decompress_noheader_ws(bdev, dst, dev))
+        ws_kernels = _device_kernels(
+            torch, lambda: decode_ws.decompress_noheader_ws(bdev, dst, dev), f"decode_ws {label}")
         assert sorted(ws_kernels.values()) == [1, 1], ws_kernels
         rec = {"chunks": len(stamps), "chunk_log": decode_ws.CHUNK_LOG,
                "visited": int(visited.sum()), "meta3": int(meta[3]),
@@ -1369,17 +1513,18 @@ def _or_not_measured(ms) -> str:
     return "not measured (no device time in the trace)" if ms is None else f"{ms:.4f} ms"
 
 
-def _one_kernel(name: str, calls: dict, scan: bool) -> str:
+def _one_kernel(name: str, calls: dict, scan: bool, moved: dict) -> str:
     """Assert the device operations of one call (``device_profile``'s
     ``calls``, a count a call): one kernel, once, no copy, and a memset only
-    for the scan (at most one); return them as text."""
+    for the scan (at most one), and the wrappers' own counts of one call
+    (``moved``) in agreement (``_agree``); return them as text."""
     kernels = {k: c for k, c in calls.items() if not k.startswith(("Memset", "Memcpy"))}
     memsets = sum(c for k, c in calls.items() if k.startswith("Memset"))
     assert len(kernels) == 1 and next(iter(kernels.values())) == 1, (name, calls)
     assert not any(k.startswith("Memcpy") for k in calls), (name, calls)
     assert memsets <= (1.0 if scan else 0.0), (name, calls)
     return "; ".join(f"{k.replace('(anonymous namespace)::', '').split('(')[0]} x{c:g}"
-                     for k, c in calls.items())
+                     for k, c in calls.items()) + f" ({_agree(name, calls, moved)[0]})"
 
 
 def _new_ptxas() -> dict:
@@ -1440,7 +1585,8 @@ def _movebench(torch, np, dev, card: str) -> list:
                  time_ms(lambda: torch.cummax(fx, 0)), plain_s, 8 * n)):
             ms, prof = time_ms(call), device_profile(call)
             device_ms = prof["device_ms"] or None
-            ops = _one_kernel(name, prof["calls"], name == "scan_max")
+            ops = _one_kernel(name, prof["calls"], name == "scan_max",
+                              _wrapper_launches(torch, call))
             bound_ms, bound_by = _bound(nbytes)
             print(f"[movebench] {name} n={n}: {ms:.4f} ms, kernel alone "
                   f"{_or_not_measured(device_ms)}, library {lib_ms:.4f} ms, plain "
@@ -1529,7 +1675,8 @@ def _primitives(torch, np, dev, card: str) -> list:
         bound_ms, bound_by = _bound(nbytes)
         prof = device_profile(lambda: wrapper(*on_card[fn]))
         device_ms = prof["device_ms"] or None
-        ops = _one_kernel(fn, prof["calls"], False)
+        ops = _one_kernel(fn, prof["calls"], False,
+                          _wrapper_launches(torch, lambda: wrapper(*on_card[fn])))
         path = ""
         if entry == "lane_gather":
             src, ix = on_card[fn]
@@ -1991,6 +2138,8 @@ def _call_sites(torch, kl, by_case: dict, on_card: dict, case_launches: dict, ca
         rows = arrays["x"].shape[0]
         want = 1 if kl.HELPERS[helper].kind == "shift" else kl.scan_kernels[helper]
         assert not kernels or sum(kernels.values()) == want, (case, prof["calls"], want)
+        counts, wrapped = _agree(case, prof["calls"], _wrapper_launches(
+            torch, lambda: kl.call(helper, on_card[case], params)))
         nbytes, nops = kl.traffic(helper, arrays, params)
         bound = max(nbytes / HBM_BYTES_PER_S, nops / OPS_PER_S) * 1e3
         ms = statistics.median(call_ms[case])
@@ -2002,7 +2151,8 @@ def _call_sites(torch, kl, by_case: dict, on_card: dict, case_launches: dict, ca
                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= nops / OPS_PER_S
                else "operations",
                "library": libs[case][0] if case in libs else None, "library_ms": lms,
-               "library_ms_rounds": lib_ms.get(case), "launches": case_launches[case]}
+               "library_ms_rounds": lib_ms.get(case), "launches": case_launches[case],
+               "wrapper_kernels_per_call": wrapped}
         out.append(rec)
         print(f"[kernel_lib] {helper} on {case} ({rows}, 128) at {site}: {ms:.4f} ms a call "
               f"(median of {KL_ROUNDS} rounds, {min(call_ms[case]):.4f}-{max(call_ms[case]):.4f}), "
@@ -2011,7 +2161,8 @@ def _call_sites(torch, kl, by_case: dict, on_card: dict, case_launches: dict, ca
               f"{bound:.7f} ms ({nbytes} B / 3.35 TB/s), library "
               + (f"{libs[case][0]} {lms:.4f} ms ({min(lib_ms[case]):.4f}-"
                  f"{max(lib_ms[case]):.4f})" if lms is not None else "none")
-              + f"; {case_launches[case]} launch in the main-path run; card {card}", flush=True)
+              + f"; {case_launches[case]} launch in the main-path run; {counts}; card {card}",
+              flush=True)
     return out
 
 
@@ -2048,17 +2199,22 @@ def _wide_tile(torch, np, kl, dev, card: str) -> list:
         want_kernels = 1 if kl.HELPERS[helper].kind == "shift" else kl.scan_kernels[helper]
         seen = sum(c for k, c in prof["calls"].items() if not k.startswith(("Memcpy", "Memset")))
         assert not seen or seen == want_kernels, (helper, prof["calls"], want_kernels)
+        wrapped = _agree(helper, prof["calls"], _wrapper_launches(
+            torch, lambda: fn(xd, *args, **kw)))[1]
         shift = {("d" if helper.startswith("stream") else "k"): args[0]} if args and \
             kl.HELPERS[helper].kind == "shift" else {}
         nbytes = kl.traffic(helper, {"x": x}, shift)[0]
         out.append({"helper": helper, "args": list(args), "kw": kw, "ms": ms,
                     "device_ms": prof["device_ms"] or None, "kernels_per_call": seen or None,
+                    "wrapper_kernels_per_call": wrapped,
                     "entry_kernels": want_kernels, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
     print(f"[kernel_lib] ({WIDE_ROWS}, 128), random int32: every shift and scan equal to its "
-          f"plain version; ms a call / kernels alone / bound (kernels a call): "
+          f"plain version; ms a call / kernels alone / bound (kernels a call in the trace, by "
+          f"the wrappers' counts): "
           + ", ".join(f"{r['helper']}{tuple(r['args'])}{r['kw'] or ''} {r['ms']:.4f} / "
                       f"{_or_not_measured(r['device_ms'])} / {r['bound_ms']:.4f} "
-                      f"({r['kernels_per_call'] or 'not measured'})" for r in out)
+                      f"({r['kernels_per_call'] or 'not measured'}, "
+                      f"{r['wrapper_kernels_per_call']})" for r in out)
           + f"; card {card}", flush=True)
     return out
 
@@ -2338,8 +2494,9 @@ def _scaleout(torch, np, urls: bytes, fixture: bytes, card: str) -> dict:
               f"to the exclusive cumsum; launches {launches}, decoder kernels {by_kernel}",
               flush=True)
 
-        ops_c = _device_ops(torch, lambda: mesh.compress_sharded(urls))
-        ops_d = _device_ops(torch, lambda: mesh.decompress_fragments_sharded(frags, olens))
+        ops_c = _device_ops(torch, lambda: mesh.compress_sharded(urls), "compress_sharded")
+        ops_d = _device_ops(torch, lambda: mesh.decompress_fragments_sharded(frags, olens),
+                            "decompress_fragments_sharded")
         for what, ops, name in (("compress_sharded", ops_c, "encode_kernel"),
                                 ("decompress_fragments_sharded", ops_d, "decode_kernel")):
             codec = {k: v for k, v in ops.items() if name in k}
@@ -2443,11 +2600,12 @@ def _hygiene(card: str) -> dict:
     return s
 
 
-def _bench_records(rows: list, urls: bytes, row1_ms) -> None:
-    """Phase 15: the bench line (``bench_torch.main``, 5 timed calls a
+def _bench_records(urls: bytes, row1_ms) -> float:
+    """Phase 16: the bench line (``bench_torch.main``, 5 timed calls a
     figure), its block decode beside row 1's launch (``row1_ms()``, as
     phase 5 times it) in turns, and the records step (``tools/records.main``
-    into a temporary directory) in this process, each output checked."""
+    into a temporary directory) in this process, each output checked.
+    Returns the bench line's block decode GB/s."""
     import contextlib
     import io
     import math
@@ -2476,10 +2634,8 @@ def _bench_records(rows: list, urls: bytes, row1_ms) -> None:
                                "wholestream_host_e2e_GBps", "compress_GBps")]
     assert min(rates + list(line["decode_GBps_by_batch"].values())) > 0, line
     assert 0 < line["roofline_utilization_pct"] <= 100, line
-    row1 = next(r for r in rows if r["name"] == "decode_blocks")
     print(f"[bench] {json.dumps(line)}", flush=True)
-    print(f"[bench] block decode {line['value']} GB/s beside row 1's {row1['GBps']:.4f} GB/s "
-          f"(phase 5, same process); {bench_s:.1f} s", flush=True)
+    print(f"[bench] block decode {line['value']} GB/s; {bench_s:.1f} s", flush=True)
     turns = {"row 1": [], "bench": []}
     for _ in range(3):                          # row 1, bench, bench, row 1
         for k in ("row 1", "bench", "bench", "row 1"):
@@ -2515,53 +2671,26 @@ def _bench_records(rows: list, urls: bytes, row1_ms) -> None:
     print(f"[records] {sorted(texts)} written and checked in {records_s:.1f} s: "
           f"{ {k: len(v) for k, v in texts.items()} } B; bench --full decode by batch "
           f"{full['decode_GBps_by_batch']}", flush=True)
+    return line["value"]
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    if not (ROOT / "csnappy_tpu_torch" / "__init__.py").exists():
-        print("chip_smoke: csnappy_tpu_torch is not beside this script", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    import numpy as np
-
+def _group_decode(torch, np, dev, card: str) -> dict:
+    """Phases 2-5: the codec kernels on the B=64 batch, the fixtures and
+    the wide rows, the main path with its launch counts, the times.
+    Returns rows 1-3, rows 1-2's wide path after rows 1-2."""
     from csnappy_tpu_torch import api
     from csnappy_tpu_torch.models import pymodel, wire
-    from csnappy_tpu_torch.ops import _build, decode_fused, encode_fused
+    from csnappy_tpu_torch.ops import decode_fused, encode_fused
     from csnappy_tpu_torch.runtime import native
     from csnappy_tpu_torch.tools import phaseprof
-    from csnappy_tpu_torch.tools.timing import device_profile, smi, time_ms
+    from csnappy_tpu_torch.tools.timing import device_profile, time_ms
 
-    dev = torch.device("cuda")
-    card = smi("name,power.limit,clocks.max.sm")
     name_, power_, clock_ = (s.strip() for s in card.split(","))
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}", flush=True)
-
-    # ------------------------------------------------------------ 1. build
-    t0 = time.perf_counter()
-    _build.build()
-    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
-    for name in _build.CUDA_NAMES:
-        for line in _build.log_path(name).read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
-
-    urls = (DATA / "urls.10K").read_bytes()
-    golden = (DATA / "urls.10K.snappy").read_bytes()
-    fixture = (DATA / "torch_ref" / "urls.10K.jax.snappy").read_bytes()
-    unaligned = (DATA / "unaligned_uint64_test.bin").read_bytes()
+    urls, golden, fixture, unaligned = _data()
     baddata3 = (DATA / "baddata3.snappy").read_bytes()
 
     # ----------------------------------------------------------- 2. decode
-    distinct = [urls[i * BS : (i + 1) * BS] for i in range(21)]
-    frag_of = [pymodel.compress_fragment(b) for b in distinct]
-    blocks = [distinct[i % 21] for i in range(B)]
-    frags = [frag_of[i % 21] for i in range(B)]
-    comp, lens = _pack(torch, frags)
+    frag_of, blocks, frags, comp, lens = _main_batch(torch, urls)
     got = decode_fused.decode_blocks(comp.to(dev), lens, BS, device=dev)
     torch.cuda.synchronize()
     err_dec = _same("decode_blocks B=64", got, decode_fused.decode_blocks(
@@ -2724,7 +2853,8 @@ def main() -> int:
           f"the card; launches {launches}, decoder kernels {by_kernel}; counted around each wide "
           f"call {wide_counts}; decode_kernel calls by wrapper {narrow_calls}", flush=True)
     data_dev, blens_np = data.to(dev), blens.numpy()
-    enc_kernels = _device_kernels(torch, lambda: encode_fused.encode_blocks(data_dev, blens_np))
+    enc_kernels = _device_kernels(torch, lambda: encode_fused.encode_blocks(data_dev, blens_np),
+                                  "encode_blocks")
     assert len(enc_kernels) == 1 and list(enc_kernels.values()) == [1], enc_kernels
     assert "encode_kernel" in next(iter(enc_kernels)), enc_kernels
     assert not any(w in k.lower() for k in enc_kernels
@@ -2737,12 +2867,13 @@ def main() -> int:
              "decode_kernel"),
             ("decode_segments", lambda: decode_fused.decode_segments(body_dev, offs, slens, sdl),
              "decode_kernel")):
-        dk = _device_kernels(torch, fn)
+        dk = _device_kernels(torch, fn, what)
         assert len(dk) == 1 and list(dk.values()) == [1] and name in next(iter(dk)), (what, dk)
         print(f"[main] one {what} call on card tensors runs 1 device kernel: {dk} "
               f"(torch.profiler; copies not counted)", flush=True)
     wide_dev = torch.from_numpy(wide_comp).to(dev)
-    wops = _device_ops(torch, lambda: decode_fused.decode_blocks(wide_dev, wide_lens, len(urls)))
+    wops = _device_ops(torch, lambda: decode_fused.decode_blocks(wide_dev, wide_lens, len(urls)),
+                       "decode_blocks wide")
     wk = {k: v for k, v in wops.items() if not k.startswith(("Memcpy", "Memset"))}
     assert sorted(wk.values()) == [1, 1, 1] and all(
         any(n in k for k in wk) for n in decode_fused.WIDE_KERNELS), wops
@@ -2752,7 +2883,8 @@ def main() -> int:
           f"(torch.profiler; the copy is its offsets, lengths, limits and plan)", flush=True)
     from csnappy_tpu_torch.ops import decode_ws
 
-    dk = _device_kernels(torch, lambda: decode_ws.decompress_noheader_ws(body_dev, len(urls)))
+    dk = _device_kernels(torch, lambda: decode_ws.decompress_noheader_ws(body_dev, len(urls)),
+                         "decode_ws")
     assert sorted(dk.values()) == [1, 1] and any("scan_kernel" in k for k in dk) \
         and any("decode_kernel" in k for k in dk), dk
     print(f"[main] one decode_ws.decompress_noheader_ws call on card tensors (urls.10K.snappy) "
@@ -2760,10 +2892,7 @@ def main() -> int:
           f"workspace memset and the copies not counted)", flush=True)
 
     # ------------------------------------------------------------ 5. times
-    flat = comp.to(dev).reshape(-1)
-    offs_b = torch.arange(B, device=dev, dtype=torch.int64) * comp.shape[1]
-    lens_b = lens.to(dev)
-    dl_b = torch.full((B,), BS, dtype=torch.int32, device=dev)
+    flat, offs_b, lens_b, dl_b = _launch_args(torch, dev, comp, lens)
     dec_ms = time_ms(lambda: decode_fused._launch(
         decode_fused.decode_blocks, flat, offs_b, lens_b, dl_b, BS))
     dec_plain = _host_ms(lambda: decode_fused.decode_blocks(comp, lens, BS, device="cpu"))
@@ -2872,57 +3001,279 @@ def main() -> int:
                  for w, rep in (("decode_blocks", "csnappy_tpu/ops/decode_fused.py:714"),
                                 ("decode_segments", "csnappy_tpu/ops/decode_fused.py:782"))]
     print(f"[times] card {name_}, power limit {power_}, max SM clock {clock_}", flush=True)
+    return {"rows": rows}
 
-    # -------------------------------------------------- 6. whole streams
-    rows += _whole_stream(torch, np, dev, urls, golden, unaligned, card)
 
-    # -------------------------------- 7-10. container, fixture, CLI, movebench
-    container_launches = _container(torch, np, dev, card)
-    for row in rows:
-        if row["name"] in container_launches:
-            row["launches_container"] = container_launches[row["name"]]
+def _group_streams(torch, np, dev, card: str) -> dict:
+    """Phase 6: the whole-stream kernels.  Returns rows 4-5."""
+    urls, golden, _, unaligned = _data()
+    return {"rows": _whole_stream(torch, np, dev, urls, golden, unaligned, card)}
+
+
+def _group_container(torch, np, dev, card: str) -> dict:
+    """Phases 7-9: the container (its launches of rows 1-3, for the rows of
+    the groups before it), its fixture, the CLI."""
+    urls, golden, fixture, _ = _data()
+    launches = _container(torch, np, dev, card)
     _container_fixture(np, dev)
     _cli(urls, golden, fixture)
-    rows += _movebench(torch, np, dev, card)
+    return {"annotate": {"launches_container": launches}}
 
-    # ----------------------------------------------------- 11. primitives
-    rows += _primitives(torch, np, dev, card)
 
-    # --------------------------------------------------------- 12. probes
-    probe_rows, recs = _probes(torch, np, dev, card)
-    rows += probe_rows
-    step = recs["mosaic_probe.walk_smem"]["cycles_per_iter"]
-    step_ms = step / (float(clock_.split()[0]) * 1e3)     # cycles at the max SM clock
+def _group_movebench(torch, np, dev, card: str) -> dict:
+    """Phase 10: rows 12-13.  A group of its own: every CUDA process that
+    phase 9's CLI starts makes each later profiler session of the process
+    that started it lose one more of its first records
+    (``tools/profiler_loss.py --sessions``)."""
+    return {"rows": _movebench(torch, np, dev, card)}
+
+
+def _group_primitives(torch, np, dev, card: str) -> dict:
+    """Phase 11: rows 6-11."""
+    return {"rows": _primitives(torch, np, dev, card)}
+
+
+def _group_probes(torch, np, dev, card: str) -> dict:
+    """Phase 12: rows 14a-14i, and the ``walk_smem`` step the parent counts
+    the serial chains in."""
+    rows, recs = _probes(torch, np, dev, card)
+    return {"rows": rows,
+            "values": {"walk_smem_cycles": recs["mosaic_probe.walk_smem"]["cycles_per_iter"]}}
+
+
+def _group_kernel_lib(torch, np, dev, card: str) -> dict:
+    """Phase 13: rows 15a-15b."""
+    return {"rows": _kernel_lib(torch, np, dev, card)}
+
+
+def _group_scaleout(torch, np, dev, card: str) -> dict:
+    """Phase 14: rows 1-3's launches in the sharded run."""
+    urls, _, fixture, _ = _data()
+    return {"annotate": {"launches_sharded": _scaleout(torch, np, urls, fixture, card)}}
+
+
+def _group_hygiene(torch, np, dev, card: str) -> dict:
+    """Phase 15: the hygiene pass (in a process of its own below this one)."""
+    _hygiene(card)
+    return {}
+
+
+def _group_bench(torch, np, dev, card: str) -> dict:
+    """Phase 16: the bench line and records; row 1's launch timed here, in
+    turns with the bench line's block decode."""
+    from csnappy_tpu_torch.ops import decode_fused
+    from csnappy_tpu_torch.tools.timing import time_ms
+
+    urls = _data()[0]
+    comp, lens = _main_batch(torch, urls)[-2:]
+    args = _launch_args(torch, dev, comp, lens)
+    gbps = _bench_records(urls, lambda: time_ms(lambda: decode_fused._launch(
+        decode_fused.decode_blocks, *args, BS)))
+    return {"values": {"bench_block_decode_GBps": gbps}}
+
+
+# the phase groups, in order, each run in a child process of its own
+# (``--phase GROUP``): its phases and what runs them; phase 1 (the build)
+# and 17 (the result) are the parent's
+GROUPS = {"decode": ((2, 3, 4, 5), _group_decode), "streams": ((6,), _group_streams),
+          "container": ((7, 8, 9), _group_container), "movebench": ((10,), _group_movebench),
+          "primitives": ((11,), _group_primitives), "probes": ((12,), _group_probes),
+          "kernel_lib": ((13,), _group_kernel_lib), "scaleout": ((14,), _group_scaleout),
+          "hygiene": ((15,), _group_hygiene), "bench": ((16,), _group_bench)}
+GROUP_LIMIT_S = 600             # a child's own time limit (the hygiene pass: its budget more)
+RESULT = "phase_result"         # the key of a child's result line
+TAIL = 3000                     # what the parent prints of a failed child's output
+
+
+def _child(group: str, torch) -> int:
+    """Run one phase group in this process; print its ``[phase]`` line and
+    its result line (``{"phase_result": {...}}``): its rows, the values
+    the parent merges, its seconds and its traces."""
+    import numpy as np
+
+    from csnappy_tpu_torch.tools import timing
+
+    card = timing.smi("name,power.limit,clocks.max.sm")
+    t0 = time.perf_counter()
+    out = GROUPS[group][1](torch, np, torch.device("cuda"), card)
+    sec = time.perf_counter() - t0
+    tr = dict(timing.traces)
+    print(f"[phase] {group}: {sec:.1f} s, traces {tr['taken']}, retaken {tr['retaken']}, "
+          f"lost {tr['lost']}", flush=True)
+    print(json.dumps({RESULT: {"group": group, "rows": out.get("rows", []),
+                               "annotate": out.get("annotate", {}),
+                               "values": out.get("values", {}), "seconds": sec,
+                               "traces": tr}}), flush=True)
+    return 0
+
+
+def _spawn(group: str, limit: float) -> tuple:
+    """Run ``chip_smoke.py --phase GROUP`` in a new session, echoing its
+    output and its errors line by line as they come (but the result line),
+    and kill its whole process group at ``limit`` seconds and when it ends.
+    Returns (exit code, or None where it was cut; its output, its errors'
+    lines among the output's where they came)."""
+    import os
+    import signal
+    import threading
+
+    p = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", group],
+                         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    lines = []                  # list.append is atomic: the two pumps share it
+
+    def pump(stream, echo):
+        for line in stream:
+            lines.append(line)
+            if not line.startswith('{"' + RESULT):
+                print(line, end="", file=echo, flush=True)
+
+    pumps = [threading.Thread(target=pump, args=(p.stdout, sys.stdout), daemon=True),
+             threading.Thread(target=pump, args=(p.stderr, sys.stderr), daemon=True)]
+    for t in pumps:
+        t.start()
+    try:
+        rc = p.wait(timeout=limit)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+        for t in pumps:
+            t.join(timeout=30)
+    return rc, "".join(lines)
+
+
+def result_of(text: str):
+    """A child's result from its output: the one ``{"phase_result": ...}``
+    line, or None."""
+    found = [json.loads(line)[RESULT] for line in text.splitlines()
+             if line.startswith('{"' + RESULT)]
+    return found[0] if len(found) == 1 else None
+
+
+def run_groups(runner, groups=tuple(GROUPS)) -> tuple[int, list]:
+    """Run each group through ``runner(group, limit)`` -> (exit code or None
+    where cut, output), in order.  A child that exits non-zero, was cut or
+    printed no result line stops the run: its last ``TAIL`` characters are
+    printed and (1, results so far) returned; else (0, results)."""
+    results = []
+    for group in groups:
+        limit = GROUP_LIMIT_S + (HYGIENE_SECONDS + 600 if group == "hygiene" else 0)
+        rc, text = runner(group, limit)
+        res = result_of(text) if rc == 0 else None
+        if res is None:
+            why = (f"was cut at its {limit} s limit" if rc is None else
+                   f"exited {rc}" if rc else "printed no result line")
+            print(f"chip_smoke: phase group {group} {why}; its last {TAIL} characters:\n"
+                  f"{text[-TAIL:]}", flush=True)
+            return 1, results
+        results.append(res)
+    return 0, results
+
+
+def merge(results: list) -> list:
+    """The ``kernels`` rows of the children's results, in group order, as
+    the single process built them: each group's annotations (a field, by
+    row name) go on the rows of the groups before it, then its rows follow."""
+    rows = []
+    for res in results:
+        for field, by_name in res["annotate"].items():
+            for row in rows:
+                if row["name"] in by_name:
+                    row[field] = by_name[row["name"]]
+        rows += res["rows"]
+    return rows
+
+
+def chain_lines(rows: list, step: float, clock: str) -> list[str]:
+    """Each serial chain in units of one measured ``walk_smem`` step
+    (``step`` SM cycles at the max SM clock ``clock``), and
+    ``decode_stream.cu``'s links."""
+    step_ms = step / (float(clock.split()[0]) * 1e3)      # cycles at the max SM clock
+    out = []
     for row in rows:
         if "chain_links" in row:
-            print(f"[chain] {row['name']}: chunks chained and segments that waited on a flag, by "
-                  f"stream {row['chain_links']}; each link a device-memory word, "
-                  f"{ {k: [round(v['chunk_us'], 3), round(v['segment_us'], 3)] for k, v in row['streams'].items()} } "
-                  f"us a chunk and a segment; the kernels {row['ms']:.4f} ms on urls.10K.snappy",
-                  flush=True)
+            out.append(
+                f"[chain] {row['name']}: chunks chained and segments that waited on a flag, by "
+                f"stream {row['chain_links']}; each link a device-memory word, "
+                f"{ {k: [round(v['chunk_us'], 3), round(v['segment_us'], 3)] for k, v in row['streams'].items()} } "
+                f"us a chunk and a segment; the kernels {row['ms']:.4f} ms on urls.10K.snappy")
         if "chain_steps" in row and row["route"] == "cuda":
-            print(f"[chain] {row['name']}: {row['chain_steps']} serial steps x one walk_smem step "
-                  f"({step:.2f} SM cycles at {clock_}: a dependent shared load and four integer "
-                  f"operations, not a floor) = {row['chain_steps'] * step_ms:.4f} ms; the kernel "
-                  f"{row['ms']:.4f} ms", flush=True)
+            out.append(
+                f"[chain] {row['name']}: {row['chain_steps']} serial steps x one walk_smem step "
+                f"({step:.2f} SM cycles at {clock}: a dependent shared load and four integer "
+                f"operations, not a floor) = {row['chain_steps'] * step_ms:.4f} ms; the kernel "
+                f"{row['ms']:.4f} ms")
+    return out
 
-    # ------------------------------------------------------- 13. kernel_lib
-    rows += _kernel_lib(torch, np, dev, card)
 
-    # -------------------------------------------------------- 14. scale-out
-    sharded = _scaleout(torch, np, urls, fixture, card)
-    for row in rows:
-        if row["name"] in sharded:
-            row["launches_sharded"] = sharded[row["name"]]
+def trace_totals(results: list) -> dict:
+    """The children's seconds and traces summed."""
+    out = {"seconds": 0.0, "taken": 0, "retaken": 0, "lost": 0}
+    for res in results:
+        out["seconds"] += res["seconds"]
+        for k in ("taken", "retaken", "lost"):
+            out[k] += res["traces"][k]
+    return out
 
-    # ---------------------------------------------------------- 15. hygiene
-    _hygiene(card)
 
-    # ------------------------------------------------ 16. bench and records
-    _bench_records(rows, urls, lambda: time_ms(lambda: decode_fused._launch(
-        decode_fused.decode_blocks, flat, offs_b, lens_b, dl_b, BS)))
+def main(argv=None, runner=_spawn) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--phase", choices=tuple(GROUPS),
+                    help="run one phase group in this process (what the parent runs each child as)")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "csnappy_tpu_torch" / "__init__.py").exists():
+        print("chip_smoke: csnappy_tpu_torch is not beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    if args.phase:
+        return _child(args.phase, torch)
+
+    from csnappy_tpu_torch.ops import _build
+    from csnappy_tpu_torch.tools.timing import smi
+
+    card = smi("name,power.limit,clocks.max.sm")
+    clock = card.split(",")[2].strip()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}", flush=True)
+
+    # ------------------------------------------------------------ 1. build
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in _build.CUDA_NAMES:
+        for line in _build.log_path(name).read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
+
+    # ------------------------------------------------- 2-16. the children
+    rc, results = run_groups(runner)
+    if rc:
+        return rc
+    rows = merge(results)
+    values = {k: v for res in results for k, v in res["values"].items()}
+    for line in chain_lines(rows, values["walk_smem_cycles"], clock):
+        print(line, flush=True)
+    row1 = next(r for r in rows if r["name"] == "decode_blocks")
+    print(f"[bench] block decode {values['bench_block_decode_GBps']} GB/s beside row 1's "
+          f"{row1['GBps']:.4f} GB/s (phase 5, another process)", flush=True)
 
     # --------------------------------------------------------- 17. result
+    tot = trace_totals(results)
+    print(f"[phase] total: {tot['seconds']:.1f} s in {len(results)} children, traces "
+          f"{tot['taken']}, retaken {tot['retaken']}, lost {tot['lost']}; the whole run "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -94,18 +94,17 @@ TRACE_PAD_S = 0.02
 TRACE_LEAD = 8
 SENTINEL = "spin_kernel"
 SENTINEL_CYCLES = 2000
+# this process's traces: the traces asked of fullest_trace, the sessions it
+# took again, and the traces it gave up on (no trace whole after
+# TRACE_TRIES); chip_smoke.py prints them a phase group
+traces = {"taken": 0, "retaken": 0, "lost": 0}
 
 
-def device_trace(fn, reps: int) -> dict:
-    """One ``torch.profiler`` session over ``reps`` calls of ``fn``: each
-    device operation's device time (us) and count.  The session opens with
-    ``TRACE_LEAD`` sentinel kernels and closes with one, and is held open
-    ``TRACE_PAD_S`` on the host before the first call and after the last.  The
-    card's profiler can lose the first records of a session (in some long
-    processes in every session), so a trace counts only where a sentinel's
-    record comes before the calls' first device record and another after
-    their last; else it is empty, as is one that lost every record."""
-    from torch.autograd import DeviceType
+def trace_session(fn, reps: int):
+    """One ``torch.profiler`` session over ``reps`` calls of ``fn``, opened
+    with ``TRACE_LEAD`` sentinel kernels and closed by one, held open
+    ``TRACE_PAD_S`` on the host before the first call and after the last;
+    returns the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
@@ -119,9 +118,31 @@ def device_trace(fn, reps: int) -> dict:
         torch.cuda._sleep(SENTINEL_CYCLES)
         torch.cuda.synchronize()
         time.sleep(TRACE_PAD_S)
-    order = [SENTINEL in name for _, name in sorted(
-        (e.time_range.start, e.name) for e in p.events() if e.device_type == DeviceType.CUDA)]
-    if not bracketed(order):
+    return p
+
+
+def device_records(p) -> list:
+    """A session's device records as (start us, name), in the order they started."""
+    from torch.autograd import DeviceType
+
+    return sorted((e.time_range.start, e.name) for e in p.events()
+                  if e.device_type == DeviceType.CUDA)
+
+
+def device_trace(fn, reps: int) -> dict:
+    """One session of :func:`trace_session`: each device operation's device
+    time (us) and count.  The card's profiler can lose the first records of
+    a session: now and then, where they sit before the session's start on
+    its clock, and in every session of a process that has lived beside
+    other CUDA processes, one more record for each such process
+    (``tools/profiler_loss.py --sessions``).  So a trace counts only where a
+    sentinel's record comes before the calls' first device record and
+    another after their last; else it is empty, as is one that lost every
+    record."""
+    from torch.autograd import DeviceType
+
+    p = trace_session(fn, reps)
+    if not bracketed([SENTINEL in name for _, name in device_records(p)]):
         return {}
     trace = {}
     for evt in p.key_averages():
@@ -146,17 +167,26 @@ def fullest_trace(take, reps: int, sleep=time.sleep) -> dict:
     count)}) until some operation was seen and every one a whole number of
     times a call, at most ``TRACE_TRIES`` times, pausing ``TRACE_PAUSE_S``,
     then twice as long, before each retake; return the trace with the most
-    records."""
+    records.  Counts each trace, retake and trace given up in ``traces``."""
     best = {}
+    traces["taken"] += 1
     for attempt in range(TRACE_TRIES):
         if attempt:
+            traces["retaken"] += 1
             sleep(TRACE_PAUSE_S * 2 ** (attempt - 1))
         trace = take()
         if sum(c for _, c in trace.values()) > sum(c for _, c in best.values()):
             best = trace
-        if best and all(c % reps == 0 for _, c in best.values()):
-            break                       # every operation seen a whole number of times a call
+        if whole(best, reps):
+            break
+    traces["lost"] += not whole(best, reps)
     return best
+
+
+def whole(trace: dict, reps: int) -> bool:
+    """Whether a trace saw some operation, and every one a whole number of
+    times a call."""
+    return bool(trace) and all(c % reps == 0 for _, c in trace.values())
 
 
 def device_profile(fn, reps: int = 10) -> dict:

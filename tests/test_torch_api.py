@@ -19,19 +19,13 @@ from csnappy_tpu_torch.config import CodecConfig
 from csnappy_tpu_torch.models import pymodel, wire
 from csnappy_tpu_torch.runtime import native
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 FAKE = b"\x32\xc4foooooo"
 CPU = "cpu"
 STREAMS = pathlib.Path(__file__).parent / "data" / "torch_ref" / "streams.npz"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # the suite runs in parallel worker processes; one intra-op thread each
-    # keeps the torch ops here from contending with every other worker
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _fixture_stream(name: str) -> tuple[bytes, int]:

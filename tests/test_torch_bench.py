@@ -21,6 +21,10 @@ import bench_torch
 from csnappy_tpu_torch.ops import decode_fused, encode_fused
 from csnappy_tpu_torch.tools import benchtable, phaseprof, records, timing, zramsim
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = ["--device", "cpu", "--reps", "1"]
 

@@ -15,17 +15,13 @@ import torch
 from csnappy_tpu import cli as jax_cli
 from csnappy_tpu_torch import cli
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 DATA = pathlib.Path(__file__).parent / "data"
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = ["--device", "cpu"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_file_roundtrip(tmp_path, urls10k):
@@ -114,6 +110,7 @@ def test_stdin_stdout_pipe(urls10k):
     via subprocess pipes."""
     data = urls10k[:40000]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"                   # one torch thread in each process, as here
     p1 = subprocess.run(
         [sys.executable, "-m", "csnappy_tpu_torch.cli", "file", "-c", "-b", "py"],
         input=data, capture_output=True, env=env, cwd=str(ROOT))

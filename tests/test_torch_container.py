@@ -19,16 +19,12 @@ from csnappy_tpu.runtime import container as jax_container
 from csnappy_tpu_torch import errors
 from csnappy_tpu_torch.runtime import container
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = dict(device="cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _maker():

@@ -24,6 +24,10 @@ from csnappy_tpu_torch.ops import kernel_lib as kl
 from csnappy_tpu_torch.ops import primitives as prim
 from csnappy_tpu_torch.tools import probe as pb
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 DATA = pathlib.Path(__file__).parent / "data"
 
@@ -1633,3 +1637,32 @@ print("ok")
 """
     rc, out = _fresh(code)
     assert rc == 0 and "ok" in out, out
+
+
+# ------------------------------------------------------ chip_smoke's children
+
+
+def test_chip_smoke_runs_one_phase_group_as_a_child(card):
+    # what the parent runs for each group: the kernel_lib phase alone in a
+    # fresh process, its [phase] line (no trace lost) and one result line
+    # with rows 15a-15b
+    import json
+    import re
+    import subprocess
+    import sys
+
+    p = subprocess.run([sys.executable, "chip_smoke.py", "--phase", "kernel_lib"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, (p.stdout + p.stderr)[-3000:]
+    lines = p.stdout.splitlines()
+    assert json.loads(lines[-1]).keys() == {"phase_result"}, lines[-1][:200]
+    res = json.loads(lines[-1])["phase_result"]
+    assert res["group"] == "kernel_lib" and res["annotate"] == {} and res["values"] == {}
+    assert [r["name"] for r in res["rows"]] == ["kernel_lib:test_kernel_lib._run",
+                                                "kernel_lib:test_kernel_lib.gather_rows_multi"]
+    phase = re.fullmatch(r"\[phase\] kernel_lib: ([0-9.]+) s, traces (\d+), retaken (\d+), "
+                         r"lost (\d+)", lines[-2])
+    assert phase, lines[-2]
+    taken, lost = int(phase[2]), int(phase[4])
+    assert taken > 0 and lost == 0 and res["traces"]["taken"] == taken, lines[-2]
+    assert any(line.startswith("[kernel_lib]") and "agreed" in line for line in lines)

@@ -14,6 +14,10 @@ from csnappy_tpu_torch import errors
 from csnappy_tpu_torch.models import pymodel, wire
 from csnappy_tpu_torch.ops import decode_fused
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 
 def _decode_one(frag: bytes, out_cap: int):
     arr = np.frombuffer(frag, np.uint8)[None, :] if frag else np.zeros((1, 1), np.uint8)

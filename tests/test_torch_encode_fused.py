@@ -12,6 +12,10 @@ from csnappy_tpu_torch import errors
 from csnappy_tpu_torch.models import pymodel, wire
 from csnappy_tpu_torch.ops import decode_fused, encode_fused
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 
 def _enc1(data: bytes, bs: int = 4096) -> bytes:
     arr = np.zeros((1, bs), np.uint8)

@@ -25,19 +25,13 @@ from csnappy_tpu_torch.interop import meta_from_jax
 from csnappy_tpu_torch.models import pymodel
 from csnappy_tpu_torch.ops import decode_fused, encode_fused
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF = ROOT / "tests" / "data" / "torch_ref"
 URLS_JAX_BYTES = 354_567
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # the suite runs in parallel worker processes; one intra-op thread each
-    # keeps the torch ops here from contending with every other worker
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _maker():

@@ -17,6 +17,10 @@ from csnappy_tpu_torch.errors import SnappyError
 from csnappy_tpu_torch.models import pymodel
 from csnappy_tpu_torch.tools import hygiene
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def small():

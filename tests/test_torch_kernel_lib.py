@@ -33,6 +33,10 @@ import torch
 
 from csnappy_tpu_torch.ops import kernel_lib as kl
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

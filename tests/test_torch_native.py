@@ -13,15 +13,11 @@ from csnappy_tpu_torch import api, errors
 from csnappy_tpu_torch.models import pymodel, wire
 from csnappy_tpu_torch.runtime import native
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 PATTERNS = [b"", b"x", b"a" * 70000, bytes(range(256)) * 200]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_golden_decode(urls10k, urls10k_snappy):

@@ -31,6 +31,10 @@ from csnappy_tpu_torch.models import pymodel
 from csnappy_tpu_torch.ops import decode_fused, encode_fused
 from csnappy_tpu_torch.parallel import dryrun, mesh, multihost
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DATA = ROOT / "tests" / "data"
 WORLD = 3                    # ranks of the module group
@@ -127,6 +131,15 @@ def _rank_main(rank: int, store: str, out: str) -> None:
         dist.destroy_process_group()
     np.savez(out, **{k: np.frombuffer(v, np.uint8) if isinstance(v, bytes) else np.asarray(v)
                      for k, v in res.items()})
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_a_rank():
+    # every rank multihost.launch spawns inherits this environment: one
+    # torch thread each, as in this process
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,10 @@ from csnappy_tpu.ops import primitives as jax_prim
 from csnappy_tpu_torch.ops import primitives as prim
 from csnappy_tpu_torch.tools.movebench import primitive_inputs
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

@@ -4,11 +4,16 @@ streaming decode) and ``pymodel.compress_fragment_table`` (the second,
 lossy-table match-finder), each also held against the JAX package's copy."""
 import numpy as np
 import pytest
+import torch
 
 from csnappy_tpu.models import pymodel as jax_pymodel
 from csnappy_tpu.models import wire as jax_wire
 from csnappy_tpu_torch import errors
 from csnappy_tpu_torch.models import pymodel, wire
+
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
 
 
 def test_opcode_table_shape():

@@ -26,6 +26,10 @@ from csnappy_tpu_torch.models import pymodel, wire
 from csnappy_tpu_torch.ops import _build, encode_fused
 from csnappy_tpu_torch.runtime import native
 
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -184,6 +188,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert 'triton' not in sys.modules\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"                   # one torch thread, as in this process
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
 
 

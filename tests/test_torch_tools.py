@@ -19,18 +19,14 @@ import pytest
 import torch
 
 from csnappy_tpu.tools import corpus as jax_corpus
-from csnappy_tpu_torch.tools import benchtable, corpus, movebench, timing, zramsim
+from csnappy_tpu_torch.tools import benchtable, corpus, movebench, profiler_loss, timing, zramsim
+
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
 
 DATA = pathlib.Path(__file__).parent / "data"
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -204,6 +200,59 @@ def test_fullest_trace_retakes_until_every_count_is_whole(traces, takes, want):
     # a pause that doubles before each retake
     assert slept == [timing.TRACE_PAUSE_S * 2 ** i for i in range(takes - 1)]
     assert len(list(it)) == len(traces) - takes
+
+
+def _sessions(lost=(), short=(), n=12, dt=0.5, drift=None):
+    """Canned judged sessions: ``lost`` indices not whole, ``short`` ones
+    missing leading sentinels, a probe's skew every other session."""
+    return [{"i": i, "t": i * dt, "whole": i not in lost, "held": 30,
+             "lead": 5 if i in short else timing.TRACE_LEAD, "trail": 1, "skew_us": 8.0,
+             "probe_skew_us": (7.0 + drift * i * dt) if drift is not None and i % 2 == 0
+             else None} for i in range(n)]
+
+
+@pytest.mark.parametrize("lost, pattern, first, bursts", [
+    ((), "none", None, []),
+    ((5, 6, 7, 8, 9, 10, 11), "persistent", 5, [[5, 7]]),       # every session from the first loss
+    ((2, 3, 7), "bursts", 2, [[2, 2], [7, 1]]),                 # whole sessions between losses
+    ((11,), "persistent", 11, [[11, 1]]),                       # the last session only
+])
+def test_sessions_summary_finds_the_first_loss_and_its_pattern(lost, pattern, first, bursts):
+    s = profiler_loss.summarize(_sessions(lost, short=lost[:1], drift=-40.0))
+    assert (s["sessions"], s["lost"], s["pattern"], s["bursts"]) == (12, len(lost), pattern,
+                                                                     bursts)
+    assert s["first_loss"] == (None if first is None else {"index": first, "seconds": first * 0.5})
+    assert s["first_short_lead"] == (None if not lost else {"index": first,
+                                                            "seconds": first * 0.5})
+    assert s["drift_us_per_s"] == pytest.approx(-40.0)
+    assert s["probe_skew_us"] == {"first": 7.0, "last": 7.0 - 40.0 * 5.0, "min": -193.0,
+                                  "max": 7.0}
+
+
+def test_sessions_judge_reads_the_sentinels_around_the_calls():
+    lead, call, end = [True] * timing.TRACE_LEAD, [False] * 30, [True]
+    assert profiler_loss.judge(lead + call + end, 9.0, 30) == {
+        "held": 30, "lead": 8, "trail": 1, "skew_us": 9.0, "whole": True}
+    assert profiler_loss.judge(lead[3:] + call + end, 9.0, 30)["lead"] == 5
+    assert not profiler_loss.judge(call + end, None, 30)["whole"]          # no leading sentinel
+    assert not profiler_loss.judge(lead + call[1:] + end, 9.0, 30)["whole"]  # a launch lost
+    assert profiler_loss.judge([], None, 30) == {"held": 0, "lead": 0, "trail": 0,
+                                                 "skew_us": None, "whole": False}
+
+
+def test_fresh_processes_summary_indexes_on_and_keeps_each_process():
+    one = _sessions(n=6, drift=-10.0)
+    late = _sessions((4, 5), n=6, drift=-30.0)
+    s = profiler_loss.summarize_fresh([one, late, one])
+    assert (s["sessions"], s["lost"], s["processes"], s["processes_with_loss"]) == (18, 2, 3, 1)
+    # the first loss by process and its own index and seconds; indices run on across processes
+    assert s["first_loss"] == {"process": 1, "index": 4, "seconds": 2.0}
+    assert s["bursts"] == [[10, 2]] and s["pattern"] == "bursts"
+    assert s["longest_process_s"] == 2.5
+    assert s["drift_us_per_s"] == [pytest.approx(-10.0), pytest.approx(-30.0),
+                                   pytest.approx(-10.0)]
+    assert [e["lost"] for e in s["each"]] == [0, 2, 0]
+    assert profiler_loss.summarize_fresh([one, one])["first_loss"] is None
 
 
 # ------------------------------------------- the one-pass scan, modelled

@@ -12,11 +12,16 @@ are compared exactly: bytes, ``produced``, ``status``.
 """
 import numpy as np
 import pytest
+import torch
 
 from csnappy_tpu.models import pymodel as jax_pymodel
 from csnappy_tpu.ops import decode_fused as jax_decode
 from csnappy_tpu.ops import encode_fused as jax_encode
 from csnappy_tpu_torch.ops import decode_fused, encode_fused
+
+# the suite runs in parallel worker processes: one intra-op thread each keeps
+# the torch ops here from contending with every other worker
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.slow
 
