@@ -1825,14 +1825,18 @@ def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
               f"an iteration of {r['steps_per_iter']} step(s) (K {r['k_lo']} -> {r['k_hi']}, "
               f"{r['space']} memory); {r['ms']:.4f} ms at K = {r['k_hi']}, plain "
               f"{r['plain_ms']:.1f} ms (host CPU); {launches[name]} launches"
-              + (f"; the same kernel as {', '.join(also[name])}" if also.get(name) else ""),
+              + (f"; the same kernel as {', '.join(also[name])}" if also.get(name) else "")
+              + (f"; one SM's bound {r['sm_bound_cycles']:.2f} cycles an iteration "
+                 f"({probe.SM_OPS_PER_CYCLE[probe.PROBES[name].tensor]} "
+                 f"{probe.PROBES[name].tensor} operations a cycle), "
+                 f"{100 * r['sm_share']:.1f}% of it reached" if "sm_share" in r else ""),
               flush=True)
     cap = recs["mosaic_probe5.smem_cap"]
     print(f"[probes] shared-memory capacity of a block: {cap['capacity_bytes']} bytes; (rows, 128) "
           f"int32 scratch runs at rows {cap['rows_ok']}", flush=True)
 
     z = np.load(DATA / "torch_ref" / "probes.npz")
-    ncase = 0
+    ncase = nwords = 0
     for name in probe.TIMED:
         tbl = probe.second_input(name)
         htab = None if tbl is None else torch.from_numpy(tbl)
@@ -1844,6 +1848,10 @@ def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
             got = probe.probe(name, int(k), host.to(dev), tab).cpu()
             want = probe.probe(name, int(k), host, htab, device="cpu")
             assert np.array_equal(got.numpy(), z[key]) and torch.equal(got, want), key
+            if name in probe.WORDS:         # what the int32 output hides, held exactly
+                got = probe.words(name, int(k), host.to(dev)).cpu()
+                assert torch.equal(got, probe.words(name, int(k), host, device="cpu")), key
+                nwords += 1
             ncase += 1
     rand = torch.from_numpy(z["case_p4rand"])
     wrapped = []
@@ -1854,7 +1862,8 @@ def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
         wrapped += [int(want[0, 0])] if name.endswith("_l2") else []
     assert all(v < 0 for v in wrapped), wrapped
     print(f"[probes] {ncase} fixture cases equal to the JAX probes and to the plain versions on "
-          f"the card; the 12 resolve-phase gathers at K = {probe.WRAP_K} on case_p4rand equal to "
+          f"the card, {nwords} of them also in their check words ({', '.join(probe.WORDS)}; at "
+          f"k_hi too); the 12 resolve-phase gathers at K = {probe.WRAP_K} on case_p4rand equal to "
           f"the plain versions past the int32 wrap of their sum (16-bit answers {wrapped}); card "
           f"{card}; SM clock {clocks['clocks.sm']} (max {clocks['clocks.max.sm']})", flush=True)
 
@@ -1863,6 +1872,8 @@ def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
         names = [n for n in recs if probe.PROBES[n].call == call]
         sub = [{k: recs[n][k] for k in ("probe", "ns_per_iter", "cycles_per_iter", "ms", "k_lo",
                                         "k_hi", "steps_per_iter", "space", "plain_ms", "bound_ms")}
+               | {k: recs[n][k] for k in ("sm_bound_cycles", "sm_share", "words_equal_plain")
+                  if k in recs[n]}
                | {"launches": launches[n], "same_kernel_as": also.get(n, [])} for n in names]
         sub += [{"probe": n, "fails_to_trace_in_jax": p.fails, "kernel": None}
                 for n, p in probe.PROBES.items() if p.call == call and p.fails]

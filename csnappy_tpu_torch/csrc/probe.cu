@@ -14,7 +14,8 @@
 // slope of its time in K is the cost of one step.  The bytes (a 152 KiB
 // input, a 4 KiB output) and the operations are trivial beside it.  Each
 // kernel times its loop with clock64() on thread 0 and writes the cycles to
-// `cycles`; the wrapper also takes the CUDA-event slope between two K.
+// `cycles` (mm_small also adds check words after them); the wrapper also
+// takes the CUDA-event slope between two K.
 //
 // Design, per family (one block each):
 // * walks — one thread walks a table, p = (p + f(v)) % M with M a
@@ -35,9 +36,11 @@
 // * gather/scatter — the 256-row table in shared memory at 16 bits a value,
 //   gathered by address (no limbs); the one-hot scatter-sum becomes a
 //   shared-memory atomicAdd histogram whose row 0 is read, then cleared;
-// * mma — a bf16 (128,128)@(128,128) product a step on the tensor cores
-//   (nvcuda::wmma 16x16x16, float accumulation), 8 warps of one 16-row
-//   stripe each; the carry's (0, 0) element feeds the next step's operand;
+// * mma — a bf16 (128,128)@(128,128) product a step on Hopper's wgmma
+//   (csrc/wgmma.cuh), float accumulation: two warpgroups of 64 rows, A from
+//   registers, B resident in shared memory; the carry's (0, 0) element
+//   feeds the next step's operand, so the bound is one SM's tensor-core
+//   rate plus the chain's latency;
 // * capacity — a kernel that writes the first and last int32 of a dynamic
 //   shared buffer of `bytes`; the launch is refused above the block's opt-in
 //   limit (cudaFuncSetAttribute), and the wrapper bisects for that limit.
@@ -46,7 +49,8 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -496,69 +500,127 @@ scatter_loop_kernel(const int32_t* __restrict__ d, int k, int32_t* out, long lon
 
 // -------------------------------------------------------------------- mma
 
-// The product's operands and result sit in shared memory with padded rows
-// (136 bf16, 132 float): a 128-element row (256 or 512 B) would put every
-// row of a 16x16 fragment in the same banks.
-constexpr int kLdh = L + 8;
-constexpr int kLdf = L + 4;
-constexpr int kMmSmem = 3 * L * kLdh * 2 + L * kLdf * 4 + kOut * 2;   // a0, a, b, c, carry
+// b, the B operand, K-major in shared memory (csrc/wgmma.cuh), then two
+// words for acc[0, 0], written and read in turns.
+constexpr int kMmSmem = L * L * 2 + 2 * 4;
+
+// The bits of bf16(x), in the low half.
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// One element of the carry after a product: acc + bf16(c * 1e-9), in bf16.
+__device__ __forceinline__ float mm_step(float acc, float c) {
+  return round_bf16(acc + round_bf16(c * 1e-9f));
+}
 
 // mosaic_probe.py:138 k_mm_small: c = (a + acc[0, 0]) @ b in float from bf16
 // a = d[0:128] & 1 and b = d[0:128] & 3; acc += bf16(c[0:8] * 1e-9) in bf16;
-// the output is acc cast to int32 (toward zero).  Warp w computes rows
-// 16w..16w+15 of c on the tensor cores.
+// the output is acc cast to int32 (toward zero).  On wgmma: two warpgroups,
+// each m64n128k16 x 8 steps with A from registers and B = b resident in
+// shared memory.  Warp w holds its fragment of a's rows 16w..16w+15 as
+// masks: a is 0 or 1, so a + s is bf16(0 + s) or bf16(1 + s), one select a
+// bf16 pair each iteration, each sum rounded once as before.  Warp 0 holds
+// acc's rows 0-7 (bf16 values in floats) beside its rows of c.  Only
+// acc[0, 0] feeds the chain: thread 0 computes it first and hands it to
+// every thread through a shared word and a barrier; warp 0 updates its
+// rows after the barrier, while warpgroup 1's next product runs.
+//
+// The output is the int32 of values below 1, all zeros whatever the product,
+// so after the loop the kernel adds three check words to cycles[1..3] (zeroed
+// by the caller), each exact in any summation order, for the plain
+// version's (tools/probe.py, mm_small_words): the sum over acc's 1,024
+// values of (e + 1) times its float bits, e its row-major index; the sum
+// over the last product c's 16,384 values of (e + 1) times c rounded to an
+// integer (c is an integer plus a carry term below 0.01); and the sum over
+// the 256 threads of the float bits of the acc[0, 0] each used last.
 __global__ void __launch_bounds__(kMmThreads)
 mm_small_kernel(const int32_t* __restrict__ d, int k, int32_t* out, long long* cycles) {
-  using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char mm_smem[];
-  __nv_bfloat16* a0 = reinterpret_cast<__nv_bfloat16*>(mm_smem);
-  __nv_bfloat16* a = a0 + L * kLdh;
-  __nv_bfloat16* b = a + L * kLdh;
-  float* c = reinterpret_cast<float*>(b + L * kLdh);
-  __nv_bfloat16* acc = reinterpret_cast<__nv_bfloat16*>(c + L * kLdf);
-  const int t = threadIdx.x, warp = t >> 5;
+  __nv_bfloat16* const b = reinterpret_cast<__nv_bfloat16*>(mm_smem);
+  float* const carry = reinterpret_cast<float*>(b + L * L);        // acc[0, 0], two turns
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   for (int e = t; e < L * L; e += kMmThreads) {
-    const int at = (e >> 7) * kLdh + (e & 127);
-    a0[at] = __float2bfloat16_rn(static_cast<float>(d[e] & 1));
-    b[at] = __float2bfloat16_rn(static_cast<float>(d[e] & 3));
+    const int r = e >> 7, c = e & 127;                              // b[r][c]: depth r, column c
+    b[wg::core_offset(L, c, 2 * r) / 2] = __float2bfloat16_rn(static_cast<float>(d[e] & 3));
   }
-  for (int e = t; e < kOut; e += kMmThreads) acc[e] = __float2bfloat16_rn(0.0f);
+  // a[row][col], a[row][col + 1] in mask[4 s + q]: rows 16 warp + lane / 4
+  // (+ 8 for q odd), columns 16 s + 2 (lane % 4) (+ 8 for q >= 2)
+  uint32_t mask[32];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = (16 * warp + (lane >> 2) + 8 * (q & 1)) * L + 16 * s + 2 * (lane & 3) +
+                    8 * (q >> 1);
+      mask[4 * s + q] = (d[e] & 1 ? 0xFFFFu : 0u) | (d[e + 1] & 1 ? 0xFFFF0000u : 0u);
+    }
+  }
+  float acc[32];                                 // warp 0: acc[lane / 4][8 n + 2 (lane % 4) + j]
+#pragma unroll
+  for (int j = 0; j < 32; ++j) acc[j] = 0.0f;
+  if (t == 0) carry[0] = 0.0f;
+  wg::fence_shared();
   __syncthreads();
+  const uint64_t db = wg::desc(wg::smem_addr(b), L);
+  float c[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) c[j] = 0.0f;
+  float s_last = 0.0f;
   const long long t0 = clock64();
   for (int it = 0; it < k; ++it) {
-    const float s = __bfloat162float(acc[0]);
-    for (int e = t; e < L * L; e += kMmThreads) {
-      const int at = (e >> 7) * kLdh + (e & 127);
-      a[at] = __float2bfloat16_rn(__bfloat162float(a0[at]) + s);
-    }
+    const float s = carry[it & 1];
+    s_last = s;
+    const uint32_t one = bf16_bits(1.0f + s) * 0x10001u, zero = bf16_bits(0.0f + s) * 0x10001u;
+    uint32_t a[8][4];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) a[j >> 2][j & 3] = (mask[j] & one) | (~mask[j] & zero);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) wg::hold(a[j]);
+    wg::hold(c);
+    wg::fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) wg::mma_bf16_rs(c, a[j], db + j * wg::step(L), j > 0);
+    wg::commit();
+    wg::wait();
+    wg::hold(c);
+    if (t == 0) carry[(it + 1) & 1] = mm_step(acc[0], c[0]);
     __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[8];
+    if (warp == 0) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) wmma::fill_fragment(cf[n], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, a + warp * 16 * kLdh + kk * 16, kLdh);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, b + kk * 16 * kLdh + n * 16, kLdh);
-        wmma::mma_sync(cf[n], af, bf, cf[n]);
+      for (int n = 0; n < 16; ++n) {
+        acc[2 * n] = mm_step(acc[2 * n], c[4 * n]);
+        acc[2 * n + 1] = mm_step(acc[2 * n + 1], c[4 * n + 1]);
       }
     }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      wmma::store_matrix_sync(c + warp * 16 * kLdf + n * 16, cf[n], kLdf, wmma::mem_row_major);
-    __syncthreads();
-    for (int e = t; e < kOut; e += kMmThreads) {
-      const float step = __bfloat162float(__float2bfloat16_rn(c[(e >> 7) * kLdf + (e & 127)] * 1e-9f));
-      acc[e] = __float2bfloat16_rn(__bfloat162float(acc[e]) + step);
-    }
-    __syncthreads();
   }
   if (t == 0) cycles[0] = clock64() - t0;
-  for (int e = t; e < kOut; e += kMmThreads)
-    out[e] = static_cast<int32_t>(__bfloat162float(acc[e]));
+  unsigned long long* const check = reinterpret_cast<unsigned long long*>(cycles + 1);
+  unsigned long long sum_c = 0;
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {                 // c[16 warp + lane / 4 (+ 8)][8 n + 2 (lane % 4) (+ 1)]
+    const int e = (16 * warp + (lane >> 2) + 8 * ((j >> 1) & 1)) * L + 8 * (j >> 2) +
+                  2 * (lane & 3) + (j & 1);
+    sum_c += static_cast<unsigned long long>(e + 1) * __float2ll_rn(c[j]);
+  }
+  atomicAdd(check + 1, sum_c);
+  atomicAdd(check + 2, static_cast<unsigned long long>(__float_as_uint(s_last)));
+  if (warp == 0) {
+    unsigned long long sum_acc = 0;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const int e = (lane >> 2) * L + 8 * n + 2 * (lane & 3);
+      out[e] = static_cast<int32_t>(acc[2 * n]);
+      out[e + 1] = static_cast<int32_t>(acc[2 * n + 1]);
+      sum_acc += static_cast<unsigned long long>(e + 1) * __float_as_uint(acc[2 * n]) +
+                 static_cast<unsigned long long>(e + 2) * __float_as_uint(acc[2 * n + 1]);
+    }
+    atomicAdd(check, sum_acc);
+  }
 }
 
 // --------------------------------------------------------------- capacity

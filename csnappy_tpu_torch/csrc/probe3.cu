@@ -16,8 +16,8 @@
 // beside that.  Thread 0 of block 0 times its loop with clock64() and writes
 // the cycles to `cycles`.  Nothing of the work is left out because only
 // part of it reaches the output: every product, gather, scan and chain is
-// done every iteration and its result stored (shared memory, or the global
-// scratch `g_state`), as the TPU kernel computes it whole.
+// done every iteration and its result kept (in registers, shared memory or
+// the global scratch `g_state`), as the TPU kernel computes it whole.
 //
 // Design, per family:
 // * walks (mosaic_probe3.py :46-172, :206, :352; mosaic_probe3b.py :52-143)
@@ -32,17 +32,20 @@
 //   [1, 2^20) or [1, 2^22), so v > 0 always holds: the encoder walks always
 //   take the match arm; walk_enc keeps its branch as a branch all the same,
 //   because the branch is what it measures against walk_enc_nobr;
-// * products (vec_only, vec_scal, dot_s8, dot_bf16_256) — tensor cores
-//   through nvcuda::wmma: the (8, 128) @ (128, 128) bf16 chain as m8n32k16
-//   tiles on four warps, float sums rounded to bf16 between products;
-//   vec_scal adds a fifth warp whose one thread walks the 256 steps while
-//   the four run the products (warp-specialised; both meet at a barrier
-//   once an iteration); the (128, 256) @ (256, 128) products as m16n16k16
-//   tiles on eight warps, int8 with int32 sums or bf16 with float sums, the
-//   whole (128, 128) result stored to shared memory every iteration though
-//   it does not depend on i (the operands are re-read after a barrier, so
-//   the compiler cannot hoist the product out of the loop); float results
-//   convert to int32 as XLA does: toward zero, saturating, NaN to 0;
+// * products (vec_only, vec_scal, dot_s8, dot_bf16_256) — tensor cores.
+//   The (8, 128) @ (128, 128) bf16 chain through nvcuda::wmma as m8n32k16
+//   tiles on four warps, float sums rounded to bf16 between products (its
+//   8 rows are below wgmma's 64); vec_scal adds a fifth warp whose one
+//   thread walks the 256 steps while the four run the products
+//   (warp-specialised; both meet at a barrier once an iteration).  The
+//   (128, 256) @ (256, 128) products on Hopper's wgmma (csrc/wgmma.cuh):
+//   two warpgroups of 64 rows each, both operands K-major in shared memory,
+//   int8 with int32 sums (8 m64n128k32 steps) or bf16 with float sums (16
+//   m64n128k16), the whole product issued every iteration though it does
+//   not depend on i, one warpgroup's product running while the other's
+//   rows are added; their bound is one SM's tensor-core rate, as a probe
+//   is one block.  Float results convert to int32 as XLA does: toward zero,
+//   saturating, NaN to 0;
 // * wide gathers (15 probes, one template) — the one-hot products and limbs
 //   are the TPU's way to gather; here the R x 128 table is staged into
 //   shared memory and 1024 threads gather the E values by address every
@@ -75,6 +78,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -400,34 +405,12 @@ using namespace nvcuda;
 
 // bf16 fragments loaded with the .shared form of wmma.load: through
 // wmma::load_matrix_sync the bf16 fragments compile to generic 32-bit loads
-// (LD.E), where the int8 ones become ldmatrix.  The loads are volatile, so
-// they stay in the loop, and the products they feed with them.
+// (LD.E) instead of ldmatrix.  The loads are volatile, so they stay in the
+// loop, and the products they feed with them.
 template <class Frag, int N>
 __device__ __forceinline__ void to_frag(Frag& f, const uint32_t (&r)[N]) {
   static_assert(sizeof(f.x) == 4 * N, "fragment size");
   memcpy(f.x, r, sizeof(f.x));
-}
-
-__device__ __forceinline__ void load_a16(
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>& f,
-    const __nv_bfloat16* p, int ld) {
-  uint32_t r[4];
-  asm volatile("wmma.load.a.sync.aligned.row.m16n16k16.shared.bf16 {%0, %1, %2, %3}, [%4], %5;"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr_opaque(p)), "r"(ld)
-               : "memory");
-  to_frag(f, r);
-}
-
-__device__ __forceinline__ void load_b16(
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>& f,
-    const __nv_bfloat16* p, int ld) {
-  uint32_t r[4];
-  asm volatile("wmma.load.b.sync.aligned.col.m16n16k16.shared.bf16 {%0, %1, %2, %3}, [%4], %5;"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr_opaque(p)), "r"(ld)
-               : "memory");
-  to_frag(f, r);
 }
 
 __device__ __forceinline__ void load_a8x32(
@@ -544,102 +527,112 @@ vec_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int
 constexpr int kVecSmem = static_cast<int>(sizeof(VecSmem));
 constexpr int kVecScalSmem = kVecSmem + (kN1d + 2048) * 4;
 
-constexpr int kDotWarps = 8;                     // 16 rows of the (128, 128) result each
-constexpr int kDotThreads = kDotWarps * 32;
+// The (128, 256) @ (256, 128) products on wgmma (csrc/wgmma.cuh): two
+// warpgroups, each owning 64 rows of y.
+constexpr int kDotThreads = 256;
+constexpr int kDotRows = 64;                     // rows of y a warpgroup owns
+template <typename T>
+constexpr int kDotSmem = 2 * L * 256 * static_cast<int>(sizeof(T));   // A and B
 
 template <typename T>
 struct DotTraits;
 template <>
 struct DotTraits<signed char> {
-  using Acc = int;
-  static constexpr int kLd = 256 + 16;           // bytes: a multiple of 16, off the banks
+  using Acc = int32_t;
+  static constexpr int kSteps = 256 / 32;        // m64n128k32 steps over the depth of 256
   __device__ static signed char from(int v) { return static_cast<signed char>(v); }
-  __device__ static int32_t to_int(int v) { return v; }
-  template <class F>                             // ldmatrix from shared memory
-  __device__ static void load(F& f, const signed char* p) { wmma::load_matrix_sync(f, p, kLd); }
+  __device__ static void mma(int32_t (&y)[64], uint64_t a, uint64_t b, int accumulate) {
+    wg::mma_s8(y, a, b, accumulate);
+  }
 };
 template <>
 struct DotTraits<__nv_bfloat16> {
   using Acc = float;
-  static constexpr int kLd = 256 + 8;
+  static constexpr int kSteps = 256 / 16;        // m64n128k16 steps
   __device__ static __nv_bfloat16 from(int v) { return __float2bfloat16_rn(static_cast<float>(v)); }
-  __device__ static int32_t to_int(float v) { return sat_int(v); }
-  __device__ static void load(
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>& f,
-      const __nv_bfloat16* p) {
-    load_a16(f, p, kLd);
-  }
-  __device__ static void load(
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>& f,
-      const __nv_bfloat16* p) {
-    load_b16(f, p, kLd);
+  __device__ static void mma(float (&y)[64], uint64_t a, uint64_t b, int accumulate) {
+    wg::mma_bf16(y, a, b, accumulate);
   }
 };
 
-// A = b^T and B = a staged transposed, rows of 256 along the contracted
-// axis (A row-major, B column-major), and the (128, 128) result.
+// One whole product y = b^T a for this warpgroup's 64 rows, issued as one
+// committed group: every k-step of the depth, the first overwriting y.
 template <typename T>
-struct DotSmem {
-  T bt[L * DotTraits<T>::kLd];                   // bt[i][r] = b[r][i]
-  T at[L * DotTraits<T>::kLd];                   // at[j][r] = a[r][j]
-  typename DotTraits<T>::Acc y[L * kLdf];
-};
+__device__ __forceinline__ void dot_issue(typename DotTraits<T>::Acc (&y)[64], uint64_t a,
+                                          uint64_t b) {
+  wg::hold(y);
+  wg::fence();
+#pragma unroll
+  for (int s = 0; s < DotTraits<T>::kSteps; ++s)
+    DotTraits<T>::mma(y, a + s * wg::step(L), b + s * wg::step(L), s > 0);
+  wg::commit();
+}
+
+// acc += y[0:8] + i on warp 0 of warpgroup 0, which holds rows 0-7 of y in
+// accumulators 4n and 4n + 1; a float sum converts as XLA's convert does
+// (cvt.rzi saturates and maps NaN to 0).
+__device__ __forceinline__ int32_t dot_int(int32_t v) { return v; }
+__device__ __forceinline__ int32_t dot_int(float v) { return __float2int_rz(v); }
+
+template <typename Acc>
+__device__ __forceinline__ void dot_fold(uint32_t (&acc)[32], const Acc (&y)[64], int i) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    acc[2 * n] += static_cast<uint32_t>(dot_int(y[4 * n])) + i;
+    acc[2 * n + 1] += static_cast<uint32_t>(dot_int(y[4 * n + 1])) + i;
+  }
+}
 
 // mosaic_probe3.py:229 k_dot_s8 (T = signed char) and :245 k_dot_bf16_256
 // (bf16): y = b^T a with a = d[0:256] & 1, b = d[0:256] & 0x7F, acc +=
-// y[0:8] + i (DotSmem); warp w computes rows 16w..16w+15 of y in eight
-// 16 x 16 tiles, and stores them every iteration.  The operands are reached
-// through the shared struct, so the fragments load with shared-memory
-// instructions, not generic ones.
+// y[0:8] + i.  A = b^T and B = a are staged once, K-major (A's row i is
+// column i of b, B's row j column j of a), and every iteration each
+// warpgroup issues the whole product of its 64 rows from shared memory,
+// the sums in registers, and waits for it.  The tensor cores stay busy
+// through a fold because the other warpgroup's product runs meanwhile (a
+// second accumulator set, product i + 1 in flight during fold i, is what
+// ptxas serializes: its warning C7514).  The product does
+// not depend on i, but wgmma is volatile asm issued every iteration:
+// nothing is hoisted.
 template <typename T>
 __global__ void __launch_bounds__(kDotThreads)
 dot_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int k, int32_t* out,
            long long* cycles) {
-  using Tr = DotTraits<T>;
-  using Acc = typename Tr::Acc;
-  constexpr int kLd = Tr::kLd;
   extern __shared__ __align__(128) unsigned char dot_smem[];
-  DotSmem<T>& s = *reinterpret_cast<DotSmem<T>*>(dot_smem);
-  const int t = threadIdx.x, warp = t >> 5;
+  T* const at = reinterpret_cast<T*>(dot_smem);                     // A = b^T, (128, 256)
+  T* const bt = at + L * 256;                                       // B = a, as (128, 256)
+  const int t = threadIdx.x, lane = t & 31;
   for (int e = t; e < 256 * L; e += kDotThreads) {
-    const int r = e >> 7, c = e & 127;
-    s.bt[c * kLd + r] = Tr::from(d[e] & 0x7F);
-    s.at[c * kLd + r] = Tr::from(d[e] & 1);
+    const int r = e >> 7, c = e & 127;                              // d[r][c]: depth r, row c
+    const int x = wg::core_offset(L, c, r * static_cast<int>(sizeof(T))) / sizeof(T);
+    at[x] = DotTraits<T>::from(d[e] & 0x7F);
+    bt[x] = DotTraits<T>::from(d[e] & 1);
   }
-  uint32_t acc[kOut / kDotThreads] = {};
+  wg::fence_shared();
   __syncthreads();
+  const uint64_t da = wg::desc(wg::smem_addr(at) + (t >> 7) * (kDotRows / 8) * 128, L);
+  const uint64_t db = wg::desc(wg::smem_addr(bt), L);
+  typename DotTraits<T>::Acc y[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) y[j] = 0;
+  uint32_t acc[32] = {};
   const long long t0 = clock64();
   for (int i = 0; i < k; ++i) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> cf[8];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) wmma::fill_fragment(cf[n], static_cast<Acc>(0));
-#pragma unroll 2
-    for (int kk = 0; kk < 256 / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> af;
-      Tr::load(af, s.bt + warp * 16 * kLd + kk * 16);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bf;
-        Tr::load(bf, s.at + n * 16 * kLd + kk * 16);
-        wmma::mma_sync(cf[n], af, bf, cf[n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      wmma::store_matrix_sync(s.y + warp * 16 * kLdf + n * 16, cf[n], kLdf,
-                              wmma::mem_row_major);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kOut / kDotThreads; ++j) {
-      const int e = t + j * kDotThreads;
-      acc[j] += static_cast<uint32_t>(Tr::to_int(s.y[(e >> 7) * kLdf + (e & 127)])) + i;
-    }
-    __syncthreads();
+    dot_issue<T>(y, da, db);
+    wg::wait();
+    wg::hold(y);
+    if (t < 32) dot_fold(acc, y, i);
   }
+  __syncthreads();
   if (t == 0) cycles[0] = clock64() - t0;
+  if (t < 32) {
 #pragma unroll
-  for (int j = 0; j < kOut / kDotThreads; ++j)
-    out[t + j * kDotThreads] = static_cast<int32_t>(acc[j]);
+    for (int n = 0; n < 16; ++n) {
+      const int e = (lane >> 2) * L + 8 * n + 2 * (lane & 3);
+      out[e] = static_cast<int32_t>(acc[2 * n]);
+      out[e + 1] = static_cast<int32_t>(acc[2 * n + 1]);
+    }
+  }
 }
 
 // ------------------------------------------------------- gathers, scatters
@@ -925,9 +918,9 @@ WALK_ENTRY(walk_enc_nobr, WalkEncNobr)
 PROBE3_ENTRY(vec_only, vec_kernel<false>, 1, kVecThreads, kVecSmem, false)
 WALK_ENTRY(scal_only, ScalOnly)
 PROBE3_ENTRY(vec_scal, vec_kernel<true>, 1, kVecThreads + 32, kVecScalSmem, true)
-PROBE3_ENTRY(dot_s8, dot_kernel<signed char>, 1, kDotThreads, sizeof(DotSmem<signed char>), false)
-PROBE3_ENTRY(dot_bf16_256, dot_kernel<__nv_bfloat16>, 1, kDotThreads,
-             sizeof(DotSmem<__nv_bfloat16>), false)
+PROBE3_ENTRY(dot_s8, dot_kernel<signed char>, 1, kDotThreads, kDotSmem<signed char>, false)
+PROBE3_ENTRY(dot_bf16_256, dot_kernel<__nv_bfloat16>, 1, kDotThreads, kDotSmem<__nv_bfloat16>,
+             false)
 GATHER_ENTRY(gather_r136_e2048_l2, 136, 2048, 0xFFFFu)
 GATHER_ENTRY(gather_r272_e2048_l2, 272, 2048, 0xFFFFu)
 GATHER_ENTRY(gather_r64_e2048_l2, 64, 2048, 0xFFFFu)

@@ -668,7 +668,8 @@ def kernel_lib_cases(seed: int) -> list:
 
 def probe_cases(seed: int) -> list:
     """Every probe of ``tools/probe.PROBES`` with a kernel at its smallest K
-    (0 and 1; the capacity probe at 256 rows), against its plain version."""
+    (0 and 1; the capacity probe at 256 rows), against its plain version,
+    and the check words of those with any (``probe.WORDS``)."""
     from . import probe as pb
 
     out = []
@@ -682,6 +683,10 @@ def probe_cases(seed: int) -> list:
                             _staged(lambda d, *t, n=name, k=k: pb.probe(n, k, d, *(t or (None,))),
                                     [d] + ([] if t is None else [t])),
                             (lambda n, k, d, t: lambda: [pb.probe(n, k, d, t, device="cpu")])(name, k, d, t)))
+            if name in pb.WORDS:
+                out.append(Case(pr.lib, f"{name} check words K={k}",
+                                _staged(lambda d, n=name, k=k: pb.words(n, k, d), [d]),
+                                (lambda n, k, d: lambda: [pb.words(n, k, d, device="cpu")])(name, k, d)))
     return out
 
 

@@ -26,7 +26,8 @@ Here each probe is a kernel of ``csrc/probe.cu``, ``csrc/probe3.cu`` or
 int32 (8, 128) ``o_ref`` for the same K, input and second input), written
 for Hopper: the scalar walks are one thread walking a table in shared or
 global memory, the vector probes 128 or 1024 threads, the products
-tensor-core ``wmma`` products, the rolls a 128-lane rotate through shared
+tensor-core products (``wgmma`` for the 128-row ones, ``wmma`` for the
+8-row chains), the rolls a 128-lane rotate through shared
 memory, the window copy a ``cp.async.bulk`` into shared memory, the wide
 gathers 1024 threads gathering by address from a table in shared memory,
 the lane gathers one thread a chain; ``csrc/probe4.cu`` builds its probes on
@@ -51,7 +52,9 @@ it has no kernel and no plain version: :func:`probe` raises the JAX
 * :func:`measure` — ns and SM cycles per iteration on the card: the
   CUDA-event slope between launches at k_lo and k_hi (as the JAX ``slope``,
   which drops the launch cost), and the ``clock64()`` slope of the loop
-  inside the kernel; the result at k_hi held against the plain version.
+  inside the kernel; the result at k_hi held against the plain version;
+  for a product probe, one SM's bound in cycles and the share of it
+  reached (:func:`sm_bound`: a probe is one block).
 * :func:`smem_cap` / :func:`smem_capacity` — whether a (rows, 128) int32
   shared-memory scratch launches, and the largest dynamic shared memory in
   bytes that a block launches with, found by bisection.
@@ -67,6 +70,8 @@ import argparse
 import ctypes
 import functools
 import json
+import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -154,17 +159,44 @@ def row_write_plain(k: int, d: torch.Tensor) -> torch.Tensor:
     return _wrap(scr[0] + r).int().expand(OUT_SHAPE).clone()
 
 
+def _mm_small(k: int, d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The carry after ``k`` steps of ``k_mm_small``, the last step's
+    product (zeros for k = 0) and the acc[0, 0] it used (0 for k = 0)."""
+    a = (d[:128] & 1).to(torch.bfloat16)
+    b = (d[:128] & 3).to(torch.bfloat16).float()
+    acc = torch.zeros(OUT_SHAPE, dtype=torch.bfloat16)
+    c, s = torch.zeros((L, L)), acc[0, 0]
+    for _ in range(k):
+        s = acc[0, 0]
+        c = (a + s).float() @ b
+        acc = acc + (c[:8] * 1e-9).to(torch.bfloat16)
+    return acc, c, s
+
+
 def mm_small_plain(k: int, d: torch.Tensor) -> torch.Tensor:
     """mosaic_probe.py:138 ``k_mm_small``: a bf16 (128,128) @ (128,128)
     product a step with float32 sums, rows 0-7 scaled by 1e-9 and added in
     bf16 to the carry; the output is the carry cast to int32."""
-    a = (d[:128] & 1).to(torch.bfloat16)
-    b = (d[:128] & 3).to(torch.bfloat16).float()
-    acc = torch.zeros(OUT_SHAPE, dtype=torch.bfloat16)
-    for _ in range(k):
-        c = (a + acc[0, 0]).float() @ b
-        acc = acc + (c[:8] * 1e-9).to(torch.bfloat16)
-    return acc.to(torch.int32)
+    return _mm_small(k, d)[0].to(torch.int32)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.float().contiguous().view(torch.int32).long()
+
+
+def mm_small_words(k: int, d: torch.Tensor) -> torch.Tensor:
+    """The three check words ``mm_small_kernel`` adds after its cycles: its
+    int32 output is 0 wherever acc stays below 1, which it does, so these
+    hold the kernel to what the cast hides, each exact in any summation
+    order.  The sum over acc's 1,024 values of (e + 1) times its float
+    bits (e its row-major index); over the last product's 16,384 values,
+    (e + 1) times the value rounded to an integer (an integer plus a carry
+    term below 0.01); and 256 times the float bits of the acc[0, 0] that
+    the last step used (each thread's own, in the kernel)."""
+    acc, c, s = _mm_small(k, d)
+    w = torch.arange(1, L * L + 1, dtype=torch.int64)
+    return torch.stack([(w[:acc.numel()] * _bits(acc).reshape(-1)).sum(),
+                        (w * torch.round(c).long().reshape(-1)).sum(), 256 * _bits(s)])
 
 
 def onehot_row_plain(k: int, d: torch.Tensor) -> torch.Tensor:
@@ -1050,13 +1082,15 @@ def _launch(name: str, k: int, d: torch.Tensor,
             t: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``name``'s kernel at K = ``k`` on card tensor ``d`` (and second
     input ``t``); returns the (8, 128) output and the loop's ``clock64()``
-    cycles, and counts the launch."""
+    cycles, followed by the kernel's check words if it has any (``WORDS``),
+    and counts the launch."""
     pr = PROBES[name]
     if d.data_ptr() % 16:
         raise ValueError(f"{name}: the input must be 16-byte aligned")
     dev = d.device
     out = torch.empty(OUT_SHAPE, dtype=torch.int32, device=dev)
-    cycles = torch.zeros((1,), dtype=torch.int64, device=dev)
+    cycles = torch.zeros((1 + WORDS[name][1] if name in WORDS else 1,), dtype=torch.int64,
+                         device=dev)
     launch, check = _kernel(pr.entry, pr.lib)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1101,6 +1135,29 @@ def probe(name: str, k: int, data, second=None, device=None) -> torch.Tensor:
 
 
 probe.launches = {name: 0 for name in PROBES}
+
+# probes whose kernel adds check words after its cycles: their plain
+# version and their count
+WORDS = {"mosaic_probe.mm_small": (mm_small_words, 3)}
+
+
+def words(name: str, k: int, data, device=None) -> torch.Tensor:
+    """The int64 check words of probe ``name`` (a key of ``WORDS``) after
+    ``k`` iterations on ``data``: on the card (``device=None``) what its
+    kernel wrote after its cycles, one launch counted as :func:`probe`
+    counts it; with ``device="cpu"`` the plain version's."""
+    name = resolve(name)
+    if name not in WORDS:
+        raise ValueError(f"{name} has no check words")
+    dev = resolve_device(device)
+    refuse_card_tensors(dev, data)
+    if not 0 <= k < 1 << 31:
+        raise ValueError(f"k must be in [0, 2^31), got {k}")
+    d = _as_input(name, data, dev)
+    if dev.type == "cpu":
+        return WORDS[name][0](k, d)
+    return _launch(name, k, d)[1][1:]
+
 
 _REFUSED = (1, 701)             # cudaErrorInvalidValue, cudaErrorLaunchOutOfResources
 
@@ -1156,10 +1213,11 @@ def smem_capacity(device=None) -> int:
 
 
 def _bound(name: str, k: int) -> tuple[float, str]:
-    """Least time for ``k`` iterations of probe ``name``: the input rows
-    and walk-table entries it reads (``Probe.reads``), K, and its output
-    written once, over the memory rate, against its operations over the
-    peak rate of their type."""
+    """Least time for ``k`` iterations of probe ``name`` on the whole card:
+    the input rows and walk-table entries it reads (``Probe.reads``), K,
+    and its output written once, over the memory rate, against its
+    operations over the card's peak rate of their type.  A probe runs on
+    one SM; :func:`sm_bound` is that SM's bound."""
     pr = PROBES[name]
     nbytes = 4 * (pr.reads + (1 if pr.rows else 0) + OUT_SHAPE[0] * L)   # smem_cap: K is its input
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1167,16 +1225,38 @@ def _bound(name: str, k: int) -> tuple[float, str]:
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+# One SM's dense tensor-core operations a cycle: the data sheet's rates
+# (timing.BF16_PER_S, INT8_PER_S) are 132 SMs at 1,830 MHz
+SM_OPS_PER_CYCLE = {"bf16": 4096, "int8": 8192}
+
+
+def sm_bound(name: str, cycles_per_iter: float | None = None) -> dict:
+    """One SM's bound of a probe with a tensor type, in SM cycles an
+    iteration: a probe is one thread block, so its operations over one
+    SM's dense tensor-core rate a cycle for their type
+    (``SM_OPS_PER_CYCLE``), whatever the clock; and the share of that
+    bound which ``cycles_per_iter`` reaches (None without a measurement).
+    Empty for a probe without a tensor type."""
+    pr = PROBES[resolve(name)]
+    if not pr.tensor:
+        return {}
+    least = pr.ops / SM_OPS_PER_CYCLE[pr.tensor]
+    return {"sm_bound_cycles": least,
+            "sm_share": None if cycles_per_iter is None else least / cycles_per_iter}
+
+
 def slope(run: Callable[[int], tuple[torch.Tensor, torch.Tensor]], k_lo: int, k_hi: int,
           reps: int = 5) -> tuple[float, float, float, torch.Tensor]:
     """Time ``run(k)`` (a launch returning its output and its loop's cycles)
-    at K = k_lo and k_hi after one warm-up run, the fastest of ``reps`` CUDA-
-    event-timed runs each.  Returns (ns per iteration, SM cycles per
+    at K = k_lo and k_hi after one warm-up run: the fastest of ``reps`` CUDA-
+    event-timed runs each, and the median of their ``clock64()`` cycles (on
+    an H100 one run's count was seen far enough off to put a slope 6% under
+    the tensor cores' rate).  Returns (ns per iteration, SM cycles per
     iteration, ms of one run at k_hi, the output at k_hi)."""
     run(k_lo)
     ms, cyc = {}, {}
     for k in (k_lo, k_hi):
-        times = []
+        times, counts = [], []
         for _ in range(reps):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
@@ -1184,7 +1264,8 @@ def slope(run: Callable[[int], tuple[torch.Tensor, torch.Tensor]], k_lo: int, k_
             b.record()
             b.synchronize()
             times.append(a.elapsed_time(b))
-        ms[k], cyc[k] = min(times), int(cycles[0])
+            counts.append(int(cycles[0]))
+        ms[k], cyc[k] = min(times), sorted(counts)[len(counts) // 2]
     span = k_hi - k_lo
     return (ms[k_hi] - ms[k_lo]) * 1e6 / span, (cyc[k_hi] - cyc[k_lo]) / span, ms[k_hi], out
 
@@ -1192,8 +1273,9 @@ def slope(run: Callable[[int], tuple[torch.Tensor, torch.Tensor]], k_lo: int, k_
 def measure(name: str, seed: int = 0, device=None, reps: int = 5) -> dict:
     """One probe on ``device`` (None = the card): ns and cycles per iteration
     from the slope between K = k_lo and K = k_hi, the ms of one launch at
-    k_hi, and whether its output at k_hi equals the plain version's.  With
-    ``device="cpu"`` only the plain version runs and no time is measured."""
+    k_hi, and whether its output at k_hi (and its check words, ``WORDS``)
+    equals the plain version's.  With ``device="cpu"`` only the plain
+    version runs and no time is measured."""
     name = resolve(name)
     _traces(name)
     pr = PROBES[name]
@@ -1208,7 +1290,7 @@ def measure(name: str, seed: int = 0, device=None, reps: int = 5) -> dict:
     rec["bound_ms"], rec["bound_by"] = _bound(name, pr.k_hi)
     if dev.type == "cpu":
         rec.update(ns_per_iter=None, cycles_per_iter=None, ms=None, result_equals_plain=True,
-                   max_abs_err=0)
+                   max_abs_err=0, **sm_bound(name))
         return rec
     d = _as_input(name, data, dev)
     if pr.entry == "smem_cap":
@@ -1224,10 +1306,69 @@ def measure(name: str, seed: int = 0, device=None, reps: int = 5) -> dict:
         t = _as_second(name, table, dev)
         ns, cycles, ms, got = slope(lambda k: _launch(name, k, d, t), pr.k_lo, pr.k_hi, reps)
         rec.update(ns_per_iter=ns, cycles_per_iter=cycles, ms=ms)
+    rec.update(sm_bound(name, rec["cycles_per_iter"]))
     diff = (got.cpu().long() - want.long()).abs()
     rec["max_abs_err"] = int(diff.max())
     rec["result_equals_plain"] = rec["max_abs_err"] == 0
+    if name in WORDS:                       # one more launch at k_hi, for its check words
+        rec["words_equal_plain"] = torch.equal(words(name, pr.k_hi, d, dev).cpu(),
+                                               WORDS[name][0](pr.k_hi, host))
+        rec["result_equals_plain"] &= rec["words_equal_plain"]
     return rec
+
+
+# the wgmma probes: (library, a piece of the kernel's mangled name, the SASS
+# opcode of its wgmma, wgmma instructions in one warpgroup's product)
+WGMMA_KERNELS = {
+    "mosaic_probe3.dot_s8": ("probe3", "dot_kernelIa", "IGMMA", 8),
+    "mosaic_probe3.dot_bf16_256": ("probe3", "dot_kernelI13__nv_bfloat16", "HGMMA", 16),
+    "mosaic_probe.mm_small": ("probe", "mm_small_kernel", "HGMMA", 8),
+}
+SERIALIZED = "wgmma.mma_async instructions are serialized"     # ptxas's warning
+_SASS_INS = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)$")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
+
+
+def sass_loops(sass: str, function: str) -> tuple[list[str], list[list[str]]]:
+    """The opcodes (their first word) of the one function of ``cuobjdump
+    -sass`` output whose mangled name holds ``function``, and those of each
+    loop: from a branch's target (a label or an address) to the branch,
+    where the target comes first."""
+    bodies = [c.split("\n", 1)[1] for c in sass.split("Function : ")[1:]
+              if function in c.split("\n", 1)[0]]
+    if len(bodies) != 1:
+        raise ValueError(f"{len(bodies)} functions named like {function!r}")
+    ops, at, branches = [], {}, []
+    for line in bodies[0].splitlines():
+        if m := _SASS_LABEL.match(line):
+            at[m.group(1)] = len(ops)
+        elif m := _SASS_INS.match(line):
+            at[int(m.group(1), 16)] = len(ops)
+            op = m.group(2).split(".")[0]
+            target = _SASS_TARGET.search(m.group(3))
+            if op == "BRA" and target:
+                branches.append((len(ops), target.group(1) or int(target.group(2), 16)))
+            ops.append(op)
+    return ops, [ops[at[t]:b + 1] for b, t in branches if at.get(t, b + 1) <= b]
+
+
+def wgmma_sass(name: str) -> dict:
+    """What the built library holds for wgmma probe ``name``: its wgmma
+    opcode, the count in one warpgroup's product, in the whole kernel and
+    in each loop that issues any, the warp-level products (``HMMA``,
+    ``IMMA``) in the kernel, and whether ptxas's build log says it
+    serialized the library's wgmma."""
+    lib, function, op, per = WGMMA_KERNELS[resolve(name)]
+    path = _build.build((lib,))[lib]
+    cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(path)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    ops, loops = sass_loops(text, function)
+    return {"wgmma": op, "per_product": per, "in_kernel": ops.count(op),
+            "in_loops": [body.count(op) for body in loops if op in body],
+            "warp_mma": ops.count("HMMA") + ops.count("IMMA"),
+            "serialized": SERIALIZED in _build.log_path(lib).read_text()}
 
 
 def clocks() -> dict:

@@ -1196,7 +1196,21 @@ def test_probe_kernel_equals_plain_and_fixture(card, probe_fixture, name):
         assert got.is_cuda and torch.equal(got.cpu(), want), (name, case, k)
         if key is not None:
             assert np.array_equal(got.cpu().numpy(), probe_fixture[key]), key
-    assert pb.probe.launches[name] == before + len(runs)
+        if name in pb.WORDS:        # what the int32 output hides (mm_small's zeros), exactly
+            words = pb.words(name, int(k), host.to(card)).cpu()
+            assert torch.equal(words, pb.words(name, int(k), host, device="cpu")), (name, case, k)
+    assert pb.probe.launches[name] == before + len(runs) * (2 if name in pb.WORDS else 1)
+
+
+@pytest.mark.parametrize("name", sorted(pb.WGMMA_KERNELS))
+def test_tensor_probe_loops_issue_wgmma(card, name):
+    # the built library's kernel: every loop that issues Hopper's wgmma
+    # (HGMMA, IGMMA) issues whole products a pass, the kernel holds no
+    # warp-level mma.sync (HMMA, IMMA), and ptxas serialized no wgmma
+    s = pb.wgmma_sass(name)
+    assert s["in_loops"] and all(n % s["per_product"] == 0 for n in s["in_loops"]), s
+    assert s["in_kernel"] >= max(s["in_loops"]), s
+    assert s["warp_mma"] == 0 and not s["serialized"], s
 
 
 def test_probe_shared_memory_capacity(card, probe_fixture):

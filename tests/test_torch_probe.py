@@ -17,7 +17,10 @@
   unwritten scratch, on ``inrow_round``'s flip and on ``scan_tril``'s row
   totals mod 2^24; the resolve-phase gathers' floor modulus past the int32
   wrap of their sum; ``mosaic_probe6.taa_4096x128`` raising JAX's error;
-* the bound's bytes: what each probe reads, not its whole input;
+* the bound's bytes: what each probe reads, not its whole input; one SM's
+  bound of the product probes in cycles an iteration; the SASS reader
+  that counts the wgmma probes' instructions in their loops;
+  ``mm_small``'s check words, which see what its all-zero output hides;
 * the ``PROBES`` table: every entry names an existing JAX site (a factory's
   ``def`` for a factory-made probe) and an entry of ``csrc/probe.cu``,
   ``csrc/probe3.cu`` or ``csrc/probe4.cu``;
@@ -235,6 +238,90 @@ def test_bound_counts_what_each_probe_reads():
     assert by == "bytes" and ms == 4 * (pb.N1D + 1 + 8 * 128) / pb.HBM_BYTES_PER_S * 1e3
     ms, by = pb._bound("mosaic_probe3b.scatter_oc256_e2048_l2", 1024)
     assert by == "operations" and ms == 1024 * 2048 / pb.OPS_PER_S * 1e3
+
+
+def test_one_sm_bound_of_the_product_probes():
+    # a probe is one block: its least SM cycles an iteration are its tensor
+    # operations over one SM's dense rate a cycle (4,096 bf16, 8,192 int8:
+    # the data sheet's rate over 132 SMs at 1,830 MHz)
+    for rate, per_s in ((pb.SM_OPS_PER_CYCLE["bf16"], pb.BF16_PER_S),
+                        (pb.SM_OPS_PER_CYCLE["int8"], pb.INT8_PER_S)):
+        assert rate == pytest.approx(per_s / 132 / 1.83e9, rel=1e-3)
+    for short, want in (("dot_bf16_256", 2048), ("dot_s8", 1024), ("mm_small", 1024)):
+        b = pb.sm_bound(short)
+        assert abs(b["sm_bound_cycles"] - want) <= 1 and b["sm_share"] is None, (short, b)
+    half = pb.sm_bound("dot_s8", 2 * pb.sm_bound("dot_s8")["sm_bound_cycles"])
+    assert half["sm_share"] == pytest.approx(0.5)
+    assert pb.sm_bound("walk_1d") == {}
+    assert {n.split(".")[1] for n, p in pb.PROBES.items() if pb.sm_bound(n)} == {
+        "mm_small", "vec_only", "vec_scal", "dot_s8", "dot_bf16_256"}
+
+
+def test_mm_small_check_words_see_what_the_cast_hides():
+    # the int32 output is zero at every K (acc stays below 1); the check
+    # words the kernel adds after its cycles depend on the product, the
+    # carry and acc, and are exact in any summation order
+    d = torch.from_numpy(pb.inputs("mm_small"))
+    assert pb.words("mm_small", 0, d, device="cpu").tolist() == [0, 0, 0]
+    w = {k: pb.words("mm_small", k, d, device="cpu") for k in (1, 2, 37)}
+    assert not any(pb.probe("mm_small", k, d, device="cpu").any() for k in w)
+    acc, c, s = pb._mm_small(37, d)
+    assert float(acc.float().max()) < 1 and 0 < float(s) and float((c - c.round()).abs().max()) < 0.01
+    assert int(w[1][2]) == 0 and int(w[2][2]) == 256 * int(pb._bits(pb._mm_small(1, d)[0][0, 0]))
+    assert len({tuple(v.tolist()) for v in w.values()}) == 3
+    # b one bit off (a kept): the product, and so acc, differ
+    bad = d.clone()
+    bad[:128] ^= 2
+    diff = pb.words("mm_small", 2, bad, device="cpu") != w[2]
+    assert diff[:2].all(), diff
+    assert pb.WORDS["mosaic_probe.mm_small"][1] == len(w[1])
+    with pytest.raises(ValueError, match="no check words"):
+        pb.words("dot_s8", 1, d, device="cpu")
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_115mm_small_kernelEPKiiPiPx
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
+                                                                          /* 0x000fe40000000800 */
+.L_x_0:
+        /*0010*/                   STS [R2], R3 ;                         /* 0x0000000302007388 */
+        /*0020*/              @!P0 BRA `(.L_x_0) ;                        /* 0xfffffffc00f88947 */
+.L_x_1:
+        /*0030*/                   WARPGROUP.ARRIVE ;
+        /*0040*/                   HGMMA.64x128x16.F32.BF16 R24, R88, gdesc[UR4], RZ, !UPT ;
+        /*0050*/                   HGMMA.64x128x16.F32.BF16 R24, R92, gdesc[UR8], R24, gsb0 ;
+        /*0060*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+        /*0070*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0080*/               @P1 BRA `(.L_x_1) ;
+        /*0090*/                   HGMMA.64x128x16.F32.BF16 R24, R88, gdesc[UR4], RZ, !UPT ;
+        /*00a0*/                   EXIT ;
+.L_x_2:
+        /*00b0*/                   BRA `(.L_x_2);
+\t\t..........
+\t\tFunction : _ZN12_GLOBAL__N_110dot_kernelIaEEvPKiS2_iPiPx
+        /*0000*/                   IMMA.16816.S8.S8 R4, R8.ROW, R12.COL, R4 ;
+        /*0010*/                   IGMMA.64x128x32.S8.S8 R88, gdesc[UR12], RZ, !UPT, gsb0 ;
+        /*0020*/               @P0 BRA 0x10 ;
+        /*0030*/                   BRA 0x50 ;
+        /*0040*/                   EXIT ;
+"""
+
+
+def test_sass_loops_reads_a_kernel_and_its_loops():
+    ops, loops = pb.sass_loops(SASS, "mm_small_kernel")
+    assert ops == ["LDC", "STS", "BRA", "WARPGROUP", "HGMMA", "HGMMA", "WARPGROUP", "BAR", "BRA",
+                   "HGMMA", "EXIT", "BRA"]
+    assert loops == [["STS", "BRA"], ["WARPGROUP", "HGMMA", "HGMMA", "WARPGROUP", "BAR", "BRA"],
+                     ["BRA"]]
+    ops, loops = pb.sass_loops(SASS, "dot_kernelIa")
+    assert ops == ["IMMA", "IGMMA", "BRA", "BRA", "EXIT"] and loops == [["IGMMA", "BRA"]]
+    with pytest.raises(ValueError, match="0 functions"):
+        pb.sass_loops(SASS, "dot_kernelI13__nv_bfloat16")
+    with pytest.raises(ValueError, match="2 functions"):
+        pb.sass_loops(SASS, "_GLOBAL__N_")
+    assert set(pb.WGMMA_KERNELS) <= {n for n, p in pb.PROBES.items() if p.tensor}
 
 
 def test_smem_cap_plain_equals_the_interpreter():
