@@ -1829,7 +1829,11 @@ def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
               + (f"; one SM's bound {r['sm_bound_cycles']:.2f} cycles an iteration "
                  f"({probe.SM_OPS_PER_CYCLE[probe.PROBES[name].tensor]} "
                  f"{probe.PROBES[name].tensor} operations a cycle), "
-                 f"{100 * r['sm_share']:.1f}% of it reached" if "sm_share" in r else ""),
+                 f"{100 * r['sm_share']:.1f}% of it reached" if "sm_share" in r else "")
+              + f"; the card's bound {r['bound_ms']:.4f} ms at k_hi ({r['bound_by']}), "
+                f"{100 * r['bound_share']:.2f}% of it reached"
+              + (f"; check words equal the plain version's: {r['words_equal_plain']}"
+                 if "words_equal_plain" in r else ""),
               flush=True)
     cap = recs["mosaic_probe5.smem_cap"]
     print(f"[probes] shared-memory capacity of a block: {cap['capacity_bytes']} bytes; (rows, 128) "
@@ -1849,8 +1853,8 @@ def _probes(torch, np, dev, card: str) -> tuple[list, dict]:
             want = probe.probe(name, int(k), host, htab, device="cpu")
             assert np.array_equal(got.numpy(), z[key]) and torch.equal(got, want), key
             if name in probe.WORDS:         # what the int32 output hides, held exactly
-                got = probe.words(name, int(k), host.to(dev)).cpu()
-                assert torch.equal(got, probe.words(name, int(k), host, device="cpu")), key
+                got = probe.words(name, int(k), host.to(dev), tab).cpu()
+                assert torch.equal(got, probe.words(name, int(k), host, htab, device="cpu")), key
                 nwords += 1
             ncase += 1
     rand = torch.from_numpy(z["case_p4rand"])

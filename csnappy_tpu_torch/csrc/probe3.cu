@@ -14,10 +14,12 @@
 // its time in K is the cost of one iteration.  Its bytes (a 152 KiB input,
 // a table of at most 144 KiB, a 4 KiB output) and operations are small
 // beside that.  Thread 0 of block 0 times its loop with clock64() and writes
-// the cycles to `cycles`.  Nothing of the work is left out because only
-// part of it reaches the output: every product, gather, scan and chain is
-// done every iteration and its result kept (in registers, shared memory or
-// the global scratch `g_state`), as the TPU kernel computes it whole.
+// the cycles to `cycles` (inrow_round, over 128 blocks: the slowest warp's
+// span; its time is the CUDA-event slope).  Nothing of the work is left
+// out because only part of it reaches the output: every product, gather,
+// scan and chain is done every iteration and its result kept (in
+// registers, shared memory or the global scratch `g_state`), as the TPU
+// kernel computes it whole.
 //
 // Design, per family:
 // * walks (mosaic_probe3.py :46-172, :206, :352; mosaic_probe3b.py :52-143)
@@ -33,11 +35,15 @@
 //   take the match arm; walk_enc keeps its branch as a branch all the same,
 //   because the branch is what it measures against walk_enc_nobr;
 // * products (vec_only, vec_scal, dot_s8, dot_bf16_256) — tensor cores.
-//   The (8, 128) @ (128, 128) bf16 chain through nvcuda::wmma as m8n32k16
-//   tiles on four warps, float sums rounded to bf16 between products (its
-//   8 rows are below wgmma's 64); vec_scal adds a fifth warp whose one
-//   thread walks the 256 steps while the four run the products
-//   (warp-specialised; both meet at a barrier once an iteration).  The
+//   The (8, 128) @ (128, 128) bf16 chain computed transposed, y^T = m^T x^T,
+//   so that x's 8 rows are the N = 8 of mma.sync m16n8k16: m^T held in
+//   registers by four warps for the whole launch, the carry handed on as
+//   bf16 y^T rows through 2 KiB of shared memory, read back as B fragments
+//   by ldmatrix .trans, one barrier of the four warps a product; vec_scal
+//   adds a fifth warp whose one thread walks the 256 steps while the four
+//   run the products (warp-specialised; both meet at a barrier once an
+//   iteration), over a table staged as next addresses, one shared load a
+//   step.  The
 //   (128, 256) @ (256, 128) products on Hopper's wgmma (csrc/wgmma.cuh):
 //   two warpgroups of 64 rows each, both operands K-major in shared memory,
 //   int8 with int32 sums (8 m64n128k32 steps) or bf16 with float sums (16
@@ -68,16 +74,17 @@
 //   the whole base in shared memory; (128, 2048) over 256 blocks (all
 //   resident at once on 132 SMs), each with d[:, 0], since
 //   base[r, c] = d[r, 0] + c;
-// * inrow_round — one block, par (256, 128) in shared memory, 32 elements a
-//   thread: every element reads the old par into registers, a barrier, all
-//   write, a barrier: a synchronous round.
+// * inrow_round — a row reads only itself, so one warp owns one row (four
+//   values a lane in registers, a gather two shuffles and a byte permute)
+//   and the 256 rows spread over 128 blocks of two warps: no barrier in the
+//   round loop.
 
 #include <climits>
 #include <cstdint>
 #include <cstring>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <type_traits>
 
 #include "wgmma.cuh"
 
@@ -253,24 +260,36 @@ struct WalkEncNobr {
   }
 };
 
-// mosaic_probe3.py:196 _scal_chunk: 256 steps, tc advancing every step.
-__device__ __forceinline__ void scal_chunk(uint32_t tab, uint32_t tags, uint32_t& p,
+// mosaic_probe3.py:196 _scal_chunk over a table staged as next addresses
+// (scal_stage): entry p holds the shared address of entry
+// (p + (t[p] & 63) + 1) & 16383, so a step is one shared load whose result
+// is the next address.  The tag store of p, its index recovered from the
+// address, is issued after that load, so it stays off the chain.  256
+// steps, tc advancing every step.
+__device__ __forceinline__ void scal_stage(int32_t* tab, const int32_t* __restrict__ table) {
+  const uint32_t at = smem_addr_opaque(tab);
+  for (int i = threadIdx.x; i < static_cast<int>(kN1d); i += blockDim.x)
+    tab[i] = static_cast<int32_t>(at + 4 * ((i + (table[i] & 63) + 1) & (kN1d - 1)));
+}
+
+__device__ __forceinline__ void scal_chunk(uint32_t tab, uint32_t tags, uint32_t& a,
                                            uint32_t& tc) {
   for (int j = 0; j < 256; ++j) {
-    const uint32_t v = lds(tab + 4 * p);
-    sts(tags + 4 * tc, p);
-    p = (p + (v & 63u) + 1u) & (kN1d - 1);
+    const uint32_t p = a;
+    a = lds(p);
+    sts(tags + 4 * tc, (p - tab) >> 2);
     tc = (tc + 1u) & 2047u;
   }
 }
 
-// mosaic_probe3.py:206 k_scal_only.
+// mosaic_probe3.py:206 k_scal_only, over the staged table (walk_kernel
+// stages it for this walk alone).
 struct ScalOnly {
   static constexpr int kTable = kN1d, kTags = 2048;
   __device__ static uint32_t run(uint32_t tab, uint32_t tags, int k) {
-    uint32_t p = 0, tc = 0;
-    for (int i = 0; i < k; ++i) scal_chunk(tab, tags, p, tc);
-    return p + tc + lds(tags);
+    uint32_t a = tab, tc = 0;
+    for (int i = 0; i < k; ++i) scal_chunk(tab, tags, a, tc);
+    return ((a - tab) >> 2) + tc + lds(tags);
   }
 };
 
@@ -380,7 +399,11 @@ walk_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, in
             long long* cycles) {
   extern __shared__ __align__(16) int32_t walk_smem[];
   __shared__ int32_t result;
-  for (int i = threadIdx.x; i < W::kTable; i += blockDim.x) walk_smem[i] = table[i];
+  if constexpr (std::is_same_v<W, ScalOnly>) {
+    scal_stage(walk_smem, table);
+  } else {
+    for (int i = threadIdx.x; i < W::kTable; i += blockDim.x) walk_smem[i] = table[i];
+  }
   for (int i = threadIdx.x; i < W::kTags; i += blockDim.x) walk_smem[W::kTable + i] = kUnwritten;
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -401,52 +424,28 @@ constexpr int walk_smem_bytes() {
 
 // --------------------------------------------------------------- products
 
-using namespace nvcuda;
-
-// bf16 fragments loaded with the .shared form of wmma.load: through
-// wmma::load_matrix_sync the bf16 fragments compile to generic 32-bit loads
-// (LD.E) instead of ldmatrix.  The loads are volatile, so they stay in the
-// loop, and the products they feed with them.
-template <class Frag, int N>
-__device__ __forceinline__ void to_frag(Frag& f, const uint32_t (&r)[N]) {
-  static_assert(sizeof(f.x) == 4 * N, "fragment size");
-  memcpy(f.x, r, sizeof(f.x));
-}
-
-__device__ __forceinline__ void load_a8x32(
-    wmma::fragment<wmma::matrix_a, 8, 32, 16, __nv_bfloat16, wmma::row_major>& f,
-    const __nv_bfloat16* p, int ld) {
-  uint32_t r[2];
-  asm volatile("wmma.load.a.sync.aligned.row.m8n32k16.shared.bf16 {%0, %1}, [%2], %3;"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr_opaque(p)), "r"(ld)
-               : "memory");
-  to_frag(f, r);
-}
-
-__device__ __forceinline__ void load_b8x32(
-    wmma::fragment<wmma::matrix_b, 8, 32, 16, __nv_bfloat16, wmma::row_major>& f,
-    const __nv_bfloat16* p, int ld) {
-  uint32_t r[8];
-  asm volatile(
-      "wmma.load.b.sync.aligned.row.m8n32k16.shared.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, [%8], "
-      "%9;"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]), "=r"(r[6]),
-        "=r"(r[7])
-      : "r"(smem_addr_opaque(p)), "r"(ld)
-      : "memory");
-  to_frag(f, r);
-}
-
-constexpr int kLdh = L + 8;                      // padded bf16 rows (bank spread)
-constexpr int kLdf = L + 4;                      // padded float / int32 rows
-constexpr int kVecWarps = 4;                     // the product chain
+// The (8, 128) @ (128, 128) chain, transposed: y^T = m^T x^T puts x's 8 rows
+// in the N = 8 of mma.sync m16n8k16 (bf16 operands, float sums).  Warp w
+// computes y's columns 32w..32w+31 (m-tiles 2w, 2w + 1 of y^T): m^T's rows
+// for them are its A fragments, held in 64 registers for the whole launch
+// (m is 0 or 1, so a fragment is a mask of bf16 ones).  Lane l's sums of
+// m-tile t are y^T rows 16 t + l / 4 (+ 8), columns 2 (l % 4) and + 1;
+// rounded to bf16 pairs, they are handed on to every warp as the B
+// fragments of k-step t of the next product (lane l: x[l / 4] at columns
+// 16 s + 2 (l % 4), + 1, and + 8) through shared memory, two turns, one
+// barrier of the four warps a product: each lane stores its two pairs as
+// words of y^T row-major (128 rows of 16 bytes, 2 KiB), and the readers
+// take their B-fragment registers with ldmatrix .x4 .trans.  Each warp
+// also turns its own pairs into the B fragments of its own two k-steps
+// (movmatrix .trans), issues their products before the barrier and loads
+// only the other six k-steps.  A product is then 16 mma.sync a warp (two
+// independent sums an m-tile, added after), its hand-off and the barrier.
+constexpr int kVecWarps = 4;                     // one a sub-partition of the SM
 constexpr int kVecThreads = kVecWarps * 32;
+constexpr int kVecWords = 3;                     // check words: iteration 0's products 1-3
 
 struct VecSmem {
-  __nv_bfloat16 m[L * kLdh];                     // d[0:128] & 1
-  __nv_bfloat16 x[8 * kLdh];                     // the carry
-  float y[8 * kLdf];                             // one product's float sums
+  uint32_t carry[2][L * 4];                      // y^T = x^T, bf16 pairs, two turns
 };
 
 // Named barrier 1 over the four product warps only.
@@ -454,73 +453,179 @@ __device__ __forceinline__ void vec_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kVecThreads) : "memory");
 }
 
-// mosaic_probe3.py:175 _vec_chunk: 8 dependent products x = bf16(x @ m),
-// (8, 128) @ (128, 128); warp w computes columns 32w..32w+31 (m8n32k16).
-__device__ __forceinline__ void vec_chunk(VecSmem& s, int warp) {
-  for (int prod = 0; prod < 8; ++prod) {
-    wmma::fragment<wmma::accumulator, 8, 32, 16, float> cf;
-    wmma::fill_fragment(cf, 0.0f);
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
+}
+
+__device__ __forceinline__ uint32_t bf16_one(int32_t v) { return v & 1 ? 0x3F80u : 0u; }
+
+// An 8 x 8 bf16 tile's fragment (lane l: row l / 4, columns 2 (l % 4) and
+// + 1) turned into its transpose's.
+__device__ __forceinline__ uint32_t transpose8x8(uint32_t v) {
+  uint32_t r;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;" : "=r"(r) : "r"(v));
+  return r;
+}
+
+// Four 8 x 8 bf16 tiles, transposed, from the shared rows of 16 bytes at
+// `addr` (lane 8 j + i gives row i of tile j).
+__device__ __forceinline__ void ldsm_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c (+)= a b: m16n8k16, A row-major (4 registers), B column-major (2).
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The k-step a warp's slot s of A and B fragments holds: the warp's own two
+// k-steps first, the others after in order.
+__device__ __forceinline__ int vec_kstep(int warp, int s) {
+  if (s < 2) return 2 * warp + s;
+  const int j = (s - 2) >> 1;                    // the j-th other pair of k-steps
+  return 2 * (j + (j >= warp)) + (s & 1);
+}
+
+// mosaic_probe3.py:175 _vec_chunk: 8 dependent products x = bf16(x @ m);
+// warp w's part, from carry turn 0 back to turn 0, both m-tiles' products
+// issued before either is added up; `own` holds the B fragments of the
+// warp's own k-steps from the last product.  In iteration 0 (kWords; a
+// chunk of its own, so that no branch splits the others) the carry's bf16
+// bits after products 1..kVecWords are summed by position into `words`
+// (this lane's values only).
+template <bool kWords>
+__device__ __forceinline__ void vec_chunk(VecSmem& s, const uint32_t (&a)[2][8][4],
+                                          uint32_t (&own)[4], int warp, int lane,
+                                          unsigned long long (&words)[kVecWords]) {
+  const int g = lane >> 2, q = lane & 3;
+  const uint32_t at = smem_addr_opaque(s.carry[0]) + 16 * lane;
 #pragma unroll
-    for (int kk = 0; kk < L / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 8, 32, 16, __nv_bfloat16, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 8, 32, 16, __nv_bfloat16, wmma::row_major> bf;
-      load_a8x32(af, s.x + kk * 16, kLdh);
-      load_b8x32(bf, s.m + kk * 16 * kLdh + warp * 32, kLdh);
-      wmma::mma_sync(cf, af, bf, cf);
+  for (int prod = 0; prod < 8; ++prod) {
+    const uint32_t turn = at + (prod & 1) * sizeof(s.carry[0]);
+    uint32_t b[16];                              // slot s: b[2 s], b[2 s + 1]
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = own[j];
+    float c[2][2][4] = {};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (k == 2) {                              // the own k-steps issued: the others' turn
+        vec_sync();
+#pragma unroll
+        for (int j = 0; j < 3; ++j) ldsm_trans(b + 4 + 4 * j, turn + 512 * (j + (j >= warp)));
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma16816(c[mt][k & 1], a[mt][k], b[2 * k], b[2 * k + 1]);
     }
-    wmma::store_matrix_sync(s.y + warp * 32, cf, kLdf, wmma::mem_row_major);
-    vec_sync();
-    for (int e = threadIdx.x; e < kOut; e += kVecThreads)
-      s.x[(e >> 7) * kLdh + (e & 127)] = __float2bfloat16_rn(s.y[(e >> 7) * kLdf + (e & 127)]);
-    vec_sync();
+    uint32_t* const dst = s.carry[(prod + 1) & 1];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[mt][0][j] += c[mt][1][j];
+      // y^T rows 16 t + g (+ 8), columns 2 q, + 1: x[2 q] and x[2 q + 1] at
+      // columns 16 t + g (+ 8)
+      const int t = 2 * warp + mt;
+      const uint32_t lo = bf16_pair(c[mt][0][0], c[mt][0][1]);
+      const uint32_t hi = bf16_pair(c[mt][0][2], c[mt][0][3]);
+      dst[(16 * t + g) * 4 + q] = lo;
+      dst[(16 * t + 8 + g) * 4 + q] = hi;
+      own[2 * mt] = transpose8x8(lo);
+      own[2 * mt + 1] = transpose8x8(hi);
+      if (kWords && prod < kVecWords) {
+        const int e = 2 * q * L + 16 * t + g;
+        words[prod] += static_cast<unsigned long long>(e + 1) * (lo & 0xFFFFu) +
+                       static_cast<unsigned long long>(e + L + 1) * (lo >> 16) +
+                       static_cast<unsigned long long>(e + 9) * (hi & 0xFFFFu) +
+                       static_cast<unsigned long long>(e + L + 9) * (hi >> 16);
+      }
+    }
   }
 }
 
 // mosaic_probe3.py:187 k_vec_only (kWalk false) and :214 k_vec_scal (true):
 // warps 0-3 run the product chain; for vec_scal warp 4's thread 0 walks
-// the 256 steps of _scal_chunk over the table in shared memory meanwhile,
-// and all meet at a barrier once an iteration.  The output is int32(acc),
-// plus p + tc + tags[0] for vec_scal.
+// the 256 steps of _scal_chunk over the staged table in shared memory
+// meanwhile, and all meet at a barrier once an iteration.  The output is
+// int32(x), plus p + tc + tags[0] for vec_scal; the kVecWords check words
+// follow the cycles.
 template <bool kWalk>
 __global__ void __launch_bounds__(kVecThreads + (kWalk ? 32 : 0))
 vec_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int k, int32_t* out,
            long long* cycles) {
   extern __shared__ __align__(128) unsigned char vec_smem[];
   VecSmem& s = *reinterpret_cast<VecSmem*>(vec_smem);
+  uint16_t* const x0 = reinterpret_cast<uint16_t*>(s.carry[0]);
+  const auto half = [](int e) { return (e & 127) * 8 + (e >> 7); };   // x[n][k] in y^T
   int32_t* tab = reinterpret_cast<int32_t*>(vec_smem + sizeof(VecSmem));
   __shared__ uint32_t walk_result;
-  const int t = threadIdx.x, warp = t >> 5;
-  for (int e = t; e < L * L; e += blockDim.x)
-    s.m[(e >> 7) * kLdh + (e & 127)] = __float2bfloat16_rn(static_cast<float>(d[e] & 1));
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   for (int e = t; e < kOut; e += blockDim.x)
-    s.x[(e >> 7) * kLdh + (e & 127)] = __float2bfloat16_rn(static_cast<float>(d[e] & 1));
+    x0[half(e)] = static_cast<uint16_t>(bf16_one(d[e]));
   if (kWalk) {
-    for (int i = t; i < static_cast<int>(kN1d); i += blockDim.x) tab[i] = table[i];
+    scal_stage(tab, table);
     for (int i = t; i < 2048; i += blockDim.x) tab[kN1d + i] = kUnwritten;
   }
+  // A fragments of m^T's rows 16 (2 warp + mt) .. + 15, slot s (vec_kstep):
+  // register q holds rows l / 4 (+ 8 for q odd), columns 2 (l % 4), + 1 (+ 8
+  // for q >= 2) of the slot's k-step
+  uint32_t a[2][8][4], own[4] = {};
+  if (warp < kVecWarps) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int sl = 0; sl < 8; ++sl) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = 16 * (2 * warp + mt) + (lane >> 2) + 8 * (q & 1);
+          const int col = 16 * vec_kstep(warp, sl) + 2 * (lane & 3) + 8 * (q >> 1);
+          a[mt][sl][q] = bf16_one(d[col * L + row]) | bf16_one(d[(col + 1) * L + row]) << 16;
+        }
+      }
+    }
+  }
   __syncthreads();
+  if (warp < kVecWarps)                          // the warp's own k-steps of the first product
+    ldsm_trans(own, smem_addr_opaque(s.carry[0]) + 16 * lane + 512 * warp);
+  unsigned long long words[kVecWords] = {};
   const long long t0 = clock64();
   if (warp < kVecWarps) {
     for (int i = 0; i < k; ++i) {
-      vec_chunk(s, warp);
+      if (i == 0)
+        vec_chunk<true>(s, a, own, warp, lane, words);
+      else
+        vec_chunk<false>(s, a, own, warp, lane, words);
       if (kWalk) __syncthreads();
     }
   } else if (kWalk) {                            // warp 4: its lane 0 walks
     const uint32_t at = smem_addr_opaque(tab);
-    uint32_t p = 0, tc = 0;
+    uint32_t p = at, tc = 0;
     for (int i = 0; i < k; ++i) {
       if (t == kVecThreads) scal_chunk(at, at + 4 * kN1d, p, tc);
       __syncwarp();
       __syncthreads();
     }
-    if (t == kVecThreads) walk_result = p + tc + lds(at + 4 * kN1d);
+    if (t == kVecThreads) walk_result = ((p - at) >> 2) + tc + lds(at + 4 * kN1d);
   }
   if (t == 0) cycles[0] = clock64() - t0;
+  if (warp < kVecWarps) {
+#pragma unroll
+    for (int j = 0; j < kVecWords; ++j)
+      atomicAdd(reinterpret_cast<unsigned long long*>(cycles + 1) + j, words[j]);
+  }
   __syncthreads();
   const uint32_t add = kWalk ? walk_result : 0u;
   for (int e = t; e < kOut; e += blockDim.x) {
-    const int32_t v = sat_int(__bfloat162float(s.x[(e >> 7) * kLdh + (e & 127)]));
-    out[e] = static_cast<int32_t>(static_cast<uint32_t>(v) + add);
+    const float v = __uint_as_float(static_cast<uint32_t>(x0[half(e)]) << 16);
+    out[e] = static_cast<int32_t>(static_cast<uint32_t>(sat_int(v)) + add);
   }
 }
 
@@ -843,33 +948,54 @@ taa_wide_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table
   if (r < 8 && c < L) out[r * L + c] = static_cast<int32_t>(acc);
 }
 
-// mosaic_probe3c.py:94 k_inrow_round: par = d[0:256] & 32767 in shared
-// memory; a round: par[r, c] <- par[r, par[r, c] & 127] where
-// par[r, c] >> 7 == r, every element read from the old par, then
-// ^ (i & 1).  Thread t holds elements t + 1024 j (row t / 128 + 8 j).
-__global__ void __launch_bounds__(kBlock)
+// mosaic_probe3c.py:94 k_inrow_round: par = d[0:256] & 32767; a round:
+// par[r, c] <- par[r, par[r, c] & 127] where par[r, c] >> 7 == r, every
+// element read from the old par, then ^ (i & 1).  A row reads only itself,
+// so one warp owns one row and no barrier wider than the warp is left: lane
+// l holds columns l + 32 q in registers, two a register (par < 2^15, so
+// columns l and l + 32 in one, l + 64 and l + 96 in the other), and a
+// gather of column j is two shuffles from lane j % 32 and one byte permute
+// that picks one of their four halves.  kWarps rows a block, 256 / kWarps
+// blocks over the card.  Every row's final state goes to g_state and, as
+// its check word sum_c (c + 1) par[r, c], to cycles[1 + r]; rows 0-7 to
+// out.  cycles[0] is the slowest warp's clock64() span.
+constexpr int kInrowWarps = 2;
+
+template <int kWarps>
+__global__ void __launch_bounds__(kWarps * 32)
 inrow_round_kernel(const int32_t* __restrict__ d, const int32_t* __restrict__ table, int k,
                    int32_t* out, long long* cycles) {
-  extern __shared__ __align__(16) int32_t par[];                       // (256, 128)
-  const int t = threadIdx.x;
-  for (int e = t; e < 256 * L; e += kBlock) par[e] = d[e] & 32767;
-  __syncthreads();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, r = blockIdx.x * kWarps + w;
+  int32_t v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = d[r * L + lane + 32 * q] & 32767;
   const long long t0 = clock64();
   for (int i = 0; i < k; ++i) {
-    int32_t nxt[32];
+    const uint32_t u0 = v[0] | v[1] << 16, u1 = v[2] | v[3] << 16;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int e = t + j * kBlock, row = e >> 7;
-      const int32_t p = par[e];
-      nxt[j] = ((p >> 7) == row ? par[row * L + (p & 127)] : p) ^ (i & 1);
+    for (int q = 0; q < 4; ++q) {
+      const int32_t p = v[q], j = p & 127;
+      const uint32_t x0 = __shfl_sync(0xFFFFFFFFu, u0, j & 31);
+      const uint32_t x1 = __shfl_sync(0xFFFFFFFFu, u1, j & 31);
+      const uint32_t h2 = (j >> 4) & 6u;         // bytes 2 h, 2 h + 1 of {x1, x0}, h = j / 32
+      const int32_t g = static_cast<int32_t>(__byte_perm(x0, x1, h2 | (h2 + 1) << 4) & 0xFFFFu);
+      v[q] = ((p >> 7) == r ? g : p) ^ (i & 1);
     }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 32; ++j) par[t + j * kBlock] = nxt[j];
-    __syncthreads();
   }
-  if (t == 0) cycles[0] = clock64() - t0;
-  out[t] = par[t];
+  if (lane == 0)
+    atomicMax(reinterpret_cast<unsigned long long*>(cycles),
+              static_cast<unsigned long long>(clock64() - t0));
+  unsigned long long word = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int c = lane + 32 * q;
+    g_state[r * L + c] = v[q];
+    if (r < 8) out[r * L + c] = v[q];
+    word += static_cast<unsigned long long>(c + 1) * static_cast<uint32_t>(v[q]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) word += __shfl_xor_sync(0xFFFFFFFFu, word, o);
+  if (lane == 0) cycles[1 + r] = static_cast<long long>(word);
 }
 
 // -------------------------------------------------------------- launching
@@ -950,7 +1076,8 @@ GATHER_ENTRY(gv2_r256_e2048_l2, 256, 2048, 0xFFFFu)
 GATHER_ENTRY(gv2_r256_e4096_l2, 256, 4096, 0xFFFFu)
 GATHER_ENTRY(gv2_r136_e2048_l2, 136, 2048, 0xFFFFu)
 GATHER_ENTRY(gv2_r256_e2048_l1, 256, 2048, 0xFFu)
-PROBE3_ENTRY(inrow_round, inrow_round_kernel, 1, kBlock, 256 * L * 4, false)
+PROBE3_ENTRY(inrow_round, inrow_round_kernel<kInrowWarps>, 256 / kInrowWarps, kInrowWarps * 32,
+             0, false)
 
 #undef GATHER_ENTRY
 #undef WALK_ENTRY

@@ -685,8 +685,10 @@ def probe_cases(seed: int) -> list:
                             (lambda n, k, d, t: lambda: [pb.probe(n, k, d, t, device="cpu")])(name, k, d, t)))
             if name in pb.WORDS:
                 out.append(Case(pr.lib, f"{name} check words K={k}",
-                                _staged(lambda d, n=name, k=k: pb.words(n, k, d), [d]),
-                                (lambda n, k, d: lambda: [pb.words(n, k, d, device="cpu")])(name, k, d)))
+                                _staged(lambda d, *t, n=name, k=k: pb.words(n, k, d, *(t or (None,))),
+                                        [d] + ([] if t is None else [t])),
+                                (lambda n, k, d, t: lambda: [pb.words(n, k, d, t, device="cpu")])(
+                                    name, k, d, t)))
     return out
 
 

@@ -26,8 +26,9 @@ Here each probe is a kernel of ``csrc/probe.cu``, ``csrc/probe3.cu`` or
 int32 (8, 128) ``o_ref`` for the same K, input and second input), written
 for Hopper: the scalar walks are one thread walking a table in shared or
 global memory, the vector probes 128 or 1024 threads, the products
-tensor-core products (``wgmma`` for the 128-row ones, ``wmma`` for the
-8-row chains), the rolls a 128-lane rotate through shared
+tensor-core products (``wgmma`` for the 128-row ones, ``mma.sync`` at N = 8
+for the 8-row chains, computed transposed), ``inrow_round`` a warp a row
+over 128 blocks, the rolls a 128-lane rotate through shared
 memory, the window copy a ``cp.async.bulk`` into shared memory, the wide
 gathers 1024 threads gathering by address from a table in shared memory,
 the lane gathers one thread a chain; ``csrc/probe4.cu`` builds its probes on
@@ -52,17 +53,19 @@ it has no kernel and no plain version: :func:`probe` raises the JAX
 * :func:`measure` — ns and SM cycles per iteration on the card: the
   CUDA-event slope between launches at k_lo and k_hi (as the JAX ``slope``,
   which drops the launch cost), and the ``clock64()`` slope of the loop
-  inside the kernel; the result at k_hi held against the plain version;
-  for a product probe, one SM's bound in cycles and the share of it
-  reached (:func:`sm_bound`: a probe is one block).
+  inside the kernel; the result at k_hi (and the check words, ``WORDS``,
+  of the probes whose output hides what they compute) held against the
+  plain version; the share of the card's bound reached; for a product
+  probe, one SM's bound in cycles and the share of it reached
+  (:func:`sm_bound`: a probe is one block).
 * :func:`smem_cap` / :func:`smem_capacity` — whether a (rows, 128) int32
   shared-memory scratch launches, and the largest dynamic shared memory in
   bytes that a block launches with, found by bisection.
 
 Run:  python -m csnappy_tpu_torch.tools.probe [names] [--smem] [--device cpu]
-prints one JSON line per probe, then one JSON line of all.  Each launch is
-counted in ``probe.launches[name]``.  There is no fallback: without a card
-``device=None`` raises, and a kernel that fails to build or launch raises.
+prints one JSON line per probe, then one JSON line of all.  Each launch is counted in ``probe.launches[name]``.
+There is no fallback: without a card ``device=None`` raises, and a kernel
+that fails to build or launch raises.
 """
 from __future__ import annotations
 
@@ -516,6 +519,30 @@ def vec_only_plain(k: int, d: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return _sat_int32(_vec_acc(k, d)).int()
 
 
+VEC_WORDS = 3                   # vec_kernel's check words: iteration 0's products 1-3
+
+
+def vec_words(k: int, d: torch.Tensor) -> torch.Tensor:
+    """The check words ``vec_kernel`` adds after its cycles (``vec_only``,
+    ``vec_scal``): its int32 output is INT32_MAX at K = 1 and 0 from K = 3
+    whatever the products computed, so these hold it to the carry itself.
+    Word j is the sum over the carry's 1,024 values after product j + 1 of
+    iteration 0 of (e + 1) times its bf16 bits (e its row-major index); 0
+    at K = 0.  On any input every float sum of these three products is an
+    integer of at most 128^3 = 2^21 (m is 0 or 1, the carry starts at 0 or
+    1), so exact in any summation order; the fourth's may pass 2^24."""
+    if k == 0:
+        return torch.zeros(VEC_WORDS, dtype=torch.int64)
+    m = (d[:128] & 1).float()
+    x = (d[:8] & 1).to(torch.bfloat16)
+    w = torch.arange(1, 8 * L + 1, dtype=torch.int64)
+    out = []
+    for _ in range(VEC_WORDS):
+        x = (x.float() @ m).to(torch.bfloat16)
+        out.append((w * (x.view(torch.int16).long().reshape(-1) & 0xFFFF)).sum())
+    return torch.stack(out)
+
+
 def vec_scal_plain(k: int, d: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """mosaic_probe3.py:214 ``k_vec_scal``: the vector chunk and the 256-step
     walk an iteration, independent; ``int32(acc) + p + tc + tags[0]``."""
@@ -602,16 +629,28 @@ def taa_plain(nrows: int, ncols: int, axis: int, k: int, d: torch.Tensor) -> tor
     return acc.int()
 
 
+def _inrow_rounds(k: int, d: torch.Tensor, rows: int) -> torch.Tensor:
+    """Rows 0..rows-1 of par after k rounds of mosaic_probe3c.py:94."""
+    par = (d[:rows] & 32767).long()
+    row = torch.arange(rows)[:, None]
+    for i in range(k):
+        par = torch.where((par >> 7) == row, par.gather(1, par & 127), par) ^ (i & 1)
+    return par
+
+
 def inrow_round_plain(k: int, d: torch.Tensor) -> torch.Tensor:
     """mosaic_probe3c.py:94 ``k_inrow_round``: a synchronous pointer-jumping
     round ``par[r, c] <- par[r, par[r, c] & 127]`` where ``par[r, c] >> 7 == r``,
     then ``^ (i & 1)``; par = d[0:256] & 32767.  A row reads only itself,
     so rows 0-7 run alone here."""
-    par = (d[:8] & 32767).long()
-    row = torch.arange(8)[:, None]
-    for i in range(k):
-        par = torch.where((par >> 7) == row, par.gather(1, par & 127), par) ^ (i & 1)
-    return par.int()
+    return _inrow_rounds(k, d, 8).int()
+
+
+def inrow_round_words(k: int, d: torch.Tensor) -> torch.Tensor:
+    """The 256 check words ``inrow_round_kernel`` writes after its cycles,
+    one a row of the whole (256, 128) par after k rounds: the sum over the
+    row of (c + 1) times par[r, c].  Only rows 0-7 reach the output."""
+    return (torch.arange(1, L + 1) * _inrow_rounds(k, d, 256)).sum(1)
 
 
 # ---------------------------------------------- plain versions, mosaic_probe3b.py
@@ -1137,26 +1176,32 @@ def probe(name: str, k: int, data, second=None, device=None) -> torch.Tensor:
 probe.launches = {name: 0 for name in PROBES}
 
 # probes whose kernel adds check words after its cycles: their plain
-# version and their count
-WORDS = {"mosaic_probe.mm_small": (mm_small_words, 3)}
+# version (k, d) and their count
+WORDS = {"mosaic_probe.mm_small": (mm_small_words, 3),
+         "mosaic_probe3.vec_only": (vec_words, VEC_WORDS),
+         "mosaic_probe3.vec_scal": (vec_words, VEC_WORDS),
+         "mosaic_probe3c.inrow_round": (inrow_round_words, 256)}
 
 
-def words(name: str, k: int, data, device=None) -> torch.Tensor:
+
+def words(name: str, k: int, data, second=None, device=None) -> torch.Tensor:
     """The int64 check words of probe ``name`` (a key of ``WORDS``) after
-    ``k`` iterations on ``data``: on the card (``device=None``) what its
-    kernel wrote after its cycles, one launch counted as :func:`probe`
-    counts it; with ``device="cpu"`` the plain version's."""
+    ``k`` iterations on ``data`` and its ``second`` input, if it has one: on
+    the card (``device=None``) what its kernel wrote after its cycles, one
+    launch counted as :func:`probe` counts it; with ``device="cpu"`` the
+    plain version's."""
     name = resolve(name)
     if name not in WORDS:
         raise ValueError(f"{name} has no check words")
     dev = resolve_device(device)
-    refuse_card_tensors(dev, data)
+    refuse_card_tensors(dev, data, second)
     if not 0 <= k < 1 << 31:
         raise ValueError(f"k must be in [0, 2^31), got {k}")
     d = _as_input(name, data, dev)
+    t = _as_second(name, second, dev)
     if dev.type == "cpu":
         return WORDS[name][0](k, d)
-    return _launch(name, k, d)[1][1:]
+    return _launch(name, k, d, t)[1][1:]
 
 
 _REFUSED = (1, 701)             # cudaErrorInvalidValue, cudaErrorLaunchOutOfResources
@@ -1273,9 +1318,10 @@ def slope(run: Callable[[int], tuple[torch.Tensor, torch.Tensor]], k_lo: int, k_
 def measure(name: str, seed: int = 0, device=None, reps: int = 5) -> dict:
     """One probe on ``device`` (None = the card): ns and cycles per iteration
     from the slope between K = k_lo and K = k_hi, the ms of one launch at
-    k_hi, and whether its output at k_hi (and its check words, ``WORDS``)
-    equals the plain version's.  With ``device="cpu"`` only the plain
-    version runs and no time is measured."""
+    k_hi and its share of the card's bound (``bound_share``), and whether
+    its output at k_hi (and its check words, ``WORDS``) equals the plain
+    version's.  With ``device="cpu"`` only the plain version runs and no
+    time is measured."""
     name = resolve(name)
     _traces(name)
     pr = PROBES[name]
@@ -1289,8 +1335,8 @@ def measure(name: str, seed: int = 0, device=None, reps: int = 5) -> dict:
     rec["plain_ms"] = (time.perf_counter() - t0) * 1e3
     rec["bound_ms"], rec["bound_by"] = _bound(name, pr.k_hi)
     if dev.type == "cpu":
-        rec.update(ns_per_iter=None, cycles_per_iter=None, ms=None, result_equals_plain=True,
-                   max_abs_err=0, **sm_bound(name))
+        rec.update(ns_per_iter=None, cycles_per_iter=None, ms=None, bound_share=None,
+                   result_equals_plain=True, max_abs_err=0, **sm_bound(name))
         return rec
     d = _as_input(name, data, dev)
     if pr.entry == "smem_cap":
@@ -1305,13 +1351,13 @@ def measure(name: str, seed: int = 0, device=None, reps: int = 5) -> dict:
     else:
         t = _as_second(name, table, dev)
         ns, cycles, ms, got = slope(lambda k: _launch(name, k, d, t), pr.k_lo, pr.k_hi, reps)
-        rec.update(ns_per_iter=ns, cycles_per_iter=cycles, ms=ms)
+        rec.update(ns_per_iter=ns, cycles_per_iter=cycles, ms=ms, bound_share=rec["bound_ms"] / ms)
     rec.update(sm_bound(name, rec["cycles_per_iter"]))
     diff = (got.cpu().long() - want.long()).abs()
     rec["max_abs_err"] = int(diff.max())
     rec["result_equals_plain"] = rec["max_abs_err"] == 0
     if name in WORDS:                       # one more launch at k_hi, for its check words
-        rec["words_equal_plain"] = torch.equal(words(name, pr.k_hi, d, dev).cpu(),
+        rec["words_equal_plain"] = torch.equal(words(name, pr.k_hi, d, table, dev).cpu(),
                                                WORDS[name][0](pr.k_hi, host))
         rec["result_equals_plain"] &= rec["words_equal_plain"]
     return rec
@@ -1325,16 +1371,17 @@ WGMMA_KERNELS = {
     "mosaic_probe.mm_small": ("probe", "mm_small_kernel", "HGMMA", 8),
 }
 SERIALIZED = "wgmma.mma_async instructions are serialized"     # ptxas's warning
-_SASS_INS = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)$")
+_SASS_INS = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?\w+\s+)?([A-Z][A-Za-z0-9_.]*)(.*)$")
 _SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _SASS_TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
 
 
-def sass_loops(sass: str, function: str) -> tuple[list[str], list[list[str]]]:
-    """The opcodes (their first word) of the one function of ``cuobjdump
-    -sass`` output whose mangled name holds ``function``, and those of each
-    loop: from a branch's target (a label or an address) to the branch,
-    where the target comes first."""
+def sass_loops(sass: str, function: str, full: bool = False) -> tuple[list[str], list[list[str]]]:
+    """The opcodes (their first word; ``full``: with their suffixes, as
+    ``HMMA.16816.F32.BF16``) of the one function of ``cuobjdump -sass``
+    output whose mangled name holds ``function``, and those of each loop:
+    from a branch's target (a label or an address) to the branch, where the
+    target comes first."""
     bodies = [c.split("\n", 1)[1] for c in sass.split("Function : ")[1:]
               if function in c.split("\n", 1)[0]]
     if len(bodies) != 1:
@@ -1349,8 +1396,31 @@ def sass_loops(sass: str, function: str) -> tuple[list[str], list[list[str]]]:
             target = _SASS_TARGET.search(m.group(3))
             if op == "BRA" and target:
                 branches.append((len(ops), target.group(1) or int(target.group(2), 16)))
-            ops.append(op)
+            ops.append(m.group(2) if full else op)
     return ops, [ops[at[t]:b + 1] for b, t in branches if at.get(t, b + 1) <= b]
+
+
+def kernel_sass(lib: str, function: str, full: bool = False) -> tuple[list[str], list[list[str]]]:
+    """:func:`sass_loops` of kernel ``function`` in the built library
+    ``lib`` (``cuobjdump -sass``)."""
+    path = _build.build((lib,))[lib]
+    cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(path)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    return sass_loops(text, function, full)
+
+
+# the two probes redesigned around warps (csrc/probe3.cu): the kernel's
+# mangled name, which pins its template arguments (vec_kernel's kWalk;
+# inrow_round_kernel's two warps a block, so 128 blocks of the 256 rows,
+# the grid of its entry), and what its loops must issue.  The
+# vec chain: mma.sync m16n8k16 bf16 -> f32 (x's 8 rows as N), 16 a warp a
+# product (2 m-tiles x 8 k-steps); inrow_round: no block barrier (BAR) in
+# the loop of its gathers (shuffles within the row's warp)
+VEC_KERNELS = {"mosaic_probe3.vec_only": "vec_kernelILb0EE",
+               "mosaic_probe3.vec_scal": "vec_kernelILb1EE"}
+VEC_MMA, VEC_MMA_PER_PRODUCT = "HMMA.16816.F32.BF16", 16
+INROW_KERNEL, INROW_GATHER = "inrow_round_kernelILi2EE", "SHFL"
 
 
 def wgmma_sass(name: str) -> dict:
@@ -1360,11 +1430,7 @@ def wgmma_sass(name: str) -> dict:
     ``IMMA``) in the kernel, and whether ptxas's build log says it
     serialized the library's wgmma."""
     lib, function, op, per = WGMMA_KERNELS[resolve(name)]
-    path = _build.build((lib,))[lib]
-    cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(path)], check=True, capture_output=True,
-                          text=True, timeout=300).stdout
-    ops, loops = sass_loops(text, function)
+    ops, loops = kernel_sass(lib, function)
     return {"wgmma": op, "per_product": per, "in_kernel": ops.count(op),
             "in_loops": [body.count(op) for body in loops if op in body],
             "warp_mma": ops.count("HMMA") + ops.count("IMMA"),

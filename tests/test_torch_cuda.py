@@ -19,7 +19,7 @@ import torch
 from csnappy_tpu_torch import api
 from csnappy_tpu_torch.errors import E_DATA_MALFORMED, SnappyError
 from csnappy_tpu_torch.models import pymodel, wire
-from csnappy_tpu_torch.ops import decode_fused, encode_fused
+from csnappy_tpu_torch.ops import _build, decode_fused, encode_fused
 from csnappy_tpu_torch.ops import kernel_lib as kl
 from csnappy_tpu_torch.ops import primitives as prim
 from csnappy_tpu_torch.tools import probe as pb
@@ -1197,8 +1197,9 @@ def test_probe_kernel_equals_plain_and_fixture(card, probe_fixture, name):
         if key is not None:
             assert np.array_equal(got.cpu().numpy(), probe_fixture[key]), key
         if name in pb.WORDS:        # what the int32 output hides (mm_small's zeros), exactly
-            words = pb.words(name, int(k), host.to(card)).cpu()
-            assert torch.equal(words, pb.words(name, int(k), host, device="cpu")), (name, case, k)
+            words = pb.words(name, int(k), host.to(card), tab).cpu()
+            assert torch.equal(words, pb.words(name, int(k), host, htab, device="cpu")), (
+                name, case, k)
     assert pb.probe.launches[name] == before + len(runs) * (2 if name in pb.WORDS else 1)
 
 
@@ -1211,6 +1212,27 @@ def test_tensor_probe_loops_issue_wgmma(card, name):
     assert s["in_loops"] and all(n % s["per_product"] == 0 for n in s["in_loops"]), s
     assert s["in_kernel"] >= max(s["in_loops"]), s
     assert s["warp_mma"] == 0 and not s["serialized"], s
+
+
+@pytest.mark.parametrize("name", sorted(pb.VEC_KERNELS) + ["mosaic_probe3c.inrow_round"])
+def test_redesigned_probe_loops_keep_their_design(card, name):
+    # the vec chain: every tensor-core product of the kernel is mma.sync at
+    # N = 8 (m16n8k16, x's 8 rows as N), each loop that issues any issues
+    # whole products (16 a warp), and ptxas serialized nothing; inrow_round:
+    # the built kernel is the two-warp instance (128 blocks of the 256 rows;
+    # kernel_sass finds exactly one function of that mangled name), and its
+    # round loop (its gathers) holds no block barrier
+    if name in pb.VEC_KERNELS:
+        ops, loops = pb.kernel_sass("probe3", pb.VEC_KERNELS[name], full=True)
+        mma = {op for op in ops if op.split(".")[0] in ("HMMA", "IMMA", "HGMMA", "IGMMA")}
+        assert mma == {pb.VEC_MMA}, mma
+        counts = [body.count(pb.VEC_MMA) for body in loops if pb.VEC_MMA in body]
+        assert counts and all(n % pb.VEC_MMA_PER_PRODUCT == 0 for n in counts), counts
+        assert pb.SERIALIZED not in _build.log_path("probe3").read_text()
+        return
+    ops, loops = pb.kernel_sass("probe3", pb.INROW_KERNEL, full=True)
+    rounds = [body for body in loops if any(op.startswith(pb.INROW_GATHER) for op in body)]
+    assert rounds and not [op for body in rounds for op in body if op.startswith("BAR")], rounds
 
 
 def test_probe_shared_memory_capacity(card, probe_fixture):

@@ -108,7 +108,7 @@ def test_every_probe_has_fixture_cases():
     names = {key.split("__")[0] for key in FIXTURE if "__k" in key}
     assert names == set(pb.TIMED)
     assert len(CASES) == 19 * len(MAKER.PROBE_KS) + 5 * len(MAKER.WALK_NS)
-    assert len(CASES3) == (39 + 5) * len(MAKER.PROBE3_KS)
+    assert len(CASES3) == (39 + 7) * len(MAKER.PROBE3_KS)
     # 20 probes with a kernel on their own inputs, and 16 + 2 + 4 constructed runs
     assert len(CASES4) == (20 + 22) * len(MAKER.PROBE4_KS)
     assert {key for key in FIXTURE if key.startswith(("mosaic_probe4", "mosaic_probe6"))} == {
@@ -279,6 +279,71 @@ def test_mm_small_check_words_see_what_the_cast_hides():
         pb.words("dot_s8", 1, d, device="cpu")
 
 
+def _jax_vec_carries(d: np.ndarray, products: int) -> list[np.ndarray]:
+    """The carry after each of the first ``products`` products of
+    mosaic_probe3.py:175 ``_vec_chunk``, in jnp: bf16 operands, float32
+    sums (``preferred_element_type``), rounded to bf16; as uint16 bits."""
+    import jax
+    import jax.numpy as jnp
+
+    m = (jnp.asarray(d[0:128]) & 1).astype(jnp.bfloat16)
+    x = (jnp.asarray(d[0:8]) & 1).astype(jnp.bfloat16)
+    out = []
+    for _ in range(products):
+        x = jax.lax.dot_general(x, m, dimension_numbers=(((1,), (0,)), ((), ())),
+                                preferred_element_type=jnp.float32).astype(jnp.bfloat16)
+        out.append(np.asarray(jax.lax.bitcast_convert_type(x, jnp.uint16)))
+    return out
+
+
+@pytest.mark.parametrize("name, k", [(n, k) for n in ("vec_only", "vec_scal") for k in (0, 1, 3)])
+def test_vec_check_words_hold_the_jax_carry(name, k):
+    # the int32 output is INT32_MAX at K = 1 and 0 from K = 3 whatever the
+    # products computed; the words are iteration 0's carry after products
+    # 1-3 as the JAX body computes it, weighted by position
+    d = FIXTURE["data"]
+    got = pb.words(name, k, d, pb.second_input(name), device="cpu")
+    assert pb.WORDS[f"mosaic_probe3.{name}"] == (pb.vec_words, pb.VEC_WORDS)
+    assert got.dtype == torch.int64
+    weight = np.arange(1, 8 * 128 + 1, dtype=np.int64)
+    want = [int((weight * x.reshape(-1).astype(np.int64)).sum()) for x in
+            _jax_vec_carries(d, pb.VEC_WORDS)] if k else [0] * pb.VEC_WORDS
+    assert got.tolist() == want
+    if k == 3:
+        # m transposed (a fragment layout fault) or one carry bit off: the
+        # output is the same, the words are not
+        bad = d.copy()
+        bad[:128] = (d[:128] & ~1) | (d[:128] & 1).T
+        assert torch.equal(pb.probe(name, 3, bad, pb.second_input(name), device="cpu"),
+                           pb.probe(name, 3, d, pb.second_input(name), device="cpu"))
+        assert (pb.words(name, 3, bad, pb.second_input(name), device="cpu") != got).all()
+        bad = d.copy()
+        bad[0, 5] ^= 1
+        assert (pb.words(name, 3, bad, pb.second_input(name), device="cpu") != got).all()
+
+
+@pytest.mark.parametrize("data, k", [(c, k) for c in ("p3c_data", "case_inrow")
+                                     for k in (0, 1, 3, 37)])
+def test_inrow_round_words_hold_every_row(data, k):
+    # the 256 words are the whole (256, 128) par after k rounds as the JAX
+    # body computes it (mosaic_probe3c.py:94, take_along_axis over the whole
+    # table), sum_c (c + 1) par[r, c] a row; rows 0-7 are the output
+    import jax.numpy as jnp
+
+    d = FIXTURE[data]
+    par = jnp.asarray(d[0:256]) & 32767
+    row = jnp.arange(256)[:, None]
+    for i in range(k):
+        nxt = jnp.take_along_axis(par, par & 127, axis=1)
+        par = jnp.where((par >> 7) == row, nxt, par) ^ (i & 1)
+    par = np.asarray(par).astype(np.int64)
+    got = pb.words("inrow_round", k, d, device="cpu")
+    assert got.shape == (256,) and got.tolist() == (par * np.arange(1, 129)).sum(1).tolist()
+    out = pb.probe("inrow_round", k, d, device="cpu").numpy()
+    assert np.array_equal(out, par[:8]) and np.array_equal(
+        out, FIXTURE[f"mosaic_probe3c.inrow_round__{'inrow_' if data == 'case_inrow' else ''}k{k}"])
+
+
 SASS = """
 \tcode for sm_90a
 \t\tFunction : _ZN12_GLOBAL__N_115mm_small_kernelEPKiiPiPx
@@ -322,6 +387,30 @@ def test_sass_loops_reads_a_kernel_and_its_loops():
     with pytest.raises(ValueError, match="2 functions"):
         pb.sass_loops(SASS, "_GLOBAL__N_")
     assert set(pb.WGMMA_KERNELS) <= {n for n, p in pb.PROBES.items() if p.tensor}
+    ops, loops = pb.sass_loops(SASS, "mm_small_kernel", full=True)
+    assert ops[4] == "HGMMA.64x128x16.F32.BF16" and loops[0] == ["STS", "BRA"]
+    assert loops[1][-2:] == ["BAR.SYNC.DEFER_BLOCKING", "BRA"]
+
+
+def test_vec_chain_on_a_permutation_holds_every_product():
+    # case_vecperm's m is a permutation P (one 127-cycle and a fixed point
+    # off rows 0-7), so the carry stays one exact 1 a row at every K and the
+    # int32 output, x0 P^(8K), counts every product of every iteration: one
+    # product more or fewer, or one computed with P transposed, moves a 1
+    # (the plain versions meet these answers in test_plain_equals_the_jax_probe3)
+    d = FIXTURE["case_vecperm"]
+    assert sorted(np.flatnonzero(d[:128] & 1) % 128) == list(range(128))
+    perm = np.argmax(d[:128] & 1, axis=1)
+    seen = set()
+    for k in MAKER.PROBE3_KS:
+        col = np.arange(8)
+        for _ in range(8 * k + 1):
+            col = perm[col]
+        want = np.zeros((8, 128), np.int32)
+        want[np.arange(8), col] = 1
+        assert np.array_equal(FIXTURE[f"mosaic_probe3.vec_only__vecperm_k{k}"], want), k
+        seen.add(tuple(col))
+    assert len(seen) == len(MAKER.PROBE3_KS)
 
 
 def test_smem_cap_plain_equals_the_interpreter():

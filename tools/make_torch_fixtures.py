@@ -1138,7 +1138,9 @@ PROBE3_CASES = {"mosaic_probe3c.inrow_round": "inrow",
                 "mosaic_probe3b.scatter_oc256_e2048_l2": "collide",
                 "mosaic_probe3b.scatter_oc256_e2048_l4": "collide",
                 "mosaic_probe3.scan_tril": "rowfull",
-                "mosaic_probe3.scan_mm_cur": "rowfull"}
+                "mosaic_probe3.scan_mm_cur": "rowfull",
+                "mosaic_probe3.vec_only": "vecperm",
+                "mosaic_probe3.vec_scal": "vecperm"}
 
 
 def probe_module(name: str):
@@ -1177,7 +1179,12 @@ def build_probe3_inputs() -> dict[str, np.ndarray]:
     elements in eight, ``case_collide``, whose rows 0-15 lie in [0, 512), so
     the scatters' positions collide in rows 0-7, and ``case_rowfull``,
     ``data`` with rows 0 and 3 all 0x1FFFF, so at odd i those rows of the
-    scans total 2^24, which ``scan_tril``'s three 8-bit limbs drop."""
+    scans total 2^24, which ``scan_tril``'s three 8-bit limbs drop, and
+    ``case_vecperm``, whose ``& 1`` in rows 0-127 is a permutation matrix P
+    of one 127-cycle and one fixed point (not among rows 0-7): the vec
+    chain's carry x P stays one 1 a row, exact at every K, so its int32
+    output is x0 P^(8K) and holds every product of every iteration, where
+    on ``data`` it saturates at K = 1 and is 0 from K = 3."""
     out = {}
     rng = np.random.default_rng(0)
     data = rng.integers(0, 2**20, (304, 128), dtype=np.int32)
@@ -1199,6 +1206,14 @@ def build_probe3_inputs() -> dict[str, np.ndarray]:
     rowfull = data.copy()
     rowfull[[0, 3]] = 0x1FFFF
     out["case_rowfull"] = rowfull
+    rng = np.random.default_rng(SEED + 6)
+    fixed = int(rng.integers(8, 128))
+    cycle = rng.permutation(np.delete(np.arange(128), fixed))
+    perm = np.arange(128)
+    perm[cycle] = np.roll(cycle, -1)                # row r's 1 at column perm[r]
+    vecperm = rng.integers(0, 2**20, (304, 128)) & ~1
+    vecperm[np.arange(128), perm] |= 1
+    out["case_vecperm"] = vecperm.astype(np.int32)
     return out
 
 
